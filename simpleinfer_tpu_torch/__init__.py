@@ -1,0 +1,25 @@
+"""simpleinfer_tpu_torch — the PyTorch/CUDA port of simpleinfer_tpu.
+
+The same pnnx-IR inference engine and `Engine` surface, on PyTorch, for
+an NVIDIA H100: plain tensor code is PyTorch, and each Pallas TPU kernel
+of the JAX package becomes a kernel written by hand for Hopper
+(kernels/, sources in csrc/). The JAX package stays the reference; this
+package imports neither jax nor simpleinfer_tpu.
+
+Ported so far: the YOLOv5 path — IR, fusions, the YOLOv5 builder, the
+ops it lowers to, weight-only int8, the executor and the Engine — with
+`matmul` / `matmul_int8w` as a CUDA kernel.
+"""
+from .config import EngineConfig
+from .engine import Engine, EngineStateError
+from .executor import Program, build_program
+from .ir.graph import Graph
+
+__all__ = [
+    "Engine",
+    "EngineConfig",
+    "EngineStateError",
+    "Graph",
+    "Program",
+    "build_program",
+]

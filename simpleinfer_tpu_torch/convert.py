@@ -1,0 +1,52 @@
+"""Carry the JAX package's program weights over to the port.
+
+`program_weights_from_numpy` takes a JAX `Program.weights` tree that the
+caller converted to numpy — {op: {key: ndarray | (int8 data, f32 scale,
+axis)}} — and returns the port's weights for the same graph, ready to
+hand to the port's `Program.fn`. Both packages then run on the SAME
+quantized bytes. Keys line up one to one (both packages keep HWIO conv
+weights and per-output-channel scales), except for:
+- the Detect decode tables: per level (`gridc{i}`, `anchorc{i}`) in the
+  JAX package, row-concatenated (`grid`, `anchor`) in the port;
+- the block-Toeplitz stem packs `bt_in{g}` of the JAX package's W-packed
+  chain (a TPU layout means the port does not carry), which are dropped.
+
+Tensors are placed on `device` as they are; casting to a compute dtype
+is the caller's (Engine.place_weights).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.yolo import detect_tables
+from .quant.tensor import QuantizedTensor
+
+
+def _tensor(a, device) -> torch.Tensor:
+    # a copy: arrays fetched from JAX are read-only
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def program_weights_from_numpy(weights: dict, device="cpu") -> dict:
+    out = {}
+    for opname, wdict in weights.items():
+        port = {}
+        for key, v in wdict.items():
+            if key.startswith(("bt_in", "gridc", "anchorc")):
+                continue
+            if isinstance(v, tuple):
+                data, scale, axis = v
+                port[key] = QuantizedTensor(
+                    data=_tensor(np.asarray(data, np.int8), device),
+                    scale=_tensor(np.asarray(scale, np.float32), device),
+                    axis=int(axis))
+            else:
+                port[key] = _tensor(v, device)
+        if "gridc0" in wdict:
+            levels = sorted(int(k[5:]) for k in wdict if k.startswith("gridc"))
+            tables = detect_tables([(wdict[f"gridc{i}"], wdict[f"anchorc{i}"])
+                                    for i in levels])
+            port.update({k: _tensor(v, device) for k, v in tables.items()})
+        out[opname] = port
+    return out

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper, the counterparts of the JAX
+package's Pallas TPU kernels (simpleinfer_tpu/kernels/). Each wrapper
+runs its plain PyTorch version for CPU tensors and launches its kernel
+(or raises) for CUDA tensors.
+
+- matmul.py: `matmul` / `matmul_int8w` (csrc/matmul.cu)
+
+The submodules are not re-exported by function name, so
+`kernels.matmul` stays the module (its `launches` counter lives there).
+"""

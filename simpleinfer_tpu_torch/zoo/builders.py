@@ -1,0 +1,309 @@
+"""Programmatic pnnx graph builders: the YOLOv5 family, ported subset.
+
+A copy of `GraphBuilder` (the layers YOLOv5 uses) and `build_yolov5` from
+simpleinfer_tpu/zoo/builders.py (numpy only), so the port builds the
+same graphs with the same seeded weights without importing the JAX
+package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
+``pnnx_5``, anchor grids in ``pnnx_{4,2,0}``, grids in ``pnnx_{6,3,1}``,
+head convs in ``m.{0,1,2}.weight/bias``).
+
+Residual adds are emitted as fused ``pnnx.Expression add(@0,@1)`` ops so
+every loaded model also exercises the expression-expansion pass, like a
+real pnnx export of torch `a + b` would.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from ..ir.graph import Attribute, Graph, Parameter
+
+# standard YOLOv5 anchors (wh pairs) per level P3/8, P4/16, P5/32
+YOLO_ANCHORS = (
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
+)
+YOLO_STRIDES = (8, 16, 32)
+
+
+class GraphBuilder:
+    """Tiny functional-style builder over ir.Graph with shape inference.
+
+    Methods take/return operand names; shapes are tracked in NCHW (the
+    pnnx on-disk convention — the engine converts to NHWC at load, like
+    engine_impl.cpp:182-189).
+    """
+
+    def __init__(self, seed: int = 0):
+        self.g = Graph()
+        self.rng = np.random.default_rng(seed)
+        self.shape: dict[str, list] = {}
+        self._n = 0
+
+    # ---- plumbing ------------------------------------------------------
+    def _name(self, prefix: str) -> str:
+        self._n += 1
+        return f"{prefix}_{self._n}"
+
+    def _op(self, type_: str, name: str, inputs: list, n_out: int = 1,
+            params: dict | None = None, attrs: dict | None = None) -> list:
+        op = self.g.new_operator(type_, name)
+        for i in inputs:
+            r = self.g.get_or_create_operand(i)
+            r.consumers.append(op)
+            op.inputs.append(r)
+        outs = []
+        for j in range(n_out):
+            r = self.g.new_operand(f"{name}_out{j}" if n_out > 1
+                                   else f"{name}_out")
+            r.producer = op
+            op.outputs.append(r)
+            outs.append(r.name)
+        for k, v in (params or {}).items():
+            op.params[k] = Parameter.from_value(v)
+        for k, v in (attrs or {}).items():
+            op.attrs[k] = Attribute.from_array(np.ascontiguousarray(v))
+        return outs
+
+    def _rand(self, shape, fan_in: float | None = None) -> np.ndarray:
+        """He-style init so deep nets keep unit-scale activations (keeps
+        fp32-vs-oracle tolerances meaningful through 100+ layer nets)."""
+        w = self.rng.standard_normal(shape).astype(np.float32)
+        if fan_in:
+            w *= math.sqrt(2.0 / fan_in)
+        return w
+
+    # ---- graph I/O -------------------------------------------------------
+    def input(self, shape_nchw, name: str | None = None) -> str:
+        opname = name or self._name("in")
+        op = self.g.new_operator("pnnx.Input", opname)
+        r = self.g.new_operand(opname if name else f"{opname}_out")
+        r.producer = op
+        r.shape = list(shape_nchw)
+        r.type = 1  # f32
+        op.outputs.append(r)
+        self.shape[r.name] = list(shape_nchw)
+        return r.name
+
+    def output(self, *xs: str) -> None:
+        op = self.g.new_operator("pnnx.Output", self._name("out"))
+        for x in xs:
+            r = self.g.get_or_create_operand(x)
+            r.consumers.append(op)
+            op.inputs.append(r)
+
+    def build(self) -> Graph:
+        return self.g
+
+    # ---- layers ---------------------------------------------------------
+    def conv(self, x: str, out_c: int, k: int = 1, s: int = 1,
+             p: int | None = None, d: int = 1, groups: int = 1,
+             bias: bool = True) -> str:
+        n, c, h, w = self.shape[x]
+        if p is None:
+            p = (d * (k - 1)) // 2  # "same"-ish autopad, like yolov5
+        name = self._name("conv")
+        attrs = {"weight": self._rand((out_c, c // groups, k, k),
+                                      fan_in=(c // groups) * k * k)}
+        if bias:
+            attrs["bias"] = (self.rng.standard_normal(out_c)
+                             .astype(np.float32) * 0.05)
+        (out,) = self._op("nn.Conv2d", name, [x], params=dict(
+            bias=bias, dilation=[d, d], groups=groups, in_channels=c,
+            kernel_size=[k, k], out_channels=out_c, padding=[p, p],
+            padding_mode="zeros", stride=[s, s]), attrs=attrs)
+        oh = (h + 2 * p - d * (k - 1) - 1) // s + 1
+        ow = (w + 2 * p - d * (k - 1) - 1) // s + 1
+        self.shape[out] = [n, out_c, oh, ow]
+        return out
+
+    def bn(self, x: str) -> str:
+        n, c, h, w = self.shape[x]
+        name = self._name("bn")
+        (out,) = self._op("nn.BatchNorm2d", name, [x], params=dict(
+            affine=True, eps=1e-5, num_features=c), attrs={
+            "running_mean": self.rng.standard_normal(c).astype(np.float32) * 0.1,
+            "running_var": (self.rng.uniform(0.5, 1.5, c)).astype(np.float32),
+            "weight": (1.0 + 0.1 * self.rng.standard_normal(c)).astype(np.float32),
+            "bias": self.rng.standard_normal(c).astype(np.float32) * 0.1,
+        })
+        self.shape[out] = [n, c, h, w]
+        return out
+
+    def _act(self, type_: str, x: str) -> str:
+        (out,) = self._op(type_, self._name(type_.split(".")[-1].lower()), [x])
+        self.shape[out] = list(self.shape[x])
+        return out
+
+    def relu(self, x: str) -> str:
+        return self._act("nn.ReLU", x)
+
+    def silu(self, x: str) -> str:
+        return self._act("nn.SiLU", x)
+
+    def sigmoid(self, x: str) -> str:
+        return self._act("nn.Sigmoid", x)
+
+    def hardswish(self, x: str) -> str:
+        return self._act("nn.Hardswish", x)
+
+    def hardsigmoid(self, x: str) -> str:
+        return self._act("nn.Hardsigmoid", x)
+
+    def maxpool(self, x: str, k: int, s: int | None = None,
+                p: int = 0) -> str:
+        s = s or k
+        n, c, h, w = self.shape[x]
+        (out,) = self._op("nn.MaxPool2d", self._name("maxpool"), [x],
+                          params=dict(ceil_mode=False, dilation=[1, 1],
+                                      kernel_size=[k, k], padding=[p, p],
+                                      return_indices=False, stride=[s, s]))
+        oh = (h + 2 * p - k) // s + 1
+        ow = (w + 2 * p - k) // s + 1
+        self.shape[out] = [n, c, oh, ow]
+        return out
+
+    def upsample(self, x: str, scale: float = 2.0) -> str:
+        n, c, h, w = self.shape[x]
+        (out,) = self._op("nn.Upsample", self._name("up"), [x], params=dict(
+            mode="nearest", scale_factor=[float(scale), float(scale)]))
+        self.shape[out] = [n, c, int(h * scale), int(w * scale)]
+        return out
+
+    def cat(self, xs: list, dim: int = 1) -> str:
+        (out,) = self._op("torch.cat", self._name("cat"), list(xs),
+                          params=dict(dim=dim))
+        s = list(self.shape[xs[0]])
+        s[dim] = sum(self.shape[x][dim] for x in xs)
+        self.shape[out] = s
+        return out
+
+    def add(self, a: str, b: str) -> str:
+        """Residual add as a fused pnnx.Expression (like a pnnx export)."""
+        (out,) = self._op("pnnx.Expression", self._name("expr"), [a, b],
+                          params=dict(expr="add(@0,@1)"))
+        self.shape[out] = list(self.shape[a])
+        return out
+
+    def mul(self, a: str, b: str) -> str:
+        (out,) = self._op("pnnx.Expression", self._name("expr"), [a, b],
+                          params=dict(expr="mul(@0,@1)"))
+        sa, sb = self.shape[a], self.shape[b]
+        self.shape[out] = list(np.broadcast_shapes(tuple(sa), tuple(sb)))
+        return out
+
+    def yolo_detect(self, features: list, nc: int = 80,
+                    anchors=YOLO_ANCHORS, strides=YOLO_STRIDES) -> str:
+        na = len(anchors[0])
+        no = nc + 5
+        attrs: dict = {"pnnx_5": np.asarray(strides, dtype=np.float32)}
+        anchor_idx, grid_idx = (4, 2, 0), (6, 3, 1)
+        for i, f in enumerate(features):
+            n, c, h, w = self.shape[f]
+            attrs[f"m.{i}.weight"] = self._rand((na * no, c, 1, 1), fan_in=c)
+            attrs[f"m.{i}.bias"] = (self.rng.standard_normal(na * no)
+                                    .astype(np.float32) * 0.05)
+            # grid [1,A,H,W,2] = (x,y) cell coords - 0.5 (yolov5 v6 offset)
+            xv, yv = np.meshgrid(np.arange(w), np.arange(h))
+            grid = np.stack([xv, yv], axis=-1).astype(np.float32) - 0.5
+            grid = np.broadcast_to(grid[None, None], (1, na, h, w, 2))
+            attrs[f"pnnx_{grid_idx[i]}"] = np.ascontiguousarray(grid)
+            # anchor grid [1,A,H,W,2] = anchor wh broadcast over the cells
+            ag = np.asarray(anchors[i], dtype=np.float32).reshape(1, na, 1, 1, 2)
+            ag = np.broadcast_to(ag, (1, na, h, w, 2))
+            attrs[f"pnnx_{anchor_idx[i]}"] = np.ascontiguousarray(ag)
+        (out,) = self._op("models.yolo.Detect", self._name("detect"),
+                          list(features), attrs=attrs)
+        n = self.shape[features[0]][0]
+        total = sum(na * self.shape[f][2] * self.shape[f][3]
+                    for f in features)
+        self.shape[out] = [n, total, no]
+        return out
+
+
+def _yolo_channels(width_mult: float):
+    def cw(ch):
+        return max(int(round(ch * width_mult / 8)) * 8, 8)
+    return cw
+
+
+def build_yolov5(variant: str = "n", batch: int = 1, image_size: int = 640,
+                 num_classes: int = 80, seed: int = 0) -> tuple:
+    """YOLOv5 (v6.0 topology: 6x6 stem, C3 blocks, SPPF, PAN head,
+    fused Detect). variant: n / s / m / l / x or (depth_mult, width_mult).
+
+    Structure per ultralytics yolov5 v6 yaml; all convs carry bias (a
+    pnnx export folds BN into the conv, which is also what the
+    reference's yolov5 fixtures contain — their graphs have no separate
+    BN ops, see the conv+silu pairs in test-yolo2's operand dump).
+    """
+    presets = {"n": (0.33, 0.25), "s": (0.33, 0.50), "m": (0.67, 0.75),
+               "l": (1.0, 1.0), "x": (1.33, 1.25)}
+    depth_mult, width_mult = presets[variant] if isinstance(variant, str) \
+        else variant
+    cw = _yolo_channels(width_mult)
+
+    def dn(n):
+        return max(round(n * depth_mult), 1)
+
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def conv_silu(x, out_c, k=1, s=1, p=None, groups=1):
+        return b.silu(b.conv(x, out_c, k, s, p, groups=groups))
+
+    def bottleneck(x, out_c, shortcut=True):
+        in_c = b.shape[x][1]
+        y = conv_silu(x, out_c // 1, 1)
+        y = conv_silu(y, out_c, 3)
+        if shortcut and in_c == out_c:
+            return b.add(y, x)
+        return y
+
+    def c3(x, out_c, n=1, shortcut=True):
+        hid = out_c // 2
+        y1 = conv_silu(x, hid, 1)
+        for _ in range(n):
+            y1 = bottleneck(y1, hid, shortcut)
+        y2 = conv_silu(x, hid, 1)
+        return conv_silu(b.cat([y1, y2], 1), out_c, 1)
+
+    def sppf(x, out_c, k=5):
+        hid = b.shape[x][1] // 2
+        y = conv_silu(x, hid, 1)
+        p1 = b.maxpool(y, k, 1, k // 2)
+        p2 = b.maxpool(p1, k, 1, k // 2)
+        p3 = b.maxpool(p2, k, 1, k // 2)
+        return conv_silu(b.cat([y, p1, p2, p3], 1), out_c, 1)
+
+    # backbone
+    x = conv_silu(x, cw(64), 6, 2, 2)          # P1/2
+    x = conv_silu(x, cw(128), 3, 2)            # P2/4
+    x = c3(x, cw(128), dn(3))
+    x = conv_silu(x, cw(256), 3, 2)            # P3/8
+    p3 = c3(x, cw(256), dn(6))
+    x = conv_silu(p3, cw(512), 3, 2)           # P4/16
+    p4 = c3(x, cw(512), dn(9))
+    x = conv_silu(p4, cw(1024), 3, 2)          # P5/32
+    x = c3(x, cw(1024), dn(3))
+    p5 = sppf(x, cw(1024))
+
+    # PAN head
+    h1 = conv_silu(p5, cw(512), 1)
+    x = b.cat([b.upsample(h1, 2), p4], 1)
+    x = c3(x, cw(512), dn(3), shortcut=False)
+    h2 = conv_silu(x, cw(256), 1)
+    x = b.cat([b.upsample(h2, 2), p3], 1)
+    d3 = c3(x, cw(256), dn(3), shortcut=False)          # P3 out
+    x = conv_silu(d3, cw(256), 3, 2)
+    x = b.cat([x, h2], 1)
+    d4 = c3(x, cw(512), dn(3), shortcut=False)          # P4 out
+    x = conv_silu(d4, cw(512), 3, 2)
+    x = b.cat([x, h1], 1)
+    d5 = c3(x, cw(1024), dn(3), shortcut=False)         # P5 out
+
+    out = b.yolo_detect([d3, d4, d5], nc=num_classes)
+    b.output(out)
+    return b.build(), "0", out
