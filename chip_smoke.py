@@ -5,7 +5,8 @@
 
 Phases, each printing JSON lines:
 1. device and build: the card (torch and nvidia-smi), the nvcc build of
-   every kernel source with `-Xptxas -v` registers and spills;
+   every kernel source (one nvcc each, started together) with
+   `-Xptxas -v` registers and spills;
 2. kernel vs plain version on the card: `matmul` and `matmul_int8w` at
    the YOLOv5s-640-b8 pointwise-conv shapes (taken from the main path)
    and at ragged shapes, x in bf16 and f32, every activation; then the
@@ -14,13 +15,35 @@ Phases, each printing JSON lines:
 3. main path: YOLOv5s 640x640, batch 8, bf16 int8w through `Engine.run`,
    with the launch count per forward, output checks, a comparison with
    the same model run with kernels off, and throughput both ways;
-4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s.
+4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s;
+5. llama kernels vs plain: matmul_int4w, flash_attention and
+   decode_attention at ragged shapes, f32 and bf16 (decode: lengths 0,
+   1, straddling a tile and full; bf16, f32 and int8 leaves; flash:
+   causal, non-causal, banded);
+6. the llama main path: llama "base" (16 layers, width 2048, vocab
+   32000), bf16 int4w, GenerationService(slots=16, kv bf16) serving 48
+   greedy requests (seeded prompt lengths uniform in 32..1900, 64 new
+   tokens each) as streams: time to first token, decode tokens/s, the
+   launches of each kernel (counts reset just before); then each kernel
+   against its plain version at the shapes the run recorded, and its
+   time beside its plain version's, a torch library call's and the
+   bound;
+7. kernels on vs off: the llama engine against one of the same graph
+   with use_kernels=False; prefill logits at width 2048 and one
+   decode-block step's logits, each side also against an fp32 engine of
+   the same int4 weights;
+8. fp32 int4w llama (2 layers, window 256) on the card: logits against
+   a float64 numpy reference of the same int4 model (`llama_ref64`),
+   the forward rerun bit-equal, and greedy tokens through the decode
+   kernel equal to the port's on the CPU.
 
-The second-to-last line is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}. Any failure (no CUDA device, a kernel
-that does not build, launch or agree) exits non-zero without the ok
-line. The phases are functions of a torch device, so the CPU tests
-rehearse phases 3-4 at a tiny size with the plain versions.
+The line before the last two is the card's nvidia-smi name and power
+limit, then {"kernels": [...]}, then {"ok": true, "device": {...}}. Any
+failure (no CUDA device, a kernel that does not build, launch or agree)
+exits non-zero without the ok line. `--phases` runs a subset (a
+debugging aid, which prints no ok line). The phases are functions of a
+torch device, so the CPU tests rehearse them at a tiny size with the
+plain versions.
 """
 from __future__ import annotations
 
@@ -39,6 +62,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks used for the bound (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# every kernel source of the port, built in phase 1
+SOURCES = ("matmul.cu", "matmul_int4w.cu", "flash_attention.cu",
+           "decode_attention.cu")
 
 # YOLOv5s pointwise convs that reach matmul_int8w per forward (the other
 # 17 pointwise convs are cat-split sums)
@@ -69,9 +96,10 @@ def emit(obj) -> None:
 
 # ---- phase 1 ------------------------------------------------------------
 def device_and_build(device) -> dict:
-    """The card, and a fresh nvcc build of the kernel sources."""
+    """The card, and a fresh nvcc build of every kernel source (one nvcc
+    per source, all started together)."""
     import torch
-    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -83,14 +111,18 @@ def device_and_build(device) -> dict:
             "count": torch.cuda.device_count(),
             "nvidia_smi": smi[device.index or 0]}
     emit(info)
-    kmm.load_library(rebuild=True)
-    # one line per template instance; keep the distinct ones
-    ptxas = sorted({ln.split(":", 1)[-1].strip()
-                    for ln in kmm.build_info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln})
-    emit({"phase": "build", "source": str(kmm.SOURCE.relative_to(HERE)),
-          "seconds": round(kmm.build_info["seconds"], 3),
-          "ptxas": ptxas})
+    t0 = time.perf_counter()
+    built = build.build(SOURCES, rebuild=True)
+    for source, b in built.items():
+        # one line per template instance; keep the distinct ones
+        ptxas = sorted({ln.split(":", 1)[-1].strip()
+                        for ln in b["ptxas"].splitlines()
+                        if "registers" in ln or "spill" in ln})
+        emit({"phase": "build", "source": f"simpleinfer_tpu_torch/csrc/"
+              f"{source}", "seconds": round(b["seconds"], 3),
+              "ptxas": ptxas})
+    emit({"phase": "build_all", "seconds": round(time.perf_counter() - t0,
+                                                 3)})
     return info
 
 
@@ -475,8 +507,887 @@ def fp32_card_vs_cpu(device, batch=2, image=64, seed=0) -> dict:
     return res
 
 
+# ---- llama generation path ----------------------------------------------
+# llama "base" (16 layers, width 2048, 32 heads, 8 kv heads, SwiGLU 5456,
+# vocab 32000), bf16 compute, int4w g128, served by GenerationService
+LLAMA = dict(variant="base", seq_len=2048, vocab_size=32000, seed=0)
+SERVICE = dict(slots=16, kv_dtype="bfloat16")
+N_REQUESTS, PROMPT_RANGE, MAX_NEW = 48, (32, 1900), 64
+# flash kernel vs plain in bf16: the kernel keeps P in f32 for P.V, the
+# plain version rounds P to bf16 first (as the JAX oracle does), which
+# moves a row's output by at most 2^-8 (bf16's unit roundoff) times
+# sum_j p_j |v_j|: the check adds that bound per element
+FLASH_BF16_P_ROUNDOFF = 2.0 ** -8
+# kernels on vs off (two bf16 engines of the same int4 weights), over 16
+# layers of random weights: the kernels dequantize in f32 and keep f32
+# projection outputs and P, the torch paths round the dequantized
+# weights, the projection outputs and P to bf16. On an H100 the two
+# differ by 0.068 / 0.011 x scale (max / mean; PERF.md)
+ONOFF_MAX_TOL = 0.15
+ONOFF_MEAN_TOL = 0.02
+# and against an fp32 engine of the same int4 weights: both sides read
+# the same distance from fp32 on an H100 (ratio 1.0-1.1, PERF.md), so
+# the kernels' side may be at most this much farther than the torch side
+ONOFF_VS_FP32 = 1.25
+
+
+def _ms_stats(xs) -> dict:
+    xs = sorted(xs)
+    return {"median_ms": statistics.median(xs),
+            "p99_ms": xs[min(len(xs) - 1, math.ceil(0.99 * len(xs)) - 1)],
+            "max_ms": xs[-1], "n": len(xs)}
+
+
+def _close_tol(got, ref, atol, rtol=0.0):
+    """max |got - ref|, whether every element is within atol + rtol *
+    |ref| (both finite), and the largest share of that limit used."""
+    d = (got.float() - ref.float()).abs()
+    lim = atol + rtol * ref.float().abs()
+    ok = bool((d <= lim).all()) and bool(torch_isfinite(got))
+    if not d.numel():
+        return 0.0, ok, 0.0
+    return float(d.max()), ok, float((d / lim).max())
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t.float()).all())
+
+
+def _int4_case(gen, device, m, k, n, x_dtype, group=128):
+    """x [M, K] at x_dtype, a [K, N] weight (~unit-scale outputs)
+    quantized to int4 on the host, an f32 bias; on `device`."""
+    import torch
+    from simpleinfer_tpu_torch.quant.tensor import quantize_int4_grouped
+
+    x = torch.randn(m, k, generator=gen, device=device).to(x_dtype)
+    w = torch.randn(k, n, generator=gen, device=device) / math.sqrt(k)
+    q = quantize_int4_grouped(w.cpu().numpy(), group=group).to(device)
+    bias = 0.1 * torch.randn(n, generator=gen, device=device)
+    return x, q, bias
+
+
+def _decode_case(gen, device, n, kvh, g, length, d, q_dtype, cache):
+    """q [N, KV, G, D] and (k, v) cache leaves: bf16/f32 tensors, or int8
+    (values, [.., 1] scales) tuples quantized like the decoder does."""
+    import torch
+    from simpleinfer_tpu_torch.zoo.generate import _kv_quantize
+
+    q = torch.randn(n, kvh, g, d, generator=gen, device=device).to(q_dtype)
+    k = torch.randn(n, kvh, length, d, generator=gen, device=device)
+    v = torch.randn(n, kvh, length, d, generator=gen, device=device)
+    if cache == "int8":
+        return q, _kv_quantize(k), _kv_quantize(v)
+    dt = getattr(torch, cache)
+    return q, k.to(dt), v.to(dt)
+
+
+def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
+    """matmul_int4w, flash_attention and decode_attention against their
+    plain versions on `device`: at the main path's shapes (recorded from
+    the service run, when given) and at ragged ones; f32 and bf16;
+    decode lengths 0, 1, straddling a 64-position tile and full, bf16,
+    f32 and int8 leaves; flash causal, non-causal and banded. Returns
+    the largest max-abs error of each kernel at the main path's
+    configuration."""
+    import torch
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    main_shapes = main_shapes or {}
+    worst = {"matmul_int4w": 0.0, "flash_attention": 0.0,
+             "decode_attention": 0.0}
+    used = dict(worst)        # the largest share of a limit, main shapes
+    failures, n_checks = [], 0
+
+    def check(name, got, ref, atol, rtol, case, main):
+        nonlocal n_checks
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # faults show here
+        err, ok, share = _close_tol(got, ref, atol, rtol)
+        n_checks += 1
+        if not ok or got.dtype != ref.dtype:
+            failures.append(dict(kernel=name, case=case, max_abs_err=err))
+        if main:
+            worst[name] = max(worst[name], err)
+            used[name] = max(used[name], share)
+
+    # matmul_int4w: (M, K, N, x dtype, out dtype, bias, act, main?)
+    cases = [(m, k, n, xd, od, b, a, True)
+             for (m, k, n, xd, od, b, a) in main_shapes.get("matmul_int4w",
+                                                            [])]
+    for (m, k, n, group) in [(1, 200, 70, 128), (37, 129, 131, 64),
+                             (100, 256, 50, 128), (17, 384, 96, 128),
+                             (16, 2048, 33, 128), (64, 130, 64, 32)]:
+        for xd in ("float32", "bfloat16"):
+            cases.append((m, k, n, xd, "float32", True, "silu", False,
+                          group))
+            cases.append((m, k, n, xd, xd, False, None, False, group))
+    for c in cases:
+        m, k, n, xd, od, use_b, act, main = c[:8]
+        group = c[8] if len(c) > 8 else 128
+        x, q, bias = _int4_case(gen, device, m, k, n, getattr(torch, xd),
+                                group)
+        b = bias.to(getattr(torch, xd)) if use_b else None
+        od_t = getattr(torch, od)
+        with fp32_parity(True):
+            got = kmm.matmul_int4w(x, q, b, act, out_dtype=od_t)
+            ref = kmm.matmul_int4w_ref(x, q, b, act, out_dtype=od_t)
+        lim = KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
+        check("matmul_int4w", got, ref, lim,
+              KERNEL_BF16_RTOL if od_t == torch.bfloat16 else 0.0,
+              [m, k, n, xd, od, use_b, act, group], main)
+        del x, q, bias
+
+    # flash_attention: (B, H, Lq, Lk, D, dtype, causal, window, main?)
+    fcases = [(b, h, l, l, d, dt, True, None, True)
+              for (b, h, l, d, dt) in main_shapes.get("flash_attention", [])]
+    for dt in ("float32", "bfloat16"):
+        fcases += [(2, 3, 100, 100, 24, dt, True, None, False),
+                   (1, 4, 77, 130, 64, dt, False, None, False),
+                   (2, 2, 300, 300, 64, dt, True, 50, False),
+                   (1, 2, 200, 200, 128, dt, True, 64, False),
+                   (1, 2, 129, 129, 256, dt, True, None, False)]
+        if device.type == "cuda":   # the main path's width, banded
+            fcases.append((1, 32, 2048, 2048, 64, dt, True, 256, False))
+    for (b, h, lq, lk, d, dt, causal, sw, main) in fcases:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, h, l_, d, generator=gen, device=device)
+                   .to(dtype) for l_ in (lq, lk, lk))
+        with fp32_parity(True):
+            got = kattn.flash_attention(q, k, v, causal=causal,
+                                        sliding_window=sw)
+            ref = kattn.flash_attention_ref(q, k, v, causal=causal,
+                                            sliding_window=sw)
+        lim = KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
+        if dtype == torch.bfloat16:     # sum_j p_j |v_j| per element
+            lim = lim + FLASH_BF16_P_ROUNDOFF * kattn.flash_attention_ref(
+                q.float(), k.float(), v.float().abs(), causal=causal,
+                sliding_window=sw)
+        check("flash_attention", got, ref, lim,
+              KERNEL_BF16_RTOL if dtype == torch.bfloat16 else 0.0,
+              [b, h, lq, lk, d, dt, causal, sw], main)
+        del q, k, v, got, ref
+
+    # decode_attention: (N, KV, G, L, D, q dtype, cache, lengths, main?)
+    dcases = [(n, kv, g, l, d, qd, c, lens, True)
+              for (n, kv, g, l, d, qd, c, lens) in main_shapes.get(
+                  "decode_attention", [])]
+    for c in ("bfloat16", "float32", "int8"):
+        for qd in ("bfloat16", "float32"):
+            dcases.append((6, 8, 4, 2048, 64, qd, c,
+                           [0, 1, 63, 64, 65, 2048], False))
+        dcases.append((3, 2, 3, 100, 24, "float32", c, [0, 37, 100], False))
+    for (n, kvh, g, length, d, qd, cache, lens, main) in dcases:
+        q, k_leaf, v_leaf = _decode_case(gen, device, n, kvh, g, length, d,
+                                         getattr(torch, qd), cache)
+        lens_t = torch.as_tensor(lens, dtype=torch.int32, device=device)
+        scale = 1.0 / math.sqrt(d)
+        with fp32_parity(True):
+            got = kdec.decode_attention(q, k_leaf, v_leaf, lens_t,
+                                        scale=scale)
+            ref = kdec.decode_attention_ref(q, k_leaf, v_leaf, lens_t,
+                                            scale=scale)
+        for part, gt, rf in zip("oml", got, ref):
+            live = rf[rf > -1e29] if part == "m" else rf
+            lim = KERNEL_ATOL * max(
+                1.0, float(live.abs().max()) if live.numel() else 0.0)
+            check("decode_attention", gt, rf, lim, 0.0,
+                  [n, kvh, g, length, d, qd, cache, part,
+                   lens if len(lens) < 8 else "main"], main)
+        del q, k_leaf, v_leaf
+    emit({"phase": "llama_kernel_vs_plain", "checks": n_checks,
+          "failures": failures[:10], "n_failures": len(failures),
+          "atol": f"{KERNEL_ATOL}*max(1,|ref|)",
+          "bf16_out_rtol": KERNEL_BF16_RTOL,
+          "flash_bf16_extra_atol":
+              f"{FLASH_BF16_P_ROUNDOFF}*sum_j p_j|v_j|",
+          "max_abs_err_main": worst, "limit_share_main": used})
+    if failures:
+        raise AssertionError(f"{len(failures)} llama kernel-vs-plain "
+                             f"mismatches")
+    return worst
+
+
+def llama_engine(device, compute="bfloat16", quant="int4w", use_kernels=None,
+                 **kw):
+    """A llama Engine on `device` (seeded random weights); returns
+    (engine, seconds to build the graph, seconds to load)."""
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_llama
+
+    t0 = time.perf_counter()
+    graph, _, _ = build_llama(**{**LLAMA, **kw})
+    t1 = time.perf_counter()
+    eng = Engine(EngineConfig(compute_dtype=compute, quant=quant,
+                              int4_group=128, device=str(device),
+                              use_kernels=use_kernels))
+    eng.load_model(None, graph=graph)
+    return eng, t1 - t0, time.perf_counter() - t1
+
+
+class Recorder:
+    """Wraps the three llama kernels' wrappers (module attributes, so
+    every caller goes through them) and records the shapes the main path
+    gives each, with their counts; the decode lengths tensors are kept
+    (device tensors: recording adds no synchronisation)."""
+
+    def __init__(self):
+        from simpleinfer_tpu_torch.kernels import attention as kattn
+        from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+        from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+        self.mods = {"matmul_int4w": kmm, "flash_attention": kattn,
+                     "decode_attention": kdec}
+        self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
+        self.counts = {k: {} for k in self.mods}
+        self.decode_lengths: list = []
+
+    def _count(self, name, key):
+        self.counts[name][key] = self.counts[name].get(key, 0) + 1
+
+    def __enter__(self):
+        orig = self.orig
+
+        def int4w(x, wq4, bias=None, activation=None, *, out_dtype=None):
+            od = out_dtype or x.dtype
+            self._count("matmul_int4w", (
+                int(x.shape[0]), int(wq4.k), int(wq4.packed.shape[1]),
+                str(x.dtype)[6:], str(od)[6:], bias is not None,
+                activation))
+            return orig["matmul_int4w"](x, wq4, bias, activation,
+                                        out_dtype=out_dtype)
+
+        def flash(q, k, v, **kw):
+            self._count("flash_attention", (*map(int, q.shape),
+                                            str(q.dtype)[6:]))
+            return orig["flash_attention"](q, k, v, **kw)
+
+        def decode(q, k_leaf, v_leaf, lengths, **kw):
+            k = k_leaf[0] if isinstance(k_leaf, tuple) else k_leaf
+            self._count("decode_attention", (
+                *map(int, q.shape[:3]), int(k.shape[2]), int(q.shape[3]),
+                str(q.dtype)[6:], str(k.dtype)[6:]))
+            self.decode_lengths.append(lengths)
+            return orig["decode_attention"](q, k_leaf, v_leaf, lengths,
+                                            **kw)
+
+        for name, fn in (("matmul_int4w", int4w), ("flash_attention", flash),
+                         ("decode_attention", decode)):
+            setattr(self.mods[name], name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, m in self.mods.items():
+            setattr(m, name, self.orig[name])
+
+
+def llama_prompts(n, lo, hi, vocab, seed=0) -> list:
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, vocab, int(p)) for p in lens]
+
+
+def service_run(engine, device, n_requests=N_REQUESTS,
+                prompt_range=PROMPT_RANGE, max_new=MAX_NEW, seed=0,
+                **service_kw) -> dict:
+    """The main path: `n_requests` greedy requests (seeded prompt lengths
+    uniform in `prompt_range`, max_new each, no eos) submitted at once to
+    a GenerationService over `engine`, consumed as streams. Every kernel
+    count is set to 0 just before and read just after; a Recorder notes
+    the shapes. Returns the metrics, the counts and the recorder."""
+    import threading
+
+    import torch
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.serving import GenerationService
+
+    vocab = engine.program.weights[engine.program.plan[0][0].name][
+        "weight"].shape[0]
+    prompts = llama_prompts(n_requests, *prompt_range, vocab, seed)
+    svc = GenerationService(engine, **{**SERVICE, **service_kw})
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+    first = [None] * n_requests
+    last = [None] * n_requests
+    counts = [0] * n_requests
+    results = [None] * n_requests
+    errors = []
+
+    def consume(i, handle, t_submit):
+        try:
+            for _tok in handle:
+                now = time.perf_counter()
+                if first[i] is None:
+                    first[i] = now - t_submit
+                last[i] = now
+                counts[i] += 1
+            results[i] = handle.result()
+        except BaseException as e:      # surfaced below
+            errors.append(repr(e))
+
+    # admission time: each wave's prefill, synchronised (the service
+    # fetches the wave's first tokens right after it anyway)
+    prefill_s = []
+    install = svc._dec.prefill_install
+
+    def timed_install(*a, **kw):
+        t = time.perf_counter()
+        out = install(*a, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    svc._dec.prefill_install = timed_install
+    kmm.launches = kmm.launches_int4w = 0
+    kattn.launches = kdec.launches = 0
+    with Recorder() as rec:
+        svc.start()
+        t_start = time.perf_counter()
+        threads = []
+        for i, p in enumerate(prompts):
+            t_sub = time.perf_counter()
+            h = svc.submit_stream(p, max_new=max_new)
+            th = threading.Thread(target=consume, args=(i, h, t_sub))
+            th.start()
+            threads.append((th, t_sub))
+        for th, _ in threads:
+            th.join(timeout=1200)
+        svc.stop()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t_start
+    launches = {"matmul_int8w": kmm.launches,
+                "matmul_int4w": kmm.launches_int4w,
+                "flash_attention": kattn.launches,
+                "decode_attention": kdec.launches}
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"service run failed: {errors[:3]}")
+    for p, r, c in zip(prompts, results, counts):
+        if len(r) != len(p) + max_new or c != max_new or \
+                not np.array_equal(r[:len(p)], p) or \
+                r.min() < 0 or r.max() >= vocab:
+            raise AssertionError("a request's output has the wrong "
+                                 "length, prompt or token range")
+    # decode rate: the tokens after each request's first, over the run's
+    # time outside admission prefills
+    decode_tokens = sum(c - 1 for c in counts)
+    long_prompts = sum(len(p) > 1024 for p in prompts)
+    res = {"phase": "llama_service", "requests": n_requests,
+           "prompt_lengths": [int(min(map(len, prompts))),
+                              int(max(map(len, prompts)))],
+           "prompts_over_1024": long_prompts, "max_new": max_new,
+           "warmup_s": warm_s, "wall_s": wall,
+           "ttft": _ms_stats([f * 1e3 for f in first]),
+           "decode_tok_s": decode_tokens / (wall - sum(prefill_s)),
+           "output_tok_s": sum(counts) / wall,
+           "prefill_waves": len(prefill_s), "prefill_s": sum(prefill_s),
+           "prefills": svc.stats.prefills, "decode_steps": svc.stats.steps,
+           "mean_occupancy": svc.stats.mean_occupancy,
+           "launches": launches,
+           "shapes": {k: [[*key, c] for key, c in sorted(
+               v.items(), key=lambda kv: str(kv[0]))]
+               for k, v in rec.counts.items()}}
+    emit(res)
+    if device.type == "cuda":
+        missing = [k for k in ("matmul_int4w", "flash_attention",
+                               "decode_attention") if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: "
+                                 f"{missing}")
+    return {"res": res, "recorder": rec, "prompts": prompts}
+
+
+def decode_step_profile(engine, device, lengths, k_steps=1, blocks=8,
+                        seed=0) -> dict:
+    """Steady-state decode of a full pool (the service's decoder settings,
+    its decode horizon, each row at the recorded median lengths): host
+    wall time per step over `blocks` chained blocks, and torch.profiler's
+    device kernel time per step, so the card's busy share shows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True, decode_attn="kernel")
+    n = SERVICE["slots"]
+    caches = dec.init_cache(n)
+    pos = np.minimum(np.asarray(lengths), dec._window - k_steps - 1)
+    zeros, ones = np.zeros(n, np.float32), np.ones(n, np.float32)
+    topk = np.zeros(n, np.int64)
+    tok = np.ones(n, np.int64)
+
+    def run(nb):
+        last = tok
+        for _ in range(nb):
+            _, last, _c = dec.decode_block(last, pos, caches, seed, 1, zeros,
+                                           topk, ones, k_steps)
+        torch.cuda.synchronize(device)
+
+    run(2)
+    t0 = time.perf_counter()
+    run(blocks)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (blocks * k_steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(2)
+    kernels = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((us / 1e3 / (2 * k_steps), e.count / (2 * k_steps),
+                        e.key[:80]))
+    kernels.sort(reverse=True)
+    busy = sum(k_[0] for k_ in kernels)
+    res = {"phase": "llama_decode_step", "slots": n, "k_steps": k_steps,
+           "mean_length": float(np.mean(pos)), "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": busy, "busy_share": busy / wall_ms,
+           "decode_tok_s": n * 1e3 / wall_ms,
+           "top_kernels": [[round(ms, 4), cnt, name]
+                           for ms, cnt, name in kernels[:10]]}
+    emit(res)
+    return res
+
+
+def main_shapes_of(rec) -> dict:
+    """The recorded shapes in llama_kernel_checks' case format; decode at
+    the recorded lengths of the median-length call."""
+    import torch
+
+    shapes = {"matmul_int4w": [
+        (m, k, n, xd, od, b, act) for (m, k, n, xd, od, b, act)
+        in rec.counts["matmul_int4w"]],
+        "flash_attention": [(b, h, l, d, dt) for (b, h, l, d, dt)
+                            in rec.counts["flash_attention"]]}
+    lens = median_lengths(rec)
+    shapes["decode_attention"] = [
+        (n, kv, g, l, d, qd, cd, lens.tolist())
+        for (n, kv, g, l, d, qd, cd) in rec.counts["decode_attention"]]
+    return shapes
+
+
+def median_lengths(rec):
+    """The lengths of the recorded decode call with the median mean
+    length (host numpy)."""
+    lens = [t.cpu().numpy() for t in rec.decode_lengths]
+    order = sorted(range(len(lens)), key=lambda i: float(lens[i].mean()))
+    return lens[order[len(order) // 2]]
+
+
+def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
+                       seed=5) -> dict:
+    """Each kernel's time at the main path's shapes beside its plain
+    version's, a library call's and the bound (CUDA events, the L2
+    flushed before each launch):
+    - matmul_int4w: one decode step, i.e. the M = slots launches of a
+      step (113 at llama-base), summed; library = torch.matmul on the
+      weight dequantized to bf16;
+    - flash_attention: one admission wave of the recorded shape with the
+      most work (one launch per layer); library =
+      F.scaled_dot_product_attention(is_causal=True);
+    - decode_attention: one decode step (one launch per layer) at the
+      recorded lengths of the median-length call; library = SDPA over
+      the cache with a length mask."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    peak = PEAK_FLOPS["bfloat16"]
+
+    def int4w_sum(keys_per_unit, iters):
+        """matmul_int4w at each recorded (shape, dtypes) key, weighted by
+        its launches per unit (a decode step or a prefill wave)."""
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0, launches=0)
+        rows = []
+        for key, per in sorted(keys_per_unit.items(), key=str):
+            m, k, n, xd, od, has_b, act = key
+            x, q, bias = _int4_case(gen, device, m, k, n, getattr(torch, xd))
+            b = bias.to(x.dtype) if has_b else None
+            od_t = getattr(torch, od)
+            w_deq = q.dequantize(torch.bfloat16)
+            xb = x.to(torch.bfloat16)
+            nbytes = (x.numel() * x.element_size() + q.packed.numel()
+                      + q.scale.numel() * 4 + m * n * od_t.itemsize
+                      + (n * b.element_size() if b is not None else 0))
+            t_b = nbytes / HBM_BYTES_PER_S * 1e3
+            t_o = 2.0 * m * n * k / peak * 1e3
+            t = {"ms": _time_ms(device, lambda: kmm.matmul_int4w(
+                     x, q, b, act, out_dtype=od_t), iters, flush),
+                 "plain_ms": _time_ms(device, lambda: kmm.matmul_int4w_ref(
+                     x, q, b, act, out_dtype=od_t), iters, flush),
+                 "library_ms": _time_ms(device, lambda: torch.matmul(
+                     xb, w_deq), iters, flush),
+                 "bound_ms": max(t_b, t_o)}
+            rows.append({"shape": [m, k, n], "out": od, "per_unit": per,
+                         **t})
+            for kk, v in t.items():
+                tot[kk] += per * v
+            tot["bytes_ms"] += per * t_b
+            tot["ops_ms"] += per * t_o
+            tot["launches"] += per
+            del x, q, bias, w_deq, xb
+        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
+            else "operations"
+        return tot, rows
+
+    # matmul_int4w per decode step: decode steps = decode launches /
+    # layers; a prefill's gathered last rows add a few M = slots calls of
+    # the last layer's MLP and the head
+    c4 = rec.counts["matmul_int4w"]
+    steps = sum(rec.counts["decode_attention"].values()) / layers
+    tot, rows = int4w_sum({k: round(c / steps) for k, c in c4.items()
+                           if k[0] == slots}, 10)
+    tot["launches_per_step"] = tot.pop("launches")
+    out["matmul_int4w"] = tot
+    emit({"phase": "kernel_time_int4w", "unit": "one decode step",
+          **tot, "shapes": rows})
+
+    # flash_attention per admission wave at the recorded shape
+    fkey = max(rec.counts["flash_attention"],
+               key=lambda k_: k_[0] * k_[2] ** 2)
+    # matmul_int4w over the full-width projections of that wave (its
+    # rows x width; waves at that M = its flash launches / layers)
+    wave_m = fkey[0] * fkey[2]
+    waves = rec.counts["flash_attention"][fkey] / layers
+    ptot, prows = int4w_sum({k: round(c / waves) for k, c in c4.items()
+                             if k[0] == wave_m}, 3)
+    emit({"phase": "kernel_time_int4w_prefill",
+          "unit": "one admission wave's full-width projections",
+          "rows": fkey[0], "width": fkey[2], **ptot, "shapes": prows})
+    b_, h_, l_, d_, dt = fkey
+    q, k, v = (torch.randn(b_, h_, l_, d_, generator=gen, device=device)
+               .to(getattr(torch, dt)) for _ in range(3))
+    pairs = l_ * (l_ + 1) // 2
+    t_b = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
+    t_o = 4.0 * b_ * h_ * d_ * pairs / peak * 1e3
+    one = {"ms": _time_ms(device, lambda: kattn.flash_attention(
+               q, k, v, causal=True), iters=3, flush=flush),
+           "plain_ms": _time_ms(device, lambda: kattn.flash_attention_ref(
+               q, k, v, causal=True), iters=3, flush=flush),
+           "library_ms": _time_ms(device, lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True), iters=3, flush=flush),
+           "bound_ms": max(t_b, t_o)}
+    del q, k, v
+    per_wave = layers
+    out["flash_attention"] = dict(
+        {kk: v * per_wave for kk, v in one.items()},
+        bound_by="bytes" if t_b >= t_o else "operations",
+        launches_per_wave=per_wave, shape=list(fkey))
+    emit({"phase": "kernel_time_flash", "unit": "one admission wave",
+          **out["flash_attention"], "per_launch": one,
+          "per_row_ms": out["flash_attention"]["ms"] / b_})
+
+    # decode_attention per decode step at the median recorded lengths
+    dkey = next(iter(rec.counts["decode_attention"]))
+    n, kvh, g, length, d, qd, cd = dkey
+    lens = torch.as_tensor(median_lengths(rec), dtype=torch.int32,
+                           device=device)
+    cache = "int8" if cd == "int8" else cd
+    q, k_leaf, v_leaf = _decode_case(gen, device, n, kvh, g, length, d,
+                                     getattr(torch, qd), cache)
+    kk_ = k_leaf[0] if isinstance(k_leaf, tuple) else k_leaf
+    vv_ = v_leaf[0] if isinstance(v_leaf, tuple) else v_leaf
+    live = int(torch.clamp(lens, 0, length).sum())
+    nbytes = (2 * live * kvh * d * kk_.element_size()
+              + (2 * live * kvh * 4 if isinstance(k_leaf, tuple) else 0)
+              + q.numel() * q.element_size() + n * kvh * g * (d + 2) * 4)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4.0 * live * kvh * g * d / peak * 1e3
+    mask = (torch.arange(length, device=device)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    kd = kk_.to(q.dtype) if not isinstance(k_leaf, tuple) else None
+    vd = vv_.to(q.dtype) if not isinstance(v_leaf, tuple) else None
+    scale = 1.0 / math.sqrt(d)
+    one = {"ms": _time_ms(device, lambda: kdec.decode_attention(
+               q, k_leaf, v_leaf, lens, scale=scale), flush=flush),
+           "plain_ms": _time_ms(device, lambda: kdec.decode_attention_ref(
+               q, k_leaf, v_leaf, lens, scale=scale), flush=flush),
+           "library_ms": (_time_ms(device, lambda:
+                          F.scaled_dot_product_attention(
+                              q, kd, vd, attn_mask=mask, scale=scale),
+                          flush=flush) if kd is not None else None),
+           "bound_ms": max(t_b, t_o)}
+    per_step = layers
+    out["decode_attention"] = dict(
+        {kk: (v * per_step if v is not None else None)
+         for kk, v in one.items()},
+        bound_by="bytes" if t_b >= t_o else "operations",
+        launches_per_step=per_step, shape=list(dkey),
+        mean_length=float(lens.float().mean()))
+    emit({"phase": "kernel_time_decode", "unit": "one decode step",
+          **out["decode_attention"], "per_launch": one})
+    return out
+
+
+def onoff(engine, engine_off, device, reference, seed=7,
+          prompt_lens=(2000, 1900)) -> dict:
+    """Kernels on vs off: `engine` (kernels on) against `engine_off`, an
+    engine of the same graph with use_kernels=False (the ops' torch
+    paths): the prefill's last logits at the full window (int4 kernel +
+    flash at width 2048 vs dense bf16 matmuls + unblocked attention),
+    then one scratch decode-block step's logits over each side's cache
+    (int4 kernel + decode kernel vs the torch paths). `reference` is an
+    fp32 engine of the same weights (kernels on, TF32 off): each bf16
+    side's distance from it is reported too. Returns the readings;
+    `check_onoff` holds them to the limits."""
+    import torch
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True, decode_attn="kernel")
+    dec_off = CachedDecoder(engine_off, kv_dtype=SERVICE["kv_dtype"],
+                            scratch_blocks=True, decode_attn="torch")
+    window = dec._window
+    vocab = engine.program.weights[engine.program.plan[0][0].name][
+        "weight"].shape[0]
+    rng = np.random.default_rng(seed)
+    n = len(prompt_lens)
+    tokens = np.zeros((n, window), np.float32)
+    for i, p in enumerate(prompt_lens):
+        tokens[i, :p] = rng.integers(0, vocab, p)
+    lengths = np.asarray(prompt_lens)
+
+    def block_step(dec, caches, kernel_attn):
+        # step 0 of a scratch decode block, with its logits: the
+        # decoder's own block step (zoo/generate.py), called directly
+        scr = {name: tuple(torch.zeros(
+            (n, info["num_kv_heads"], 1, info["head_dim"]),
+            dtype=dec._kv_store, device=device) for _ in range(2))
+            for name, info in dec._mha_ops}
+        pos = torch.as_tensor(lengths, device=device)
+        tok = torch.as_tensor(tokens[np.arange(n), lengths - 1],
+                              device=device)
+        with torch.inference_mode():
+            return dec._step_fn_scratch(tok[:, None], pos, caches, scr, 0,
+                                        pos, kernel_attn)[:, 0, :]
+
+    def compare(got, want):
+        got, want = got.float(), want.float()
+        scale = max(1.0, float(want.abs().max()))
+        d = (got - want).abs()
+        return {"max_abs_over_scale": float(d.max()) / scale,
+                "mean_abs_over_scale": float(d.mean()) / scale,
+                "scale": scale, "argmax_equal": int(
+                    (got.argmax(-1) == want.argmax(-1)).sum())}
+
+    on, caches = dec.prefill(tokens, lengths)
+    step_on = block_step(dec, caches, True)
+    del caches
+    off, caches = dec_off.prefill(tokens, lengths)
+    step_off = block_step(dec_off, caches, False)
+    del caches
+    rdec = CachedDecoder(reference, scratch_blocks=True,
+                         decode_attn="kernel")
+    with fp32_parity(True):
+        truth, rcaches = rdec.prefill(tokens, lengths)
+        step_truth = block_step(rdec, rcaches, True)
+    res = {"phase": "llama_kernels_on_vs_off", "rows": n,
+           "prompt_lens": list(prompt_lens), "width": window,
+           "prefill_logits": compare(on, off),
+           "decode_step_logits": compare(step_on, step_off),
+           "vs_fp32": {
+               "prefill_logits": {"on": compare(on, truth),
+                                  "off": compare(off, truth)},
+               "decode_step_logits": {"on": compare(step_on, step_truth),
+                                      "off": compare(step_off, step_truth)}},
+           "tol": [ONOFF_MAX_TOL, ONOFF_MEAN_TOL],
+           "tol_vs_fp32": f"on <= {ONOFF_VS_FP32} x off"}
+    emit(res)
+    return res
+
+
+def check_onoff(res) -> None:
+    """Fails past the on-vs-off limits, or when the kernels' side is more
+    than ONOFF_VS_FP32 times farther from fp32 than the torch side."""
+    for part in ("prefill_logits", "decode_step_logits"):
+        r, v = res[part], res["vs_fp32"][part]
+        if (r["max_abs_over_scale"] > ONOFF_MAX_TOL
+                or r["mean_abs_over_scale"] > ONOFF_MEAN_TOL):
+            raise AssertionError(f"llama kernels on vs off, {part}: {r}")
+        for key in ("max_abs_over_scale", "mean_abs_over_scale"):
+            if v["on"][key] > ONOFF_VS_FP32 * v["off"][key]:
+                raise AssertionError(f"llama kernels on are farther from "
+                                     f"fp32 than off, {part}: {v}")
+
+
+def llama_ref64(graph, ids, group: int = 128) -> np.ndarray:
+    """Logits of a build_llama graph under int4w, in float64 numpy: the
+    plain reference of the fp32 phase. Every projection weight takes the
+    int4 round trip (quantize_int4_grouped, then its f32 dequantized
+    values: the format's own numbers); everything else is written out
+    here (RMSNorm, HF RoPE, GQA causal softmax attention, SwiGLU) and
+    shares no compute with the port, nor any torch CPU library."""
+    from simpleinfer_tpu_torch.quant.tensor import quantize_int4_grouped
+
+    def w4(w):                        # [out, in] -> dequantized [in, out]
+        q = quantize_int4_grouped(np.ascontiguousarray(w.T), group=group)
+        return q.dequantize().numpy().astype(np.float64)
+
+    env = {}
+    for op in graph.ops:
+        p = {k: v.value for k, v in op.params.items()}
+        a = {k: v.array() for k, v in op.attrs.items()}
+        xs = [env.get(r.name) for r in op.inputs]
+        if op.type == "pnnx.Output":
+            continue
+        if op.type == "pnnx.Input":
+            y = np.asarray(ids, np.int64)
+        elif op.type == "nn.Embedding":
+            y = a["weight"].astype(np.float64)[xs[0]]
+        elif op.type == "nn.RMSNorm":
+            x = xs[0]
+            y = x / np.sqrt((x * x).mean(-1, keepdims=True) + p["eps"])
+            y = y * a["weight"] if "weight" in a else y
+        elif op.type == "nn.SiLU":
+            y = xs[0] / (1.0 + np.exp(-xs[0]))
+        elif op.type == "pnnx.Expression":
+            y = {"add(@0,@1)": np.add, "mul(@0,@1)": np.multiply}[
+                p["expr"]](*xs)
+        elif op.type == "nn.Linear":
+            y = xs[0] @ w4(a["weight"])
+        elif op.type == "si.RotaryAttention":
+            extra = set(p) - {"embed_dim", "num_heads", "num_kv_heads",
+                              "rope_theta", "bias"}
+            if extra or p["bias"]:
+                raise ValueError(f"llama_ref64: {sorted(extra)} or bias "
+                                 f"not in the reference")
+            x = xs[0]
+            n, l, e = x.shape
+            h, kvh = p["num_heads"], p["num_kv_heads"]
+            d = e // h
+
+            def heads(key, nh):
+                return (x @ w4(a[f"{key}_proj.weight"])).reshape(
+                    n, l, nh, d).transpose(0, 2, 1, 3)
+
+            half = d // 2
+            ang = np.arange(l)[:, None] * (
+                1.0 / p["rope_theta"] ** (np.arange(half) / half))
+            cos = np.cos(np.concatenate([ang, ang], -1))
+            sin = np.sin(np.concatenate([ang, ang], -1))
+
+            def rope(t):
+                return t * cos + np.concatenate(
+                    [-t[..., half:], t[..., :half]], -1) * sin
+
+            q, k = rope(heads("q", h)), rope(heads("k", kvh))
+            k = np.repeat(k, h // kvh, axis=1)
+            v = np.repeat(heads("v", kvh), h // kvh, axis=1)
+            s = q @ k.transpose(0, 1, 3, 2) / math.sqrt(d)
+            s = np.where(np.tril(np.ones((l, l), bool)), s, -np.inf)
+            pr = np.exp(s - s.max(-1, keepdims=True))
+            ctx = (pr / pr.sum(-1, keepdims=True)) @ v
+            y = ctx.transpose(0, 2, 1, 3).reshape(n, l, h * d) @ w4(
+                a["o_proj.weight"])
+        else:
+            raise ValueError(f"llama_ref64: no reference for {op.type}")
+        env[op.outputs[0].name] = y
+    (out,) = [r.name for op in graph.ops if op.type == "pnnx.Output"
+              for r in op.inputs]
+    return env[out]
+
+
+def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
+                           seed=0, **kw) -> dict:
+    """fp32 int4w llama (full width, `depth` layers, window `seq_len`) on
+    `device` against the plain reference: logits of a full-window
+    forward within FP32_TOL * scale of `llama_ref64` (float64, TF32
+    off), the same forward bit-equal when run twice, and greedy tokens
+    of a scratch-block decode with the decode kernel equal to the
+    port's on the CPU (plain versions). The port's fp32 CPU logits are
+    reported beside the card's, each as its distance from the float64
+    reference: an fp32 CPU forward is a host's own rounding, which
+    differs from host to host, so it is no yardstick for the card. The
+    flash gate is lowered to the window so the forward runs it."""
+    import torch
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.zoo import build_llama
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    kw = {**LLAMA, "depth": depth, "seq_len": seq_len, **kw}
+    engines = []
+    for dev, uk in ((device, None), (torch.device("cpu"), True)):
+        e = Engine(EngineConfig(compute_dtype="float32", quant="int4w",
+                                device=str(dev), use_kernels=uk))
+        engines.append(e.load_model(None, graph=build_llama(**kw)[0]))
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, kw["vocab_size"], (1, seq_len)).astype(np.float32)
+    prompt = ids[:, :seq_len // 2].astype(np.int64)
+    prev = os.environ.get("SI_FLASH_MIN_LK")
+    os.environ["SI_FLASH_MIN_LK"] = str(seq_len)
+    try:
+        outs, toks = [], []
+        for e in engines:
+            with fp32_parity(True):
+                outs.append(e.run({e.input_names[0]: ids})[
+                    e.output_names[0]])
+                toks.append(CachedDecoder(
+                    e, scratch_blocks=True, decode_attn="kernel").generate(
+                    prompt, steps=steps, block=8))
+        with fp32_parity(True):
+            again = engines[0].run({engines[0].input_names[0]: ids})[
+                engines[0].output_names[0]]
+    finally:
+        if prev is None:
+            os.environ.pop("SI_FLASH_MIN_LK")
+        else:
+            os.environ["SI_FLASH_MIN_LK"] = prev
+    got, cpu = outs
+    ref = llama_ref64(build_llama(**kw)[0], ids)
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = np.abs(got - ref)
+    worst = np.unravel_index(int(err.argmax()), err.shape)
+    res = {"phase": "llama_fp32_card_vs_cpu", "shape": list(got.shape),
+           "depth": depth, "reference": "llama_ref64 (float64 numpy)",
+           "max_abs_err": float(err.max()), "scale": scale,
+           "worst_at": [int(i) for i in worst],
+           "cpu_max_abs_err": float(np.abs(cpu - ref).max()),
+           "card_vs_cpu_max_abs_err": float(np.abs(got - cpu).max()),
+           "cpu_scale": float(np.abs(cpu).max()),
+           "tol": f"{FP32_TOL}*scale",
+           "rerun_bit_equal": bool(np.array_equal(got, again)),
+           "tokens_equal": bool(np.array_equal(toks[0], toks[1])),
+           "steps": steps}
+    emit(res)
+    if (res["max_abs_err"] > FP32_TOL * scale
+            or not res["rerun_bit_equal"] or not res["tokens_equal"]):
+        raise AssertionError(f"llama fp32 card vs CPU: {res}")
+    return res
+
+
 # ---- driver -------------------------------------------------------------
-def main() -> int:
+PHASES = ("yolo", "llama_kernels", "llama_service", "llama_onoff",
+          "llama_fp32")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (the default runs all; a subset prints no ok line)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(HERE, "simpleinfer_tpu_torch")):
         print("chip_smoke.py: simpleinfer_tpu_torch/ not found beside the "
               "script; run it from the root of a checkout", file=sys.stderr)
@@ -489,38 +1400,83 @@ def main() -> int:
               "script needs a CUDA card", file=sys.stderr)
         return 3
     device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
     t0 = time.perf_counter()
     info = device_and_build(device)
+    kernels = {}
 
-    on = yolo_engine(device, 8, 640, "bfloat16", True)
-    off = yolo_engine(device, 8, 640, "bfloat16", False)
-    rng = np.random.default_rng(123)
-    warm = rng.integers(0, 256, (8, 640, 640, 3), dtype=np.uint8)
-    shape_counts = record_main_shapes(on[0], {on[1]: warm})
-    emit({"phase": "main_path_shapes", "shapes": [
-        [*k, c] for k, c in sorted(shape_counts.items())]})
-    max_err = kernel_vs_plain(device, list(shape_counts))
-    totals = time_kernels(device, shape_counts)
-    main = main_path(device, engines=(on, off))
-    del on, off
-    fp32_card_vs_cpu(device)
+    if "yolo" in phases:
+        on = yolo_engine(device, 8, 640, "bfloat16", True)
+        off = yolo_engine(device, 8, 640, "bfloat16", False)
+        rng = np.random.default_rng(123)
+        warm = rng.integers(0, 256, (8, 640, 640, 3), dtype=np.uint8)
+        shape_counts = record_main_shapes(on[0], {on[1]: warm})
+        emit({"phase": "main_path_shapes", "shapes": [
+            [*k, c] for k, c in sorted(shape_counts.items())]})
+        max_err = kernel_vs_plain(device, list(shape_counts))
+        totals = time_kernels(device, shape_counts)
+        main = main_path(device, engines=(on, off))
+        del on, off
+        fp32_card_vs_cpu(device)
+        t = totals["matmul_int8w"]
+        kernels["matmul_int8w"] = {
+            "name": "matmul_int8w", "route": "cuda",
+            "source": "simpleinfer_tpu_torch/csrc/matmul.cu",
+            "replaces": "simpleinfer_tpu/kernels/matmul.py:183",
+            "launches": main["launches"], "max_abs_err": max_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+        torch.cuda.empty_cache()
 
-    t = totals["matmul_int8w"]
+    if "llama_kernels" in phases:
+        llama_kernel_checks(device)
+    if {"llama_service", "llama_onoff"} & set(phases):
+        eng, build_s, load_s = llama_engine(device)
+        emit({"phase": "llama_engine", "config": LLAMA,
+              "compute": "bfloat16", "quant": "int4w", "int4_group": 128,
+              "graph_build_s": build_s, "load_s": load_s,
+              "weight_bytes_on_card": torch.cuda.memory_allocated(device)})
+        layers = sum(impl.type == "si.RotaryAttention"
+                     for impl in eng.program.impls)
+        if "llama_service" in phases:
+            run = service_run(eng, device)
+            rec = run["recorder"]
+            worst = llama_kernel_checks(device, main_shapes_of(rec))
+            times = time_llama_kernels(device, rec, layers)
+            decode_step_profile(eng, device, median_lengths(rec))
+            launches = run["res"]["launches"]
+            for name, src, repl in (
+                    ("matmul_int4w", "matmul_int4w.cu",
+                     "simpleinfer_tpu/kernels/matmul.py:325"),
+                    ("flash_attention", "flash_attention.cu",
+                     "simpleinfer_tpu/kernels/attention.py:159"),
+                    ("decode_attention", "decode_attention.cu",
+                     "simpleinfer_tpu/kernels/decode_attn.py:176")):
+                t = times[name]
+                kernels[name] = {
+                    "name": name, "route": "cuda",
+                    "source": f"simpleinfer_tpu_torch/csrc/{src}",
+                    "replaces": repl, "launches": launches[name],
+                    "max_abs_err": worst[name], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"]}
+        if "llama_onoff" in phases:
+            off, _, _ = llama_engine(device, use_kernels=False)
+            ref, _, _ = llama_engine(device, compute="float32")
+            check_onoff(onoff(eng, off, device, ref))
+            del off, ref
+        del eng
+        torch.cuda.empty_cache()
+    if "llama_fp32" in phases:
+        llama_fp32_card_vs_cpu(device)
+
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     print(info["nvidia_smi"], flush=True)
-    emit({"kernels": [{
-        "name": "matmul_int8w",
-        "route": "cuda",
-        "source": "simpleinfer_tpu_torch/csrc/matmul.cu",
-        "replaces": "simpleinfer_tpu/kernels/matmul.py:183",
-        "launches": main["launches"],
-        "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]})
+    emit({"kernels": list(kernels.values())})
+    if phases != list(PHASES):
+        return 0     # a partial run is a debugging aid: no ok line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,11 @@ package imports neither jax nor simpleinfer_tpu.
 
 Ported so far: the YOLOv5 path — IR, fusions, the YOLOv5 builder, the
 ops it lowers to, weight-only int8, the executor and the Engine — with
-`matmul` / `matmul_int8w` as a CUDA kernel.
+`matmul` / `matmul_int8w` as a CUDA kernel; and the llama generation
+path — the llama builder, Linear / norm / rotary-attention ops,
+group-wise int4 weights, the KV-cache decoder, sampling and
+serving.GenerationService — with `matmul_int4w`, `flash_attention` and
+`decode_attention` as CUDA kernels.
 """
 from .config import EngineConfig
 from .engine import Engine, EngineStateError

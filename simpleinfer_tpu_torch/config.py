@@ -1,10 +1,10 @@
 """Engine configuration of the PyTorch/CUDA port.
 
 The counterpart of simpleinfer_tpu/config.py's `EngineConfig`, carrying
-the fields that say WHAT is computed (dtype policy, weight-only int8,
-I/O layout, load-time fusions, u8 input scaling) plus the torch device
-the engine runs on. The TPU-only fields (mesh, tp_mode, device_index,
-compilation_cache_dir, donate_inputs, input_layout,
+the fields that say WHAT is computed (dtype policy, weight-only int8
+and int4, I/O layout, load-time fusions, u8 input scaling) plus the
+torch device the engine runs on. The TPU-only fields (mesh, tp_mode,
+device_index, compilation_cache_dir, donate_inputs, input_layout,
 xla_compiler_options) change how the work is laid out on a TPU, not its
 result, and are not carried.
 """
@@ -17,7 +17,7 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_NOT_PORTED_QUANT = ("int8", "int4w")
+_NOT_PORTED_QUANT = ("int8",)
 
 
 @dataclass(frozen=True)
@@ -25,10 +25,15 @@ class EngineConfig:
     # "float32" (the parity mode: TF32 off for convs and matmuls) or
     # "bfloat16" (the production mode)
     compute_dtype: str = "float32"
-    # None (keep weights at compute dtype) or "int8w" (weight-only int8,
-    # per-output-channel scales). "int8" (static) and "int4w" are not
-    # ported yet.
+    # None (keep weights at compute dtype), "int8w" (weight-only int8,
+    # per-output-channel scales) or "int4w" (weight-only group-wise int4
+    # of 2-D [in, out] weights, the LLM decode serving dtype, through
+    # kernels/matmul.matmul_int4w; 4-D conv weights fall back to int8).
+    # "int8" (static) is not ported yet.
     quant: Optional[str] = None
+    # int4w quantization group size along the weight's K dim (one scale
+    # row per group)
+    int4_group: int = 128
     # layout of arrays the USER passes to input()/gets from extract():
     # "nhwc" or "nchw" (the engine permutes at the boundary)
     io_layout: str = "nhwc"
@@ -37,8 +42,10 @@ class EngineConfig:
     fuse: bool = True
     # the fused whole-C3 kernel of the JAX package; not ported yet
     c3_fusion: bool = False
-    # hand-written kernels for eligible ops (pointwise int8w convs run
-    # through kernels/matmul.matmul_int8w): the counterpart of the JAX
+    # hand-written kernels for eligible ops (pointwise int8w convs and
+    # int8w linears through kernels/matmul.matmul_int8w, int4w weights
+    # through matmul_int4w, long prefills through kernels/attention
+    # .flash_attention): the counterpart of the JAX
     # package's `EngineConfig.use_pallas`. None = on when the device is
     # CUDA. use_pallas defaults off because of a TPU v5e measurement,
     # which says nothing about Hopper. On a CPU device the kernels'
@@ -55,10 +62,12 @@ class EngineConfig:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
         if self.quant in _NOT_PORTED_QUANT:
             raise NotImplementedError(
-                f"quant={self.quant!r} is not ported yet; use None or "
-                f"'int8w'")
-        if self.quant not in (None, "int8w"):
-            raise ValueError("quant must be None or 'int8w'")
+                f"quant={self.quant!r} is not ported yet; use None, "
+                f"'int8w' or 'int4w'")
+        if self.quant not in (None, "int8w", "int4w"):
+            raise ValueError("quant must be None, 'int8w' or 'int4w'")
+        if self.int4_group < 2 or self.int4_group % 2:
+            raise ValueError("int4_group must be an even number >= 2")
         if self.c3_fusion:
             raise NotImplementedError("c3_fusion is not ported yet")
         if self.io_layout not in ("nhwc", "nchw"):

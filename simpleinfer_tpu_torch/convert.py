@@ -2,10 +2,13 @@
 
 `program_weights_from_numpy` takes a JAX `Program.weights` tree that the
 caller converted to numpy — {op: {key: ndarray | (int8 data, f32 scale,
-axis)}} — and returns the port's weights for the same graph, ready to
-hand to the port's `Program.fn`. Both packages then run on the SAME
-quantized bytes. Keys line up one to one (both packages keep HWIO conv
-weights and per-output-channel scales), except for:
+axis) | (int8 packed, f32 scale, group, k)}}, the tuples standing for
+QuantizedTensor and Quantized4Tensor — and returns the port's weights
+for the same graph, ready to hand to the port's `Program.fn` (or to an
+Engine's place_weights). Both packages then run on the SAME quantized
+bytes. Keys line up one to one (both packages keep HWIO conv weights,
+per-output-channel scales and the llama ops' wq/wk/wv/wo, wqn/wkn,
+gamma and weight), except for:
 - the Detect decode tables: per level (`gridc{i}`, `anchorc{i}`) in the
   JAX package, row-concatenated (`grid`, `anchor`) in the port;
 - the block-Toeplitz stem packs `bt_in{g}` of the JAX package's W-packed
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from .ops.yolo import detect_tables
-from .quant.tensor import QuantizedTensor
+from .quant.tensor import Quantized4Tensor, QuantizedTensor
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -35,7 +38,13 @@ def program_weights_from_numpy(weights: dict, device="cpu") -> dict:
         for key, v in wdict.items():
             if key.startswith(("bt_in", "gridc", "anchorc")):
                 continue
-            if isinstance(v, tuple):
+            if isinstance(v, tuple) and len(v) == 4:
+                packed, scale, group, k = v
+                port[key] = Quantized4Tensor(
+                    packed=_tensor(np.asarray(packed, np.int8), device),
+                    scale=_tensor(np.asarray(scale, np.float32), device),
+                    group=int(group), k=int(k))
+            elif isinstance(v, tuple):
                 data, scale, axis = v
                 port[key] = QuantizedTensor(
                     data=_tensor(np.asarray(data, np.int8), device),

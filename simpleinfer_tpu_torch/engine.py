@@ -32,7 +32,7 @@ import torch
 from .config import EngineConfig
 from .executor import Program, build_program
 from .ir.graph import Graph
-from .quant.tensor import QuantizedTensor
+from .quant.tensor import Quantized4Tensor, QuantizedTensor
 
 logger = logging.getLogger("simpleinfer_tpu_torch")
 
@@ -139,21 +139,25 @@ class Engine:
         """Stage one named input (numpy array or torch tensor) on the
         engine's device at the compute dtype. Arrays are NHWC by default;
         with io_layout='nchw' rank-4 arrays are permuted here. uint8
-        arrays are shipped raw and scaled on the device by u8_scale."""
+        arrays are shipped raw and scaled on the device by u8_scale.
+        Token-id inputs (consumed only by nn.Embedding, e.g. [N, L] ids
+        of an LM) are staged as float32, which holds every id below 2^24
+        exactly (bf16 would round ids above 256)."""
         self._require_loaded()
         if name not in self._program.input_names:
             raise KeyError(
                 f"unknown input {name!r}; inputs are {self._program.input_names}")
         x = array if isinstance(array, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(array))
-        dtype = self.config.compute_torch_dtype
-        if x.dtype == torch.uint8:
+        spec = next(s for s in self._program.inputs if s.name == name)
+        dtype = torch.float32 if spec.token else \
+            self.config.compute_torch_dtype
+        if x.dtype == torch.uint8 and not spec.token:
             x = x.to(self.device).to(dtype) * self.config.u8_scale
         else:
             x = x.to(self.device, dtype)
         if self.config.io_layout == "nchw" and x.ndim == 4:
             x = x.permute(0, 2, 3, 1)
-        spec = next(s for s in self._program.inputs if s.name == name)
         if spec.shape and len(spec.shape) != x.ndim:
             raise ValueError(
                 f"input {name!r}: rank {x.ndim} does not match declared "
@@ -211,10 +215,11 @@ class Engine:
             raise EngineStateError("no model loaded")
 
     def place_weights(self, weights: dict, program: Program) -> dict:
-        """Move a {op: {key: tensor | QuantizedTensor}} weight tree of
-        `program` to the engine's device, float weights at the compute
-        dtype; each op's fp32_keys (e.g. YOLO grids) and quantized tensors
-        are left alone."""
+        """Move a {op: {key: tensor | QuantizedTensor | Quantized4Tensor}}
+        weight tree of `program` to the engine's device, float weights at
+        the compute dtype; each op's fp32_keys (e.g. YOLO grids, qk-norm
+        weights) stay f32 and quantized tensors keep their int8 data /
+        packed nibbles and f32 scales."""
         fp32_keys = {impl.name: impl.fp32_keys for impl in program.impls}
         dtype = self.config.compute_torch_dtype
         placed = {}
@@ -222,7 +227,7 @@ class Engine:
             keep = fp32_keys.get(opname, ())
             placed[opname] = {}
             for k, w in wdict.items():
-                if isinstance(w, QuantizedTensor):
+                if isinstance(w, (QuantizedTensor, Quantized4Tensor)):
                     placed[opname][k] = w.to(self.device)
                 elif w.is_floating_point() and k not in keep:
                     placed[opname][k] = w.to(self.device, dtype)

@@ -10,8 +10,8 @@ load lifecycle is the same:
     (fusions)         -> ir.passes.run_inference_fusions
     CreateTensorNodes -> input/output discovery by op type, then degree;
                          NCHW -> NHWC declared shapes
-    CreateLayers      -> ops.lower_operator per op, int8w quantization of
-                         `quantizable` weights
+    CreateLayers      -> ops.lower_operator per op, int8w / int4w
+                         quantization of `quantizable` weights
     CreatePipeline    -> the topo-sorted plan
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from .ir.expression import expand_expression
 from .ir.graph import Graph, Operand
 from .ir.passes import run_inference_fusions
 from .ops import OpImpl, lower_operator
-from .quant.tensor import quantize_per_channel
+from .quant.tensor import quantize_int4_grouped, quantize_per_channel
 
 
 def nchw_shape_to_nhwc(shape: list) -> list:
@@ -42,6 +42,9 @@ class TensorSpec:
 
     name: str
     shape: list  # NHWC for rank-4, -1 = dynamic (batch)
+    # token ids consumed only by nn.Embedding: staged as float32 (exact
+    # ids up to 2^24) whatever the compute dtype
+    token: bool = False
 
 
 @dataclass
@@ -120,7 +123,10 @@ def discover_io(graph: Graph) -> tuple:
 
 def _spec_for(operand: Operand) -> TensorSpec:
     return TensorSpec(name=operand.name,
-                      shape=nchw_shape_to_nhwc(operand.shape))
+                      shape=nchw_shape_to_nhwc(operand.shape),
+                      token=bool(operand.consumers) and all(
+                          op.type == "nn.Embedding"
+                          for op in operand.consumers))
 
 
 def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
@@ -140,11 +146,19 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
         if op.type in ("pnnx.Input", "pnnx.Output"):
             continue
         impl = lower_operator(op, cfg)
-        if cfg.quant == "int8w":
+        if cfg.quant in ("int8w", "int4w"):
             for key, axis in impl.quantizable.items():
-                if key in impl.weights:
-                    impl.weights[key] = quantize_per_channel(
-                        impl.weights[key].numpy(), axis)
+                if key not in impl.weights:
+                    continue
+                w = impl.weights[key].numpy()
+                if cfg.quant == "int4w" and w.ndim == 2 and axis == 1:
+                    # the W4 serving dtype: 2-D [in, out] weights are
+                    # group-quantized and nibble-packed; 4-D conv
+                    # weights keep per-channel int8
+                    impl.weights[key] = quantize_int4_grouped(
+                        w, group=cfg.int4_group)
+                else:
+                    impl.weights[key] = quantize_per_channel(w, axis)
         impls.append(impl)
         weights[impl.name] = impl.weights
         plan.append((impl, [r.name for r in op.inputs],

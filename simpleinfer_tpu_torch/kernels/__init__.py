@@ -3,8 +3,12 @@ package's Pallas TPU kernels (simpleinfer_tpu/kernels/). Each wrapper
 runs its plain PyTorch version for CPU tensors and launches its kernel
 (or raises) for CUDA tensors.
 
-- matmul.py: `matmul` / `matmul_int8w` (csrc/matmul.cu)
+- matmul.py: `matmul` / `matmul_int8w` (csrc/matmul.cu) and
+  `matmul_int4w` (csrc/matmul_int4w.cu)
+- attention.py: `flash_attention` (csrc/flash_attention.cu)
+- decode_attn.py: `decode_attention` (csrc/decode_attention.cu)
+- build.py: nvcc build and ctypes binding of the sources
 
 The submodules are not re-exported by function name, so
-`kernels.matmul` stays the module (its `launches` counter lives there).
+`kernels.matmul` stays the module (its `launches` counters live there).
 """

@@ -1,47 +1,45 @@
 """Fused-epilogue GEMM: the hand-written CUDA counterpart of the Pallas
 `_matmul_kernel` (simpleinfer_tpu/kernels/matmul.py).
 
-Two entry points with the JAX signatures:
+Entry points with the JAX signatures:
 - matmul(x, w, ...)               — dense weights [K, N]
 - matmul_int8w(x, w_q, scale, ...) — int8 weights + per-column f32 scale
   (per-OUTPUT-channel symmetric quantization, quant/tensor.py); the
   dequant `acc * scale[n]` is folded into the epilogue.
+- matmul_int4w(x, wq4, ...)       — a Quantized4Tensor (group-wise int4,
+  nibble-packed; quant/tensor.py), the counterpart of the Pallas
+  `_matmul_int4w_kernel`.
 
-Both compute ``act((x @ w) * scale? + bias?)`` with f32 accumulation for
-any M, N and K, through ONE CUDA kernel (csrc/matmul.cu), templated on
-the input, weight and output dtypes. The kernel is built with nvcc for
-sm_90a at first use, into `_build/` beside this package, and bound with
-ctypes (a plain C interface: no PyTorch headers, so the build takes
-seconds).
+All compute ``act(x @ w (dequantized) + bias?)`` with f32 accumulation
+for any M, N and K. `matmul` and `matmul_int8w` share ONE CUDA kernel
+(csrc/matmul.cu), templated on the input, weight and output dtypes;
+`matmul_int4w` is its own (csrc/matmul_int4w.cu). The kernels are built
+with nvcc for sm_90a at first use, into `_build/` beside this package,
+and bound with ctypes (kernels/build.py).
 
 A wrapper runs its plain PyTorch version (`matmul_ref`,
-`matmul_int8w_ref`) only for tensors on the CPU. For CUDA tensors it
-launches the kernel or raises; there is no fallback. `launches` counts
-the kernel launches, so a run can show that its path went through the
-kernel.
+`matmul_int8w_ref`, `matmul_int4w_ref`) only for tensors on the CPU.
+For CUDA tensors it launches the kernel or raises; there is no
+fallback. `launches` counts the launches of csrc/matmul.cu and
+`launches_int4w` those of csrc/matmul_int4w.cu, so a run can show that
+its path went through each kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
-# kernel launches since import (or since a caller reset it to 0)
-launches = 0
+from . import build
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "matmul.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# kernel launches since import (or since a caller reset them to 0)
+launches = 0
+launches_int4w = 0
+
+SOURCE = "matmul.cu"
+SOURCE_INT4W = "matmul_int4w.cu"
 
 # dtype codes of csrc/matmul.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -109,55 +107,39 @@ def matmul_int8w_ref(x, w_q, scale, bias=None,
     return resolve_activation(activation)(out).to(out_dtype or x.dtype)
 
 
-# ---- build and bind -----------------------------------------------------
-_lib = None
-build_info: dict = {}
+def matmul_int4w_ref(x, wq4, bias=None, activation: Optional[str] = None,
+                     out_dtype=None):
+    """Dense f32 dequant, then the product (the CPU path and the
+    on-card oracle of matmul_int4w)."""
+    out = x.float() @ wq4.dequantize(torch.float32)
+    if bias is not None:
+        out = out + bias.float()
+    return resolve_activation(activation)(out).to(out_dtype or x.dtype)
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME") and
-                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA matmul kernel cannot be "
-                       "built (set CUDA_HOME or put nvcc on PATH)")
-
-
-def load_library(rebuild: bool = False):
-    """Build csrc/matmul.cu with nvcc (once per source and flags, the
-    library name carries their hash; `rebuild` builds anew) and bind
-    `si_matmul` with ctypes. Raises when nvcc is missing or the build
-    fails."""
-    global _lib
-    if _lib is not None and not rebuild:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libsi_matmul_{tag[:16]}.so"
-    t0 = time.perf_counter()
-    ptxas = ""
-    if rebuild or not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {SOURCE.name} (exit "
-                f"{proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        ptxas = proc.stderr
-    lib = ctypes.CDLL(str(so))
+# ---- bind ---------------------------------------------------------------
+def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.si_matmul.argtypes = [vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci,
                               ci, ci, ctypes.c_float, vp]
     lib.si_matmul.restype = ci
-    build_info.update(library=str(so), seconds=time.perf_counter() - t0,
-                      built=bool(ptxas), ptxas=ptxas)
-    _lib = lib
-    return lib
+
+
+def _bind_int4w(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.si_matmul_int4w.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
+                                    ci, ci, ci, ci, ctypes.c_float, vp]
+    lib.si_matmul_int4w.restype = ci
+
+
+def load_library(rebuild: bool = False):
+    """The ctypes library of csrc/matmul.cu (built at first use)."""
+    return build.load(SOURCE, _bind, rebuild)
+
+
+def load_library_int4w(rebuild: bool = False):
+    """The ctypes library of csrc/matmul_int4w.cu (built at first use)."""
+    return build.load(SOURCE_INT4W, _bind_int4w, rebuild)
 
 
 # ---- wrappers -----------------------------------------------------------
@@ -244,3 +226,65 @@ def matmul_int8w(x, w_q, scale, bias=None, activation: Optional[str] = None,
     if scale is None:
         raise ValueError("matmul_int8w needs the per-column scale")
     return _launch(x, w_q, scale, bias, activation, out_dtype)
+
+
+def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
+                 out_dtype=None):
+    """out = act(x[M,K] @ dequant(wq4) + bias[N]) with wq4 a
+    Quantized4Tensor (group-wise nibble-packed int4; see quant/tensor.py
+    for the layout the kernel shares). The TPU wrapper's block_m /
+    block_n / groups_per_block are its VMEM tile sizes and have no
+    counterpart here: the CUDA kernel picks its tile from M."""
+    global launches_int4w
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return matmul_int4w_ref(x, wq4, bias, activation, out_dtype)
+    packed, scale = wq4.packed, wq4.scale
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA int4w kernel needs CUDA tensors, got "
+                         f"{x.device}")
+    if x.ndim != 2 or x.shape[1] != wq4.k:
+        raise ValueError(f"matmul_int4w: x {tuple(x.shape)} does not chain "
+                         f"with a weight of logical K={wq4.k}")
+    for name, t in (("packed", packed), ("scale", scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if packed.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("matmul_int4w needs int8 packed and f32 scale")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype} is not float32/bfloat16")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype} is not float32/bfloat16")
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("x, packed and scale must be contiguous")
+    m, k = x.shape
+    kp2, n = packed.shape
+    if (tuple(scale.shape) != (2 * kp2 // wq4.group, n)
+            or (2 * kp2) % wq4.group or 2 * kp2 < k):
+        raise ValueError(f"packed {tuple(packed.shape)} / scale "
+                         f"{tuple(scale.shape)} do not match group "
+                         f"{wq4.group} and K={k}")
+    if m >= 2 ** 31 or n > 65535 * 32:
+        raise ValueError(f"matmul_int4w too large for the kernel: M={m}, "
+                         f"N={n}")
+    _check_vec("bias", bias, n, (torch.float32, torch.bfloat16), x.device)
+    code, arg = _act_code(activation)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    lib = load_library_int4w()
+    with torch.cuda.device(x.device):
+        err = lib.si_matmul_int4w(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], packed.data_ptr(),
+            scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            _DTYPE_CODES[bias.dtype] if bias is not None else 0,
+            out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, kp2,
+            wq4.group, code, arg,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_matmul_int4w launch failed with CUDA error "
+                           f"{err} (M={m}, N={n}, K={k})")
+    launches_int4w += 1
+    return out

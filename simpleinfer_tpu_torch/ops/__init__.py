@@ -2,9 +2,21 @@
 
 Importing this package registers every ported lowering: the op types a
 fused YOLOv5 graph uses (nn.Conv2d, BinaryOp, nn.MaxPool2d, nn.Upsample,
-torch.cat, models.yolo.Detect) and their file-mates.
+torch.cat, models.yolo.Detect), those of a llama graph (nn.Embedding,
+nn.RMSNorm, si.RotaryAttention, nn.Linear, nn.SiLU) and their
+file-mates.
 """
-from . import activation, binary, conv, pool, shape, yolo  # noqa: F401
+from . import (  # noqa: F401
+    activation,
+    attention,
+    binary,
+    conv,
+    linear,
+    norm,
+    pool,
+    shape,
+    yolo,
+)
 from .registry import (
     OpImpl,
     UnsupportedOpError,

@@ -34,6 +34,8 @@ class OpImpl:
     # weights to a lower compute dtype (e.g. YOLO grids: box coordinates
     # lose pixels in bf16)
     fp32_keys: tuple = ()
+    # head geometry of attention ops, read by zoo/generate.CachedDecoder
+    decode_info: Optional[dict] = None
 
 
 class UnsupportedOpError(Exception):

@@ -1,11 +1,13 @@
-"""Weight-only INT8 quantization container.
+"""Weight-only quantization containers: int8 and group-wise int4.
 
 The counterpart of simpleinfer_tpu/quant/tensor.py: weights are held as
-an int8 tensor plus a per-output-channel fp32 scale. Quantization itself
+an int8 tensor plus a per-output-channel fp32 scale (`QuantizedTensor`),
+or as nibble-packed int4 plus per-(K-group, column) fp32 scales
+(`Quantized4Tensor`, the LLM decode serving dtype). Quantization itself
 stays in numpy, with the same arithmetic as the JAX package, so the
 bytes and scales come out equal to the JAX package's. Dequantization
-happens either in the plain path (`resolve_weight`, before a conv) or in
-the CUDA matmul kernel's epilogue (kernels/matmul.py).
+happens either in the plain path (`resolve_weight`) or inside the CUDA
+matmul kernels (kernels/matmul.py).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..kernels import matmul as kmm
 
 
 @dataclass
@@ -63,8 +67,96 @@ def quantize_per_channel(w, axis: int) -> QuantizedTensor:
                            scale=torch.from_numpy(scale), axis=axis)
 
 
+@dataclass
+class Quantized4Tensor:
+    """Group-wise symmetric INT4 weight (W4 gG), nibble-packed, for 2-D
+    [in, out] weights.
+
+    Layout (shared with kernels/matmul.matmul_int4w and the JAX
+    package): packed [Kp/2, N] int8 — for group g of `group` K-rows,
+    packed rows [g*group/2, (g+1)*group/2) hold logical rows
+    [g*group, g*group + group/2) in the high nibble and the second half
+    of the group in the low nibble; scale [Kp/group, N] f32. `k` is the
+    logical K (rows beyond it are zero padding).
+    """
+
+    packed: torch.Tensor  # int8 [Kp/2, N]
+    scale: torch.Tensor   # f32 [Kp/group, N]
+    group: int
+    k: int
+
+    @property
+    def shape(self):
+        return (self.k, self.packed.shape[1])
+
+    @property
+    def ndim(self):
+        return 2
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def to(self, device) -> "Quantized4Tensor":
+        return Quantized4Tensor(packed=self.packed.to(device),
+                                scale=self.scale.to(device),
+                                group=self.group, k=self.k)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        p = self.packed.to(torch.int32)   # the sign-extended bytes
+        kp2, n = p.shape
+        g = self.group
+        kg = (2 * kp2) // g
+        hi = (p >> 4).reshape(kg, g // 2, n)
+        lo = (((p & 0xF) ^ 8) - 8).reshape(kg, g // 2, n)
+        wq = torch.cat([hi, lo], dim=1)                  # [kg, g, N]
+        s = self.scale.reshape(kg, 1, n)
+        return (wq.float() * s).reshape(kg * g, n)[:self.k].to(dtype)
+
+
+def quantize_int4_grouped(w, group: int = 256) -> Quantized4Tensor:
+    """Symmetric group-wise int4 (abs-max / 7) of a 2-D [K, N] weight,
+    nibble-packed in the split-halves layout above; in numpy exactly as
+    simpleinfer_tpu.quant.tensor.quantize_int4_grouped. K is zero-padded
+    to a multiple of `group`."""
+    w = np.asarray(w, dtype=np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"int4 weights must be 2-D, got {w.shape}")
+    k, n = w.shape
+    kp = -(-k // group) * group
+    if kp != k:
+        w = np.concatenate([w, np.zeros((kp - k, n), np.float32)])
+    kg = kp // group
+    wg = w.reshape(kg, group, n)
+    absmax = np.abs(wg).max(axis=1)                     # [kg, N]
+    scale = np.where(absmax > 0, absmax / 7.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(wg / scale[:, None, :]), -8, 7).astype(np.int8)
+    hi, lo = q[:, :group // 2], q[:, group // 2:]
+    packed = ((hi.astype(np.uint8) << 4)
+              | (lo.astype(np.uint8) & 0xF)).astype(np.int8)
+    return Quantized4Tensor(
+        packed=torch.from_numpy(np.ascontiguousarray(
+            packed.reshape(kp // 2, n))),
+        scale=torch.from_numpy(scale), group=group, k=k)
+
+
 def resolve_weight(w, dtype=torch.float32) -> torch.Tensor:
     """Return a dense tensor for `w`, dequantizing if it is quantized."""
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, (QuantizedTensor, Quantized4Tensor)):
         return w.dequantize(dtype)
     return w if w.dtype == dtype else w.to(dtype)
+
+
+def proj_nlo(x, w, dt, use_kernels: bool = True):
+    """Decode-path projection: [N, L, I] x weight [I, O] -> [N, L, O] in
+    f32 (the caller adds bias and casts). THE int4w chokepoint: with
+    kernels on, a Quantized4Tensor streams its packed nibbles through
+    kernels/matmul.matmul_int4w with f32 output (on a CPU tensor, its
+    plain version); everything else — and int4 with kernels off —
+    resolves the weight dense at `dt` and runs torch.matmul."""
+    n, l, i = x.shape
+    if isinstance(w, Quantized4Tensor) and use_kernels:
+        y = kmm.matmul_int4w(x.reshape(n * l, i).contiguous(), w,
+                             out_dtype=torch.float32)
+        return y.reshape(n, l, -1)
+    return torch.matmul(x, resolve_weight(w, dt)).float()

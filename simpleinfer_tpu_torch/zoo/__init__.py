@@ -1,4 +1,5 @@
-"""Model zoo, ported subset: the YOLOv5 graph builder."""
-from .builders import GraphBuilder, build_yolov5
+"""Model zoo, ported subset: the YOLOv5 and llama graph builders, the
+KV-cache decoder and token sampling."""
+from .builders import LLAMA_PRESETS, GraphBuilder, build_llama, build_yolov5
 
-__all__ = ["GraphBuilder", "build_yolov5"]
+__all__ = ["LLAMA_PRESETS", "GraphBuilder", "build_llama", "build_yolov5"]

@@ -1,6 +1,8 @@
-"""Programmatic pnnx graph builders: the YOLOv5 family, ported subset.
+"""Programmatic pnnx graph builders: the YOLOv5 and llama families,
+ported subset.
 
-A copy of `GraphBuilder` (the layers YOLOv5 uses) and `build_yolov5` from
+A copy of `GraphBuilder` (the layers YOLOv5 and llama use),
+`build_yolov5`, `LLAMA_PRESETS` and `build_llama` from
 simpleinfer_tpu/zoo/builders.py (numpy only), so the port builds the
 same graphs with the same seeded weights without importing the JAX
 package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
@@ -194,6 +196,118 @@ class GraphBuilder:
         self.shape[out] = list(np.broadcast_shapes(tuple(sa), tuple(sb)))
         return out
 
+    def linear(self, x: str, out_f: int, bias: bool = True) -> str:
+        in_f = self.shape[x][-1]
+        attrs = {"weight": self._rand((out_f, in_f), fan_in=in_f)}
+        if bias:
+            attrs["bias"] = (self.rng.standard_normal(out_f)
+                             .astype(np.float32) * 0.05)
+        (out,) = self._op("nn.Linear", self._name("fc"), [x], params=dict(
+            bias=bias, in_features=in_f, out_features=out_f), attrs=attrs)
+        self.shape[out] = self.shape[x][:-1] + [out_f]
+        return out
+
+    def rms_norm(self, x: str, affine: bool = True) -> str:
+        e = self.shape[x][-1]
+        name = self._name("rms")
+        attrs = {}
+        if affine:
+            attrs["weight"] = np.ones(e, np.float32) + (
+                self.rng.standard_normal(e).astype(np.float32) * 0.02)
+        (out,) = self._op("nn.RMSNorm", name, [x], params=dict(
+            normalized_shape=[e], eps=1e-6, elementwise_affine=affine),
+            attrs=attrs)
+        self.shape[out] = list(self.shape[x])
+        return out
+
+    def silu_act(self, x: str) -> str:
+        return self._act("nn.SiLU", x)
+
+    def rotary_attention(self, x: str, num_heads: int,
+                         num_kv_heads: int | None = None,
+                         rope_theta: float = 10000.0,
+                         bias: bool = False,
+                         sliding_window: int | None = None,
+                         head_dim: int | None = None,
+                         qk_norm: bool = False,
+                         qk_norm_eps: float = 1e-6,
+                         attn_scale: float | None = None,
+                         logit_softcap: float | None = None,
+                         rotary_dim: int | None = None,
+                         rope_interleaved: bool = False,
+                         alibi: bool = False,
+                         alibi_scale: float | None = None,
+                         alibi_slopes=None,
+                         o_bias: bool = False) -> str:
+        """Llama-style causal self-attention (si.RotaryAttention
+        composite, ops/attention.py): RoPE + GQA, intrinsic causal mask,
+        llama checkpoint weight layout; head_dim decouples the per-head
+        width and qk_norm adds per-head q/k RMSNorm (qwen3-family). The
+        graph carries sliding_window / logit_softcap / alibi as the JAX
+        builder does; the port's lowering raises on them."""
+        e = self.shape[x][-1]
+        kv = num_kv_heads or num_heads
+        d = head_dim or e // num_heads
+        name = self._name("rattn")
+        attrs = {
+            "q_proj.weight": self._rand((num_heads * d, e), fan_in=e),
+            "k_proj.weight": self._rand((kv * d, e), fan_in=e),
+            "v_proj.weight": self._rand((kv * d, e), fan_in=e),
+            "o_proj.weight": self._rand((e, num_heads * d),
+                                        fan_in=num_heads * d),
+        }
+        if bias:
+            for k in ("q", "k", "v"):
+                heads = num_heads if k == "q" else kv
+                attrs[f"{k}_proj.bias"] = (
+                    self.rng.standard_normal(heads * d)
+                    .astype(np.float32) * 0.02)
+        if o_bias:
+            attrs["o_proj.bias"] = (self.rng.standard_normal(e)
+                                    .astype(np.float32) * 0.02)
+        if qk_norm:
+            attrs["q_norm.weight"] = 1.0 + (
+                self.rng.standard_normal(d).astype(np.float32) * 0.1)
+            attrs["k_norm.weight"] = 1.0 + (
+                self.rng.standard_normal(d).astype(np.float32) * 0.1)
+        params = dict(embed_dim=e, num_heads=num_heads, num_kv_heads=kv,
+                      rope_theta=rope_theta, bias=bias)
+        if head_dim is not None:
+            params["head_dim"] = int(head_dim)
+        if qk_norm:
+            params["qk_norm_eps"] = float(qk_norm_eps)
+        if attn_scale is not None:
+            params["attn_scale"] = float(attn_scale)
+        if logit_softcap is not None:
+            params["logit_softcap"] = float(logit_softcap)
+        if sliding_window is not None:
+            params["sliding_window"] = int(sliding_window)
+        if rotary_dim is not None:
+            params["rotary_dim"] = int(rotary_dim)
+        if rope_interleaved:
+            params["rope_interleaved"] = 1
+        if alibi:
+            params["alibi"] = 1
+            if alibi_scale is not None:
+                params["alibi_scale"] = float(alibi_scale)
+            if alibi_slopes is not None:
+                attrs["alibi_slopes"] = np.asarray(alibi_slopes,
+                                                   np.float32)
+        (out,) = self._op("si.RotaryAttention", name, [x], params=params,
+                          attrs=attrs)
+        self.shape[out] = list(self.shape[x])
+        return out
+
+    def embedding(self, idx: str, num_embeddings: int,
+                  embedding_dim: int) -> str:
+        name = self._name("emb")
+        (out,) = self._op("nn.Embedding", name, [idx], params=dict(
+            num_embeddings=num_embeddings, embedding_dim=embedding_dim,
+            sparse=False), attrs={
+            "weight": self._rand((num_embeddings, embedding_dim)) * 0.05})
+        self.shape[out] = list(self.shape[idx]) + [embedding_dim]
+        return out
+
     def yolo_detect(self, features: list, nc: int = 80,
                     anchors=YOLO_ANCHORS, strides=YOLO_STRIDES) -> str:
         na = len(anchors[0])
@@ -307,3 +421,72 @@ def build_yolov5(variant: str = "n", batch: int = 1, image_size: int = 640,
     out = b.yolo_detect([d3, d4, d5], nc=num_classes)
     b.output(out)
     return b.build(), "0", out
+
+
+LLAMA_PRESETS = {
+    # depth, width, heads, kv_heads (nano/micro are test-scale; the
+    # ratios mirror llama-2/3 blocks: GQA, SwiGLU at 8/3 expansion)
+    "nano": (2, 64, 4, 2),
+    "micro": (4, 128, 8, 4),
+    "small": (8, 512, 16, 8),
+    # llama-1B-class: ~0.84B parameters at vocab 32000
+    "base": (16, 2048, 32, 8),
+}
+
+
+def build_llama(variant: str = "nano", batch: int = 1, seq_len: int = 64,
+                vocab_size: int = 128, depth: int | None = None,
+                width: int | None = None, num_heads: int | None = None,
+                num_kv_heads: int | None = None,
+                rope_theta: float = 10000.0, seed: int = 0,
+                sliding_window: int | None = None,
+                sliding_pattern: str = "all",
+                qk_norm: bool = False,
+                head_dim: int | None = None,
+                attn_scale: float | None = None,
+                logit_softcap: float | None = None,
+                rotary_dim: int | None = None) -> tuple:
+    """Llama-family causal decoder LM: token ids [N, L] -> nn.Embedding
+    -> pre-RMSNorm blocks of si.RotaryAttention (RoPE + GQA, intrinsic
+    causal mask) and a SwiGLU MLP (gate/up nn.Linear, silu * up as an
+    Expression mul, down nn.Linear; no biases) -> final RMSNorm -> vocab
+    head. Output: next-token logits [N, L, V]. The same graph, op names
+    and seeded weights as the JAX package's build_llama."""
+    if variant not in LLAMA_PRESETS:
+        raise ValueError(f"variant must be one of {list(LLAMA_PRESETS)}")
+    if sliding_pattern not in ("all", "alternate"):
+        raise ValueError("sliding_pattern must be 'all' or 'alternate'")
+    d0, w0, h0, kv0 = LLAMA_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    w = w0 if width is None else width
+    heads = h0 if num_heads is None else num_heads
+    kv = kv0 if num_kv_heads is None else num_kv_heads
+    inter = max(1, int(w * 8 / 3) // 16 * 16)  # llama 8/3, 16-aligned
+
+    b = GraphBuilder(seed)
+    ids = b.input([batch, seq_len], name="0")
+    x = b.embedding(ids, vocab_size, w)
+
+    for li in range(depth):
+        sw_i = sliding_window if (sliding_pattern == "all"
+                                  or li % 2 == 1) else None
+        y = b.rms_norm(x)
+        y = b.rotary_attention(y, heads, num_kv_heads=kv,
+                               rope_theta=rope_theta,
+                               sliding_window=sw_i,
+                               head_dim=head_dim, qk_norm=qk_norm,
+                               attn_scale=attn_scale,
+                               logit_softcap=logit_softcap,
+                               rotary_dim=rotary_dim)
+        x = b.add(x, y)
+        y = b.rms_norm(x)
+        gate = b.silu_act(b.linear(y, inter, bias=False))
+        up = b.linear(y, inter, bias=False)
+        y = b.mul(gate, up)
+        y = b.linear(y, w, bias=False)
+        x = b.add(x, y)
+
+    x = b.rms_norm(x)
+    logits = b.linear(x, vocab_size, bias=False)
+    b.output(logits)
+    return b.build(), "0", logits

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and Engine on the card (marker `cuda`).
+"""The port's CUDA kernels and Engine on the card (marker `cuda`).
 
 These tests need a CUDA card and skip without one. They import neither
 jax nor the JAX package, so they run where only PyTorch is installed:
@@ -17,9 +17,13 @@ import torch
 
 from simpleinfer_tpu_torch import Engine, EngineConfig
 from simpleinfer_tpu_torch.engine import fp32_parity
+from simpleinfer_tpu_torch.kernels import attention as kattn
+from simpleinfer_tpu_torch.kernels import decode_attn as kdec
 from simpleinfer_tpu_torch.kernels import matmul as tmm
-from simpleinfer_tpu_torch.quant.tensor import quantize_per_channel
-from simpleinfer_tpu_torch.zoo import build_yolov5
+from simpleinfer_tpu_torch.quant.tensor import (quantize_int4_grouped,
+                                                quantize_per_channel)
+from simpleinfer_tpu_torch.zoo import build_llama, build_yolov5
+from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
 
 SHAPES = [(128, 128, 128), (256, 512, 256), (100, 60, 50), (1, 256, 255),
           (37, 129, 131), (8, 16, 8)]
@@ -91,3 +95,100 @@ def test_engine_on_card_matches_cpu(cuda):
     scale = max(1.0, float(np.abs(outs["cpu"]).max()))
     np.testing.assert_allclose(outs["cuda"], outs["cpu"],
                                atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", [(1, 200, 70, 128), (16, 2048, 96, 128),
+                                         (37, 129, 131, 64), (100, 256, 50, 32)])
+def test_int4w_kernel_matches_plain_on_card(cuda, m, k, n, group):
+    """matmul_int4w: the decode GEMV (M <= 16) and the tiled kernel, a
+    logical K that is not a multiple of the group, ragged M and N."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)
+    b = torch.from_numpy(0.1 * rng.standard_normal(n).astype(np.float32))
+    q = quantize_int4_grouped(w, group=group).to(cuda)
+    before = tmm.launches_int4w
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x).to(cuda, dtype)
+        for bias, act, out in ((None, None, dtype),
+                               (b.to(cuda, dtype), "silu", torch.float32)):
+            with fp32_parity(True):
+                got = tmm.matmul_int4w(xt, q, bias, act, out_dtype=out)
+                torch.cuda.synchronize()
+                _assert_close(got, tmm.matmul_int4w_ref(xt, q, bias, act,
+                                                        out_dtype=out))
+    assert tmm.launches_int4w - before == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,sw", [
+    (2, 3, 100, 100, 24, True, None), (1, 4, 77, 130, 64, False, None),
+    (2, 2, 300, 300, 64, True, 50), (1, 2, 129, 129, 128, True, None)])
+def test_flash_kernel_matches_plain_on_card(cuda, b, h, lq, lk, d, causal,
+                                            sw):
+    gen = torch.Generator(device=cuda).manual_seed(lq + d)
+    q, k, v = (torch.randn(b, h, l_, d, generator=gen, device=cuda)
+               for l_ in (lq, lk, lk))
+    before = kattn.launches
+    with fp32_parity(True):
+        got = kattn.flash_attention(q, k, v, causal=causal, sliding_window=sw)
+        torch.cuda.synchronize()
+        ref = kattn.flash_attention_ref(q, k, v, causal=causal,
+                                        sliding_window=sw)
+    _assert_close(got, ref)
+    assert kattn.launches - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_decode_kernel_matches_plain_on_card(cuda, cache):
+    """Lengths 0, 1, straddling a 64-position tile and full; the empty
+    row gives o = 0, l = 0, m = -1e30."""
+    from simpleinfer_tpu_torch.zoo.generate import _kv_quantize
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, kvh, g, length, d = 5, 2, 4, 200, 64
+    q = torch.randn(n, kvh, g, d, generator=gen, device=cuda)
+    k, v = (torch.randn(n, kvh, length, d, generator=gen, device=cuda)
+            for _ in range(2))
+    if cache == "int8":
+        k, v = _kv_quantize(k), _kv_quantize(v)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    lens = torch.tensor([0, 1, 63, 65, 200], dtype=torch.int32, device=cuda)
+    before = kdec.launches
+    got = kdec.decode_attention(q, k, v, lens, scale=0.125)
+    torch.cuda.synchronize()
+    ref = kdec.decode_attention_ref(q, k, v, lens, scale=0.125)
+    for a, r in zip(got[::2], ref[::2]):        # o and l
+        _assert_close(a, r)
+    o, m, l = got
+    assert bool((o[0] == 0).all()) and bool((l[0] == 0).all())
+    assert bool((m[0] == -1e30).all())
+    _assert_close(m[1:], ref[1][1:])
+    assert kdec.launches - before == 1
+
+
+@pytest.mark.cuda
+def test_llama_int4w_on_card_matches_cpu(cuda):
+    """fp32 int4w nano llama: logits on the card (matmul_int4w) against
+    the plain versions on the CPU, and the greedy tokens of a scratch-
+    block decode through the decode kernel equal."""
+    ids = np.random.default_rng(1).integers(0, 64, (2, 32)).astype(
+        np.float32)
+    outs, toks = {}, {}
+    for dev in ("cuda", "cpu"):
+        graph, in_name, out_name = build_llama("nano", seq_len=32,
+                                               vocab_size=64)
+        eng = Engine(EngineConfig(device=dev, quant="int4w",
+                                  use_kernels=True))
+        eng.load_model(None, graph=graph)
+        outs[dev] = eng.run({in_name: ids})[out_name]
+        toks[dev] = CachedDecoder(eng, scratch_blocks=True,
+                                  decode_attn="kernel").generate(
+            ids[:, :8].astype(np.int64), steps=8, block=4)
+    scale = max(1.0, float(np.abs(outs["cpu"]).max()))
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4 * scale,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(toks["cuda"], toks["cpu"])

@@ -199,12 +199,35 @@ def test_engine_states():
 
 
 def test_config_rejects_unported():
-    for kw in (dict(quant="int8"), dict(quant="int4w"),
-               dict(c3_fusion=True)):
+    for kw in (dict(quant="int8"), dict(c3_fusion=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             EngineConfig(device="cpu", **kw)
     with pytest.raises(ValueError):
         EngineConfig(device="cpu", compute_dtype="float16")
+    with pytest.raises(ValueError, match="int4_group"):
+        EngineConfig(device="cpu", quant="int4w", int4_group=7)
+
+
+def test_int4w_engine_builds():
+    """quant='int4w' builds: 2-D weights become Quantized4Tensors of the
+    configured group, the 4-D conv weights of a CNN fall back to int8
+    (as in the JAX package), and a forward gives finite outputs."""
+    from simpleinfer_tpu_torch.quant.tensor import Quantized4Tensor
+    from simpleinfer_tpu_torch.zoo import build_llama
+
+    graph, in_name, out_name = build_llama("nano", seq_len=16, vocab_size=32)
+    eng = Engine(EngineConfig(device="cpu", quant="int4w", int4_group=32))
+    eng.load_model(None, graph=graph)
+    q4 = [w for d in eng.program.weights.values() for w in d.values()
+          if isinstance(w, Quantized4Tensor)]
+    assert q4 and all(w.group == 32 for w in q4)
+    out = eng.run({in_name: np.zeros((1, 16), np.float32)})[out_name]
+    assert out.shape == (1, 16, 32) and np.isfinite(out).all()
+    pe, in_name, out_name, _ = port_engine(quant="int4w", variant="n",
+                                           batch=1, image=32)
+    assert any(isinstance(w, QuantizedTensor)
+               for d in pe.program.weights.values() for w in d.values())
+    assert np.isfinite(pe.run({in_name: images(1, 32)})[out_name]).all()
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():

@@ -1,5 +1,6 @@
-"""The port's `matmul` / `matmul_int8w` (simpleinfer_tpu_torch.kernels.
-matmul) against the JAX package's Pallas kernel and its jnp oracles.
+"""The port's `matmul` / `matmul_int8w` / `matmul_int4w`
+(simpleinfer_tpu_torch.kernels.matmul) against the JAX package's Pallas
+kernels and their jnp oracles.
 
 On the CPU the port's wrappers run their plain PyTorch versions (the CUDA
 kernel needs a card; tests/test_torch_cuda.py holds it against the plain
@@ -22,8 +23,10 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from simpleinfer_tpu.quant.tensor import quantize_int4_grouped as jquant4
 from simpleinfer_tpu.quant.tensor import quantize_per_channel as jquant
 from simpleinfer_tpu_torch.kernels import matmul as tmm
+from simpleinfer_tpu_torch.quant.tensor import quantize_int4_grouped as tquant4
 from simpleinfer_tpu_torch.quant.tensor import quantize_per_channel as tquant
 
 # the module (the package re-exports a function of the same name)
@@ -164,3 +167,84 @@ def test_wrapper_checks_without_card():
     with pytest.raises(TypeError):
         tmm.matmul_int8w(x.to("meta"), torch.randn(8, 3, device="meta"),
                          torch.ones(3, device="meta"))
+
+
+# ---- int4w: quantize_int4_grouped and matmul_int4w ----------------------
+# (M, K, N, group): the decode GEMV shape class, ragged K (not a multiple
+# of the group: zero-padded rows), ragged N, a prefill-like M
+INT4_SHAPES = [(16, 256, 96, 128), (5, 200, 70, 64), (37, 129, 131, 64),
+               (64, 384, 128, 128), (1, 32, 8, 32)]
+
+
+def _int4_case(m, k, n, seed=0):
+    rng = np.random.default_rng(seed + 11 * m + k + n)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)
+    b = 0.1 * rng.standard_normal(n).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
+def test_quantize_int4_grouped_equal(m, k, n, group):
+    """Packed bytes, scales, group and logical K byte-equal to the JAX
+    package's; the dequantized weights equal."""
+    w = _int4_case(m, k, n)[1]
+    w[:, 0] = 0.0          # an all-zero column takes scale 1.0 in both
+    j, t = jquant4(w, group=group), tquant4(w, group=group)
+    assert (t.group, t.k) == (j.group, j.k)
+    assert t.packed.dtype == torch.int8 and t.shape == tuple(j.shape)
+    assert t.packed.numpy().tobytes() == np.asarray(j.packed).tobytes()
+    assert t.scale.numpy().tobytes() == np.asarray(j.scale).tobytes()
+    np.testing.assert_array_equal(t.dequantize().numpy(),
+                                  np.asarray(j.dequantize()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
+def test_int4w_vs_jnp_oracle(m, k, n, group, dtype):
+    """matmul_int4w (its plain version on the CPU) against the JAX
+    matmul_int4w_ref, bias + silu, f32 out and the input dtype out:
+    1e-5 x scale (the same f32 dequant and sums in another order), plus
+    one bf16 ulp for a bf16 output."""
+    x, w, b = _int4_case(m, k, n, seed=1)
+    jq, tq = jquant4(w, group=group), tquant4(w, group=group)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    for out in (torch.float32, td):
+        got = tmm.matmul_int4w(torch.from_numpy(x).to(td), tq,
+                               torch.from_numpy(b), "silu", out_dtype=out)
+        assert got.dtype == out
+        want = jmm.matmul_int4w_ref(
+            jnp.asarray(x).astype(jd), jq, jnp.asarray(b), "silu",
+            out_dtype=jnp.float32 if out == torch.float32 else jd)
+        _assert_close(got.float().numpy(),
+                      np.asarray(want.astype(jnp.float32)), 1e-5,
+                      out == torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,group", INT4_SHAPES)
+def test_int4w_vs_pallas_interpret(m, k, n, group):
+    """Against the Pallas kernel in interpret mode at 2e-2 x scale: the
+    Pallas body rounds x and w * s to bf16 before its dots (a TPU means;
+    the port dequantizes in f32, as matmul_int4w_ref does)."""
+    x, w, b = _int4_case(m, k, n, seed=2)
+    jq, tq = jquant4(w, group=group), tquant4(w, group=group)
+    got = tmm.matmul_int4w(torch.from_numpy(x), tq, torch.from_numpy(b),
+                           "silu").numpy()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jmm.matmul_int4w(
+            jnp.asarray(x), jq, jnp.asarray(b), "silu",
+            out_dtype=jnp.float32))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=2e-2 * scale, rtol=2e-2)
+
+
+def test_int4w_wrapper_checks_without_card():
+    """CPU tensors take the plain version and launch nothing; another
+    device goes to the kernel path, which raises (no fallback)."""
+    x, w, _ = _int4_case(4, 64, 8)
+    q = tquant4(w, group=32)
+    before = tmm.launches_int4w
+    out = tmm.matmul_int4w(torch.from_numpy(x), q)
+    assert out.shape == (4, 8) and tmm.launches_int4w == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tmm.matmul_int4w(torch.from_numpy(x).to("meta"), q)

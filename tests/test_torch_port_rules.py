@@ -17,9 +17,10 @@ PKG = os.path.join(ROOT, "simpleinfer_tpu_torch")
 
 
 def _port_files():
-    """The port, chip_smoke.py and the card's tests, which all run where
-    only PyTorch is installed."""
+    """The port, chip_smoke.py, its control script and the card's tests,
+    which all run where only PyTorch is installed."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_onoff_control.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
