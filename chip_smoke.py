@@ -16,6 +16,22 @@ Phases, each printing JSON lines:
    with the launch count per forward, output checks, a comparison with
    the same model run with kernels off, and throughput both ways;
 4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s;
+4b. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
+   bf16, quant="int8", c3_fusion, calibrated by Engine.calibrate on 2
+   seeded batches (wall time printed); the launches of `matmul_s8s8` (5
+   per forward), `c3_block` (4, one with s8 taps) and `matmul_int8w`
+   (3: the pointwise convs outside the int8 gate) with the counts set
+   to 0 just before the forwards; matmul_s8s8 and c3_block against
+   their plain versions at ragged shapes (fp and s8 taps, both shortcut
+   forms, tiles across images, a dyadic-grid block that must agree to
+   f32 rounding), and all three at every call a forward made, on its
+   own inputs; their times beside plain, library (`torch._int_mm` for
+   matmul_s8s8, `torch.addmm` for matmul_int8w, none for a C3 block)
+   and bound, and the time of the 4 fused blocks below c3_profitable,
+   which run the plain version; forward times kernels on, off, on; a
+   profile; kernels on vs off, box and scores each against its own
+   scale, within limits set between the sound reading and a fault's
+   (scripts/torch_onoff_control.py --int8);
 5. llama kernels vs plain: matmul_int4w, flash_attention and
    decode_attention at ragged shapes, f32 and bf16 (decode: lengths 0,
    1, straddling a tile and full; bf16, f32 and int8 leaves; flash:
@@ -65,7 +81,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # every kernel source of the port, built in phase 1
 SOURCES = ("matmul.cu", "matmul_int4w.cu", "flash_attention.cu",
-           "decode_attention.cu")
+           "decode_attention.cu", "matmul_s8s8.cu", "c3block.cu")
 
 # YOLOv5s pointwise convs that reach matmul_int8w per forward (the other
 # 17 pointwise convs are cat-split sums)
@@ -325,25 +341,44 @@ def yolo_engine(device, batch, image, compute, use_kernels, seed=0):
     return eng, in_name, out_name, graph
 
 
-def record_main_shapes(engine, feeds: dict) -> dict:
-    """One warm-up forward with a recorder around matmul_int8w: the
-    (M, K, N) shapes the main path gives the kernel, with their counts."""
-    from simpleinfer_tpu_torch.kernels import matmul as kmm
+class Recorder:
+    """Wraps kernel wrappers for the length of a `with` block: `wrappers`
+    maps each wrapper's name to the module that holds it (module
+    attributes, so every caller goes through the wrap). Each call keeps
+    `keep[name](*args, **kw)` in `calls[name]`, by default the call's
+    own (args, kw): references to the tensors the path made, nothing
+    copied or synchronised. A `keep` that returns a shape key makes
+    `count(name)` the shapes with their counts."""
 
-    counts: dict = {}
-    orig = kmm.matmul_int8w
+    def __init__(self, wrappers: dict, keep: dict | None = None):
+        self.mods = wrappers
+        self.keep = keep or {}
+        self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
+        self.calls = {k: [] for k in self.mods}
 
-    def recorder(x, w_q, scale, bias=None, activation=None, **kw):
-        key = (int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))
-        counts[key] = counts.get(key, 0) + 1
-        return orig(x, w_q, scale, bias, activation, **kw)
+    def __enter__(self):
+        def wrap(name):
+            keep = self.keep.get(name, lambda *args, **kw: (args, kw))
+            orig, calls = self.orig[name], self.calls[name]
 
-    kmm.matmul_int8w = recorder
-    try:
-        engine.run(feeds)
-    finally:
-        kmm.matmul_int8w = orig
-    return counts
+            def fn(*args, **kw):
+                calls.append(keep(*args, **kw))
+                return orig(*args, **kw)
+            return fn
+
+        for name, m in self.mods.items():
+            setattr(m, name, wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, m in self.mods.items():
+            setattr(m, name, self.orig[name])
+
+    def count(self, name) -> dict:
+        counts: dict = {}
+        for key in self.calls[name]:
+            counts[key] = counts.get(key, 0) + 1
+        return counts
 
 
 def forward_times(engine, feeds: dict, iters=20) -> dict:
@@ -406,6 +441,10 @@ def profile_forward(engine, feeds: dict, forward_ms: float, iters=3,
             "busy_share": busy / forward_ms,
             "si_matmul_ms_per_forward": sum(
                 k[0] for k in kernels if "si_matmul" in k[2]),
+            "hand_kernels_ms_per_forward": {
+                name: sum(k[0] for k in kernels if name in k[2])
+                for name in ("si_s8s8_kernel", "c3_fp_kernel",
+                             "c3_s8_tap_kernel")},
             "top_kernels": [[round(ms, 4), cnt, name]
                             for ms, cnt, name in kernels[:top]]}
 
@@ -505,6 +544,594 @@ def fp32_card_vs_cpu(device, batch=2, image=64, seed=0) -> dict:
     np.testing.assert_allclose(got, want, atol=FP32_TOL * scale,
                                rtol=FP32_TOL)
     return res
+
+
+# ---- yolov5l static int8 with the C3 collapse -------------------------
+# yolov5l-640-b16 (ultralytics v6.0 widths and depths), bf16, quant="int8",
+# c3_fusion: per forward, the five 3x3 s2 convs with ic >= 128
+# (int8_min_channels) reach matmul_s8s8, and the four C3 blocks that
+# pass c3_profitable at 640 reach c3_block, C3_1 (hid 64) with s8 taps
+INT8 = dict(variant="l", batch=16, image=640, seed=0)
+INT8_S8S8_CONVS = 5
+INT8_C3_BLOCKS = 4
+INT8_C3_S8_BLOCKS = 1
+# the fused C3 blocks below c3_profitable (they run the plain version on
+# the card) and the pointwise convs outside the int8 gate and the C3
+# blocks, which run weight-only through matmul_int8w
+INT8_C3_PLAIN_BLOCKS = 4
+INT8_INT8W_CONVS = 3
+INT8_CALIB_BATCHES = 2
+# c3_block vs its plain version: f32 with fp taps elementwise within
+# KERNEL_ATOL-class rounding (C3_F32_ATOL x max(1, |ref|)); with bf16
+# intermediates or s8 taps an intermediate that lands within rounding of
+# a bf16 or int8 step takes the next step on one side, and the residual
+# chain carries it on: max within C3_MAX_TOL x scale and mean within
+# C3_MEAN_TOL x scale (an indexing or quantization fault moves most
+# outputs by O(scale))
+C3_F32_ATOL = 1e-5
+C3_MAX_TOL = 0.05
+C3_MEAN_TOL = 5e-4
+# (n, h, w, c, hid, oc, T, shortcut): ragged tile edges (M and the
+# channel widths not multiples of 64), several images per tile and
+# tiles straddling images, both shortcut forms
+C3_RAGGED = [(2, 9, 7, 16, 8, 16, 2, True), (2, 32, 24, 16, 8, 16, 2, False),
+             (3, 20, 20, 64, 72, 48, 1, False), (1, 16, 16, 128, 64, 128, 3,
+                                                  True)]
+# kernels on vs off over the whole int8 forward (bf16; off runs C3_1 on
+# fp taps), each part of a detection row against its own scale: the box
+# (x, y, w, h, in pixels) and the scores (objectness and classes, in
+# [0, 1]). Limits (max, mean) x scale between the sound reading and the
+# fault stand-ins' (scripts/torch_onoff_control.py --int8). On an H100:
+# sound box 0.0017 / 3.9e-5, scores 0.0038 / 3.8e-4; a K tile lost in
+# matmul_s8s8 box 0.0070 / 2.7e-4, scores 0.026 / 2.9e-3; in
+# matmul_int8w box 0.0064 / 1.2e-4, scores 0.0075 / 1.0e-3; mirrored
+# 3x3 taps in c3_block box 0.014 / 6.4e-4, scores 0.068 / 6.8e-3
+# (PERF.md). Every limit is >= 1.7x sound; each fault exceeds at least
+# three of the four
+INT8_ONOFF_PARTS = {"box": slice(0, 4), "scores": slice(4, None)}
+INT8_ONOFF_TOL = {"box": (0.0035, 7e-5), "scores": (0.01, 6.5e-4)}
+INT8_PEAK_OPS = 1979e12      # H100 SXM int8 dense (NVIDIA data sheet)
+
+
+def int8_engine(device, use_kernels, variant=INT8["variant"],
+                batch=INT8["batch"], image=INT8["image"], seed=INT8["seed"],
+                compute="bfloat16"):
+    """The slice's engine: YOLOv5 `variant`, static int8 with c3_fusion,
+    on `device` (seeded random weights); (engine, input, output)."""
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_yolov5
+
+    graph, in_name, out_name = build_yolov5(variant, batch=batch,
+                                            image_size=image, seed=seed)
+    eng = Engine(EngineConfig(compute_dtype=compute, quant="int8",
+                              c3_fusion=True, device=str(device),
+                              use_kernels=use_kernels))
+    eng.load_model(None, graph=graph)
+    return eng, in_name, out_name
+
+
+def int8_recorder() -> Recorder:
+    """A Recorder of every call the int8 path makes to its kernels:
+    matmul_s8s8, c3_block and matmul_int8w (the pointwise convs outside
+    the int8 gate run weight-only), and of c3_block_reference, which
+    ops/c3.py runs for the fused blocks below c3_profitable (on a CPU
+    tensor c3_block runs it too)."""
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    return Recorder({"matmul_s8s8": kmm, "matmul_int8w": kmm,
+                     "c3_block": kc3, "c3_block_reference": kc3})
+
+
+def _c3_args(gen, device, n, h, w, c, hid, oc, t, s8, dtype, grid=False):
+    """Seeded x and weights of a C3 block on `device` (taps int8 with
+    their scales when s8). grid=True puts every value on a dyadic grid
+    small enough that the f32 sums of the block's first stages are exact
+    in any order."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+
+    def r(*s):
+        if grid:
+            return torch.randint(-2, 3, s, generator=gen,
+                                 device=device).float() / 8
+        return torch.randn(*s, generator=gen, device=device) * 0.2
+
+    ws = [r(c, hid), r(hid), r(c, hid), r(hid), r(hid, oc), r(hid, oc),
+          r(oc), r(t, hid, hid), r(t, hid), r(t, 9, hid, hid), r(t, hid)]
+    scale = None
+    if s8:
+        wq, wsc = kc3.quantize_taps(ws[9].cpu().numpy())
+        ws[9] = torch.from_numpy(wq).to(device)
+        scale = torch.from_numpy(wsc).to(device)
+    return r(n, h, w, c).to(dtype), ws, scale
+
+
+def c3_close(got, ref, elementwise: bool):
+    """(max |got - ref|, mean, scale, ok) under the c3 limits."""
+    d = (got.float() - ref.float()).abs()
+    scale = max(1.0, float(ref.float().abs().max()))
+    finite = torch_isfinite(got) and got.dtype == ref.dtype
+    if elementwise:
+        ok = bool((d <= C3_F32_ATOL * scale).all())
+    else:
+        ok = (float(d.max()) <= C3_MAX_TOL * scale
+              and float(d.mean()) <= C3_MEAN_TOL * scale)
+    return float(d.max()), float(d.mean()), scale, ok and finite
+
+
+def int8_kernel_checks(device, rec=None, seed=11) -> dict:
+    """The int8 path's kernels against their plain versions on `device`:
+    matmul_s8s8 and c3_block at ragged shapes (matmul: every dim off the
+    tiles, f32 and bf16 out, scalar and vector scales; c3: fp and s8
+    taps, f32 and bf16, both shortcut forms, tiles across images, and a
+    dyadic-grid block with one bottleneck and no activation whose result
+    must agree to f32 rounding), then every call the main path recorded
+    (`rec`) to matmul_s8s8, matmul_int8w and c3_block, with its own
+    inputs. Returns the largest max-abs error of each kernel at the main
+    path's calls."""
+    import torch
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    worst = {"matmul_s8s8": 0.0, "matmul_int8w": 0.0, "c3_block": 0.0}
+    failures, n_checks = [], 0
+    # kernel wrappers and plain versions by the recorder's names (the
+    # module attributes, looked up after the recorder has restored them)
+    mms = {"matmul_s8s8": (kmm.matmul_s8s8, kmm.matmul_s8s8_ref),
+           "matmul_int8w": (kmm.matmul_int8w, kmm.matmul_int8w_ref)}
+    c3, c3_ref = kc3.c3_block, kc3.c3_block_reference
+
+    def check_mm(name, args, kw, case, main):
+        nonlocal n_checks
+        kern, plain = mms[name]
+        with fp32_parity(True):
+            got = kern(*args, **kw)
+            sync()
+            ref = plain(*args, **kw)
+        err, ok = _close(got, ref)
+        n_checks += 1
+        if not ok:
+            failures.append(dict(kernel=name, case=case, max_abs_err=err))
+        if main:
+            worst[name] = max(worst[name], err)
+
+    for (m, k, n) in RAGGED_SHAPES + [(300, 1152, 200)]:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device=device,
+                           dtype=torch.int8)
+        sc = torch.rand(n, generator=gen, device=device) * 1e-3
+        b = torch.randn(n, generator=gen, device=device)
+        for od in (torch.bfloat16, torch.float32):
+            for act, bias, scale in (("silu", b, sc), (None, None,
+                                                       torch.tensor(1e-3))):
+                check_mm("matmul_s8s8", (xq, wq, scale, bias, act),
+                         {"out_dtype": od}, [m, k, n, str(od)[6:], act],
+                         False)
+    for (n, h, w, c, hid, oc, t, sc_) in C3_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            for s8 in (False, True):
+                x, ws, scale = _c3_args(gen, device, n, h, w, c, hid, oc, t,
+                                        s8, dt)
+                with fp32_parity(True):
+                    got = c3(x, *ws, btl_b_scale=scale, shortcut=sc_)
+                    sync()
+                    ref = c3_ref(x, *ws, btl_b_scale=scale, shortcut=sc_)
+                err, mean, scl, ok = c3_close(
+                    got, ref, dt == torch.float32 and not s8)
+                n_checks += 1
+                if not ok:
+                    failures.append(dict(kernel="c3_block", case=[
+                        n, h, w, c, hid, oc, t, sc_, str(dt)[6:], s8],
+                        max_abs_err=err, mean_abs_err=mean, scale=scl))
+    for (n, h, w, c, hid, oc) in ((2, 9, 7, 16, 8, 16), (3, 12, 11, 32, 64,
+                                                         24)):
+        for s8 in (False, True):
+            x, ws, scale = _c3_args(gen, device, n, h, w, c, hid, oc, 1, s8,
+                                    torch.float32, grid=True)
+            with fp32_parity(True):
+                got = c3(x, *ws, btl_b_scale=scale, activation=None)
+                sync()
+                ref = c3_ref(x, *ws, btl_b_scale=scale, activation=None)
+            d = (got - ref).abs()
+            scl = max(1.0, float(ref.abs().max()))
+            n_checks += 1
+            if not bool((d <= 1e-6 * scl).all()):
+                failures.append(dict(kernel="c3_block", case=[
+                    "grid", n, h, w, c, hid, oc, s8],
+                    max_abs_err=float(d.max()), scale=scl))
+    for name, calls in (rec.calls.items() if rec else ()):
+        if name == "c3_block_reference":
+            continue            # the plain version itself
+        for args, kw in calls:
+            if name in mms:
+                check_mm(name, args, kw,
+                         [*args[0].shape, args[1].shape[1]], True)
+                continue
+            with fp32_parity(True):
+                got = c3(*args, **kw)
+                sync()
+                ref = c3_ref(*args, **kw)
+            err, mean, scl, ok = c3_close(
+                got, ref, args[0].dtype == torch.float32
+                and kw.get("btl_b_scale") is None)
+            n_checks += 1
+            worst["c3_block"] = max(worst["c3_block"], err)
+            if not ok:
+                failures.append(dict(kernel="c3_block", case=[
+                    *args[0].shape, kw.get("btl_b_scale") is not None],
+                    max_abs_err=err, mean_abs_err=mean, scale=scl))
+            del got, ref
+    emit({"phase": "int8_kernel_vs_plain", "checks": n_checks,
+          "failures": failures[:10], "n_failures": len(failures),
+          "matmul_tol": f"{KERNEL_ATOL}*max(1,|ref|) + bf16 ulp",
+          "main_calls": {k: len(v) for k, v in (rec.calls.items()
+                                                if rec else ())},
+          "c3_tol": {"f32_fp_taps": f"{C3_F32_ATOL}*max(1,|ref|)",
+                     "bf16_or_s8": [C3_MAX_TOL, C3_MEAN_TOL],
+                     "grid": "1e-6*max(1,|ref|)"},
+          "max_abs_err_main": worst})
+    if failures:
+        raise AssertionError(f"{len(failures)} int8 kernel-vs-plain "
+                             f"mismatches")
+    return worst
+
+
+def c3_flops(n, h, w, c, hid, oc, t) -> tuple:
+    """(1x1 FLOPs, 3x3 FLOPs) of one C3 block."""
+    px = n * h * w
+    return (2 * px * (2 * c * hid + t * hid * hid + 2 * hid * oc),
+            2 * px * 9 * t * hid * hid)
+
+
+def time_int8_kernels(device, rec, iters=5) -> dict:
+    """Each kernel at every call one forward recorded, on that call's
+    inputs: kernel, plain version and library call ms (CUDA events, L2
+    flushed before each launch) beside the bound, summed per forward.
+    Library: torch._int_mm on the same int8 operands (s32 out, no
+    epilogue) for matmul_s8s8, torch.addmm for matmul_int8w; no single
+    PyTorch call computes a C3 block. Bounds: matmul_s8s8 reads the
+    conv's own int8 input (not its im2col copy) and weight and writes
+    its output, against 2MNK int8 ops; matmul_int8w as in phase 2;
+    c3_block reads x and its weights and writes its output, against its
+    1x1 FLOPs at the bf16 (or f32) peak plus its 3x3 ops at the int8
+    peak with s8 taps. Then the fused blocks below c3_profitable, which
+    run the plain version: their count and ms per forward."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, launches=0)
+    lib_err = None
+    for args, kw in rec.calls["matmul_s8s8"]:
+        xq, wq = args[0], args[1]
+        m, k = xq.shape
+        n = wq.shape[1]
+        od = kw.get("out_dtype", torch.bfloat16)
+        # the conv's own int8 input, not its im2col copy: the main
+        # path's calls are 3x3 stride-2 convs, K = 9 IC, N*H*W = 4 M
+        in_bytes = 4 * m * (k // 9)
+        nbytes = in_bytes + k * n + n * 4 + n * 2 + m * n * od.itemsize
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = 2.0 * m * n * k / INT8_PEAK_OPS * 1e3
+        wcol = wq.t().contiguous().t()
+
+        def lib():
+            try:
+                return torch._int_mm(xq, wq)
+            except RuntimeError:
+                return torch._int_mm(xq, wcol)
+        try:
+            lib_ms = _time_ms(device, lib, iters, flush)
+        except RuntimeError as e:     # reported, not a failure
+            lib_ms, lib_err = None, str(e)[:200]
+        t = {"ms": _time_ms(device, lambda: kmm.matmul_s8s8(*args, **kw),
+                            iters, flush),
+             "plain_ms": _time_ms(device, lambda: kmm.matmul_s8s8_ref(
+                 *args, **kw), iters, flush),
+             "library_ms": lib_ms, "bound_ms": max(t_b, t_o)}
+        rows.append({"shape": [m, k, n], **t,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+        for key in ("ms", "plain_ms", "bound_ms"):
+            tot[key] += t[key]
+        tot["library_ms"] = (None if lib_ms is None or tot["library_ms"]
+                             is None else tot["library_ms"] + lib_ms)
+        tot["bytes_ms"] += t_b
+        tot["ops_ms"] += t_o
+        tot["launches"] += 1
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
+        else "operations"
+    out["matmul_s8s8"] = tot
+    emit({"phase": "kernel_time_s8s8", "unit": "one forward", **tot,
+          "library": "torch._int_mm (s32 out, no epilogue)",
+          "library_error": lib_err, "calls": rows})
+
+    # matmul_int8w: the pointwise convs outside the int8 gate, which run
+    # weight-only; bound and library as in phase 2 (torch.addmm on the
+    # weight dequantized to x's dtype, no activation)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, launches=0)
+    rows = []
+    for args, kw in rec.calls["matmul_int8w"]:
+        x, wq, scale = args[:3]
+        bias = args[3] if len(args) > 3 else kw.get("bias")
+        m, k = x.shape
+        n = wq.shape[1]
+        od = kw.get("out_dtype") or x.dtype
+        bd, by = bound_ms(m, k, n, x.element_size(), 1, od.itemsize,
+                          0 if bias is None else bias.element_size(), True,
+                          str(x.dtype)[6:])
+        w_deq = (wq.float() * scale).to(x.dtype)
+        b = None if bias is None else bias.to(x.dtype)
+        lib = ((lambda: torch.addmm(b, x, w_deq)) if b is not None
+               else (lambda: torch.mm(x, w_deq)))
+        t = {"ms": _time_ms(device, lambda: kmm.matmul_int8w(*args, **kw),
+                            iters, flush),
+             "plain_ms": _time_ms(device, lambda: kmm.matmul_int8w_ref(
+                 *args, **kw), iters, flush),
+             "library_ms": _time_ms(device, lib, iters, flush),
+             "bound_ms": bd}
+        rows.append({"shape": [m, k, n], **t, "bound_by": by})
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[key] += t[key]
+        tot["bytes_ms" if by == "bytes" else "ops_ms"] += bd
+        tot["launches"] += 1
+        del w_deq, b
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
+        else "operations"
+    out["matmul_int8w"] = tot
+    emit({"phase": "kernel_time_int8w_int8_path", "unit": "one forward",
+          **tot, "library": "torch.addmm (no activation)", "calls": rows})
+
+    c3 = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+              bytes_ms=0.0, ops_ms=0.0, launches=0)
+    rows = []
+    for args, kw in rec.calls["c3_block"]:
+        x = args[0]
+        n, h, w, c = x.shape
+        hid, oc, t_ = args[1].shape[1], args[5].shape[1], args[8].shape[0]
+        s8 = kw.get("btl_b_scale") is not None
+        f1, f3 = c3_flops(n, h, w, c, hid, oc, t_)
+        peak = PEAK_FLOPS[str(x.dtype)[6:]]
+        t_o = (f1 / peak + f3 / (INT8_PEAK_OPS if s8 else peak)) * 1e3
+        wbytes = sum(a.numel() * a.element_size() for a in args[1:])
+        nbytes = x.numel() * x.element_size() * (1 + oc / c) + wbytes
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t = {"ms": _time_ms(device, lambda: kc3.c3_block(*args, **kw),
+                            iters, flush),
+             "plain_ms": _time_ms(device, lambda: kc3.c3_block_reference(
+                 *args, **kw), 2, flush),
+             "bound_ms": max(t_b, t_o)}
+        rows.append({"x": [n, h, w, c], "hid": hid, "oc": oc, "T": t_,
+                     "s8": s8, "shortcut": kw.get("shortcut", True), **t,
+                     "gflop": (f1 + f3) / 1e9,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+        for key in ("ms", "plain_ms", "bound_ms"):
+            c3[key] += t[key]
+        c3["bytes_ms"] += t_b
+        c3["ops_ms"] += t_o
+        c3["launches"] += 1
+    c3["bound_by"] = "bytes" if c3["bytes_ms"] >= c3["ops_ms"] \
+        else "operations"
+    out["c3_block"] = c3
+    emit({"phase": "kernel_time_c3", "unit": "one forward", **c3,
+          "library": "none: no single PyTorch call computes a C3 block",
+          "calls": rows})
+
+    # the fused blocks below c3_profitable: ops/c3.py runs them through
+    # c3_block_reference, the kernel's plain version, on the card
+    below = []
+    for args, kw in rec.calls["c3_block_reference"]:
+        n, h, w, c = args[0].shape
+        below.append({"x": [n, h, w, c], "hid": args[1].shape[1],
+                      "T": args[8].shape[0],
+                      "ms": _time_ms(device, lambda: kc3.c3_block_reference(
+                          *args, **kw), 2, flush)})
+    out["c3_below_gate"] = {"blocks": len(below),
+                            "ms": sum(b["ms"] for b in below)}
+    emit({"phase": "c3_below_gate", "unit": "one forward",
+          **out["c3_below_gate"], "calls": below})
+    return out
+
+
+def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
+                   seed=5) -> dict:
+    """The slice's main path on `engines` = (kernels on, kernels off,
+    input name, output name): calibrate the kernels-on engine on seeded
+    batches (wall time reported), install the same scales in the
+    kernels-off engine, record one forward's kernel calls, then
+    `n_forwards` forwards with every launch count set to 0 just before
+    and read just after; the outputs (finite, shape) against the
+    kernels-off engine's on the same inputs. Returns the readings and
+    the recorder."""
+    import tempfile
+
+    import torch
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    on, off, in_name, out_name = engines
+    batch, _h, image, _c = on.program.inputs[0].shape
+    rng = np.random.default_rng(seed)
+
+    def feed():
+        return {in_name: rng.integers(0, 256, (batch, image, image, 3),
+                                      dtype=np.uint8)}
+
+    calib = [feed() for _ in range(calib_batches or INT8_CALIB_BATCHES)]
+    t0 = time.perf_counter()
+    scales = on.calibrate(calib)
+    on.synchronize()
+    calib_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "calib.npz")
+        on.save_calibration(path)
+        off.load_calibration(path)
+    feeds = [feed() for _ in range(n_forwards)]
+    with int8_recorder() as rec:
+        on.run(feeds[0])
+    kmm.launches = kmm.launches_s8s8 = kc3.launches = 0
+    outs = [on.run(f)[out_name] for f in feeds]
+    launches = {"matmul_s8s8": kmm.launches_s8s8,
+                "c3_block": kc3.launches, "matmul_int8w": kmm.launches}
+    if any(o.shape != (batch, 3 * sum((image // s) ** 2
+                                      for s in (8, 16, 32)), 85)
+           or not np.isfinite(o).all() for o in outs):
+        raise AssertionError(f"int8 outputs {[o.shape for o in outs]}, "
+                             f"finite={[np.isfinite(o).all() for o in outs]}")
+    onoff_ = int8_onoff(off, out_name, feeds, outs)
+    c3_calls = rec.calls["c3_block"]
+    res = {"phase": "int8_main_path", **INT8, "batch": batch,
+           "image": image, "compute": "bfloat16", "quant": "int8",
+           "c3_fusion": True, "calibration_batches": len(calib),
+           "calibration_s": calib_s, "scales": len(scales),
+           "forwards": n_forwards, "launches": launches,
+           "s8s8_convs_per_forward": len(rec.calls["matmul_s8s8"]),
+           "int8w_convs_per_forward": len(rec.calls["matmul_int8w"]),
+           "c3_kernel_blocks_per_forward": len(c3_calls),
+           "c3_s8_blocks_per_forward": sum(
+               kw.get("btl_b_scale") is not None for _, kw in c3_calls),
+           "c3_plain_blocks_per_forward": len(
+               rec.calls["c3_block_reference"]),
+           "fused_c3_ops": sum(i.type == "si.FusedC3"
+                               for i in on.program.impls),
+           "output_shape": list(outs[0].shape),
+           "vs_kernels_off": onoff_}
+    emit(res)
+    if device.type == "cuda":
+        for name, per in (("matmul_s8s8", INT8_S8S8_CONVS),
+                          ("matmul_int8w", INT8_INT8W_CONVS),
+                          ("c3_block", INT8_C3_BLOCKS)):
+            if launches[name] != per * n_forwards:
+                raise AssertionError(
+                    f"{name}: {launches[name]} launches over {n_forwards} "
+                    f"forwards, expected {per} per forward")
+        for key, want in (("c3_s8_blocks_per_forward", INT8_C3_S8_BLOCKS),
+                          ("c3_plain_blocks_per_forward",
+                           INT8_C3_PLAIN_BLOCKS)):
+            if res[key] != want:
+                raise AssertionError(f"{key}: {res[key]}, expected {want}")
+    return {"res": res, "recorder": rec, "feeds": feeds}
+
+
+def int8_onoff(off, out_name, feeds, outs) -> dict:
+    """Kernels on (`outs`, the kernels-on engine's outputs for `feeds`)
+    vs `off`, an engine of the same graph and scales with
+    use_kernels=False (matmul_s8s8_ref, the C3 reference chain with fp
+    taps): per part of a detection row (INT8_ONOFF_PARTS), max and mean
+    |diff| over that part's own scale, max(1, max|off part|)."""
+    worst = {part: [0.0, 0.0] for part in INT8_ONOFF_PARTS}
+    for f, got in zip(feeds, outs):
+        want = off.run(f)[out_name]
+        for part, sl in INT8_ONOFF_PARTS.items():
+            w_ = want[..., sl]
+            scale = max(1.0, float(np.abs(w_).max()))
+            d = np.abs(got[..., sl] - w_)
+            worst[part][0] = max(worst[part][0], float(d.max()) / scale)
+            worst[part][1] = max(worst[part][1], float(d.mean()) / scale)
+    return {part: {"max_abs_over_scale": mx, "mean_abs_over_scale": mn,
+                   "tol": list(INT8_ONOFF_TOL[part])}
+            for part, (mx, mn) in worst.items()}
+
+
+def check_int8_onoff(res) -> None:
+    r = res["vs_kernels_off"]
+    for part, (max_tol, mean_tol) in INT8_ONOFF_TOL.items():
+        if (r[part]["max_abs_over_scale"] > max_tol
+                or r[part]["mean_abs_over_scale"] > mean_tol):
+            raise AssertionError(f"int8 kernels on vs off, {part}: {r}")
+
+
+def yolo_int8_phase(device, kernels: dict) -> dict:
+    """yolov5l-640-b16 bf16 int8 with the C3 collapse on the card: build
+    and calibrate, kernel vs plain (ragged and the recorded main-path
+    calls), launches per forward, forward times (on, off, on), a profile,
+    kernels on vs off, and the two kernels' entries of the kernels
+    line."""
+    import torch
+
+    t0 = time.perf_counter()
+    on = int8_engine(device, True)
+    off = int8_engine(device, False)
+    emit({"phase": "int8_engines", "config": INT8, "load_s":
+          time.perf_counter() - t0,
+          "weight_bytes_on_card": torch.cuda.memory_allocated(device)})
+    engines = (on[0], off[0], on[1], on[2])
+    run = int8_main_path(device, engines)
+    check_int8_onoff(run["res"])
+    rec = run["recorder"]
+    worst = int8_kernel_checks(device, rec)
+    times = time_int8_kernels(device, rec)
+    feeds = {on[1]: run["feeds"][0][on[1]]}
+    t_on = forward_times(on[0], feeds)
+    t_off = forward_times(off[0], feeds)
+    t_on2 = forward_times(on[0], feeds)
+    ms_on = statistics.median([t_on["median_ms"], t_on2["median_ms"]])
+    batch = INT8["batch"]
+    emit({"phase": "int8_forward_time", "forward_kernels_on": [t_on, t_on2],
+          "forward_kernels_off": t_off,
+          "img_per_s_kernels_on": batch * 1e3 / ms_on,
+          "img_per_s_kernels_off": batch * 1e3 / t_off["median_ms"]})
+    emit({"phase": "int8_profile_kernels_on", **profile_forward(
+        on[0], feeds, ms_on, iters=1, top=15)})
+    emit({"phase": "int8_profile_kernels_off", **profile_forward(
+        off[0], feeds, t_off["median_ms"], iters=1, top=10)})
+    launches = run["res"]["launches"]
+    entries = {}
+    for name, src, repl in (
+            ("matmul_s8s8", "matmul_s8s8.cu",
+             "simpleinfer_tpu/kernels/matmul.py:428"),
+            ("c3_block", "c3block.cu",
+             "simpleinfer_tpu/kernels/c3block.py:325"),
+            ("matmul_int8w", "matmul.cu",
+             "simpleinfer_tpu/kernels/matmul.py:183")):
+        t = times[name]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"simpleinfer_tpu_torch/csrc/{src}",
+            "replaces": repl, "launches": launches[name],
+            "max_abs_err": worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    # matmul_int8w's entry is phase 3's (YOLOv5s) when that ran; this
+    # path's own readings go beside it
+    int8w = entries.pop("matmul_int8w")
+    kernels.setdefault("matmul_int8w", int8w)["yolo_int8"] = {
+        k: v for k, v in int8w.items()
+        if k not in ("name", "route", "source", "replaces")}
+    kernels.update(entries)
+    del rec, run
+    return {"ms_on": ms_on, "ms_off": t_off["median_ms"]}
+
+
+def yolo_int8_rehearsal(device, image=64, batch=2) -> dict:
+    """The int8 phase's main path and kernel checks at a tiny size (the
+    CPU tests run it with the plain versions): yolov5l at `image`, with
+    the c3_profitable threshold scaled by (image / 640)^2 so the same
+    four blocks take the kernel."""
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+
+    prev = kc3.C3_MIN_WORK
+    kc3.C3_MIN_WORK = int(prev * (image / 640) ** 2)
+    try:
+        on = int8_engine(device, True, batch=batch, image=image)
+        off = int8_engine(device, False, batch=batch, image=image)
+        run = int8_main_path(device, (on[0], off[0], on[1], on[2]),
+                             n_forwards=1, calib_batches=1)
+        check_int8_onoff(run["res"])
+        int8_kernel_checks(device, run["recorder"])
+    finally:
+        kc3.C3_MIN_WORK = prev
+    return run["res"]
 
 
 # ---- llama generation path ----------------------------------------------
@@ -730,60 +1357,36 @@ def llama_engine(device, compute="bfloat16", quant="int4w", use_kernels=None,
     return eng, t1 - t0, time.perf_counter() - t1
 
 
-class Recorder:
-    """Wraps the three llama kernels' wrappers (module attributes, so
-    every caller goes through them) and records the shapes the main path
-    gives each, with their counts; the decode lengths tensors are kept
-    (device tensors: recording adds no synchronisation)."""
+def llama_recorder() -> Recorder:
+    """A Recorder of the three llama kernels' shape keys; the decode
+    calls' lengths tensors go to its `decode_lengths` (device tensors:
+    recording adds no synchronisation)."""
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
 
-    def __init__(self):
-        from simpleinfer_tpu_torch.kernels import attention as kattn
-        from simpleinfer_tpu_torch.kernels import decode_attn as kdec
-        from simpleinfer_tpu_torch.kernels import matmul as kmm
+    lengths_seen: list = []
 
-        self.mods = {"matmul_int4w": kmm, "flash_attention": kattn,
-                     "decode_attention": kdec}
-        self.orig = {k: getattr(m, k) for k, m in self.mods.items()}
-        self.counts = {k: {} for k in self.mods}
-        self.decode_lengths: list = []
+    def int4w(x, wq4, bias=None, activation=None, *, out_dtype=None):
+        return (int(x.shape[0]), int(wq4.k), int(wq4.packed.shape[1]),
+                str(x.dtype)[6:], str(out_dtype or x.dtype)[6:],
+                bias is not None, activation)
 
-    def _count(self, name, key):
-        self.counts[name][key] = self.counts[name].get(key, 0) + 1
+    def flash(q, k, v, **kw):
+        return (*map(int, q.shape), str(q.dtype)[6:])
 
-    def __enter__(self):
-        orig = self.orig
+    def decode(q, k_leaf, v_leaf, lengths, **kw):
+        k = k_leaf[0] if isinstance(k_leaf, tuple) else k_leaf
+        lengths_seen.append(lengths)
+        return (*map(int, q.shape[:3]), int(k.shape[2]), int(q.shape[3]),
+                str(q.dtype)[6:], str(k.dtype)[6:])
 
-        def int4w(x, wq4, bias=None, activation=None, *, out_dtype=None):
-            od = out_dtype or x.dtype
-            self._count("matmul_int4w", (
-                int(x.shape[0]), int(wq4.k), int(wq4.packed.shape[1]),
-                str(x.dtype)[6:], str(od)[6:], bias is not None,
-                activation))
-            return orig["matmul_int4w"](x, wq4, bias, activation,
-                                        out_dtype=out_dtype)
-
-        def flash(q, k, v, **kw):
-            self._count("flash_attention", (*map(int, q.shape),
-                                            str(q.dtype)[6:]))
-            return orig["flash_attention"](q, k, v, **kw)
-
-        def decode(q, k_leaf, v_leaf, lengths, **kw):
-            k = k_leaf[0] if isinstance(k_leaf, tuple) else k_leaf
-            self._count("decode_attention", (
-                *map(int, q.shape[:3]), int(k.shape[2]), int(q.shape[3]),
-                str(q.dtype)[6:], str(k.dtype)[6:]))
-            self.decode_lengths.append(lengths)
-            return orig["decode_attention"](q, k_leaf, v_leaf, lengths,
-                                            **kw)
-
-        for name, fn in (("matmul_int4w", int4w), ("flash_attention", flash),
-                         ("decode_attention", decode)):
-            setattr(self.mods[name], name, fn)
-        return self
-
-    def __exit__(self, *exc):
-        for name, m in self.mods.items():
-            setattr(m, name, self.orig[name])
+    rec = Recorder({"matmul_int4w": kmm, "flash_attention": kattn,
+                    "decode_attention": kdec},
+                   keep={"matmul_int4w": int4w, "flash_attention": flash,
+                         "decode_attention": decode})
+    rec.decode_lengths = lengths_seen
+    return rec
 
 
 def llama_prompts(n, lo, hi, vocab, seed=0) -> list:
@@ -849,7 +1452,7 @@ def service_run(engine, device, n_requests=N_REQUESTS,
     svc._dec.prefill_install = timed_install
     kmm.launches = kmm.launches_int4w = 0
     kattn.launches = kdec.launches = 0
-    with Recorder() as rec:
+    with llama_recorder() as rec:
         svc.start()
         t_start = time.perf_counter()
         threads = []
@@ -894,8 +1497,8 @@ def service_run(engine, device, n_requests=N_REQUESTS,
            "mean_occupancy": svc.stats.mean_occupancy,
            "launches": launches,
            "shapes": {k: [[*key, c] for key, c in sorted(
-               v.items(), key=lambda kv: str(kv[0]))]
-               for k, v in rec.counts.items()}}
+               rec.count(k).items(), key=lambda kv: str(kv[0]))]
+               for k in rec.calls}}
     emit(res)
     if device.type == "cuda":
         missing = [k for k in ("matmul_int4w", "flash_attention",
@@ -967,13 +1570,13 @@ def main_shapes_of(rec) -> dict:
 
     shapes = {"matmul_int4w": [
         (m, k, n, xd, od, b, act) for (m, k, n, xd, od, b, act)
-        in rec.counts["matmul_int4w"]],
+        in rec.count("matmul_int4w")],
         "flash_attention": [(b, h, l, d, dt) for (b, h, l, d, dt)
-                            in rec.counts["flash_attention"]]}
+                            in rec.count("flash_attention")]}
     lens = median_lengths(rec)
     shapes["decode_attention"] = [
         (n, kv, g, l, d, qd, cd, lens.tolist())
-        for (n, kv, g, l, d, qd, cd) in rec.counts["decode_attention"]]
+        for (n, kv, g, l, d, qd, cd) in rec.count("decode_attention")]
     return shapes
 
 
@@ -1050,8 +1653,8 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     # matmul_int4w per decode step: decode steps = decode launches /
     # layers; a prefill's gathered last rows add a few M = slots calls of
     # the last layer's MLP and the head
-    c4 = rec.counts["matmul_int4w"]
-    steps = sum(rec.counts["decode_attention"].values()) / layers
+    c4 = rec.count("matmul_int4w")
+    steps = sum(rec.count("decode_attention").values()) / layers
     tot, rows = int4w_sum({k: round(c / steps) for k, c in c4.items()
                            if k[0] == slots}, 10)
     tot["launches_per_step"] = tot.pop("launches")
@@ -1060,12 +1663,12 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
           **tot, "shapes": rows})
 
     # flash_attention per admission wave at the recorded shape
-    fkey = max(rec.counts["flash_attention"],
+    fkey = max(rec.count("flash_attention"),
                key=lambda k_: k_[0] * k_[2] ** 2)
     # matmul_int4w over the full-width projections of that wave (its
     # rows x width; waves at that M = its flash launches / layers)
     wave_m = fkey[0] * fkey[2]
-    waves = rec.counts["flash_attention"][fkey] / layers
+    waves = rec.count("flash_attention")[fkey] / layers
     ptot, prows = int4w_sum({k: round(c / waves) for k, c in c4.items()
                              if k[0] == wave_m}, 3)
     emit({"phase": "kernel_time_int4w_prefill",
@@ -1095,7 +1698,7 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
           "per_row_ms": out["flash_attention"]["ms"] / b_})
 
     # decode_attention per decode step at the median recorded lengths
-    dkey = next(iter(rec.counts["decode_attention"]))
+    dkey = next(iter(rec.count("decode_attention")))
     n, kvh, g, length, d, qd, cd = dkey
     lens = torch.as_tensor(median_lengths(rec), dtype=torch.int32,
                            device=device)
@@ -1375,8 +1978,8 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
 
 
 # ---- driver -------------------------------------------------------------
-PHASES = ("yolo", "llama_kernels", "llama_service", "llama_onoff",
-          "llama_fp32")
+PHASES = ("yolo", "yolo_int8", "llama_kernels", "llama_service",
+          "llama_onoff", "llama_fp32")
 
 
 def main(argv=None) -> int:
@@ -1410,7 +2013,16 @@ def main(argv=None) -> int:
         off = yolo_engine(device, 8, 640, "bfloat16", False)
         rng = np.random.default_rng(123)
         warm = rng.integers(0, 256, (8, 640, 640, 3), dtype=np.uint8)
-        shape_counts = record_main_shapes(on[0], {on[1]: warm})
+        from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+        # one warm-up forward: the (M, K, N) shapes the main path gives
+        # matmul_int8w, with their counts
+        with Recorder({"matmul_int8w": kmm}, keep={
+                "matmul_int8w": lambda x, w_q, *a, **kw: (
+                    int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))}
+                ) as rec:
+            on[0].run({on[1]: warm})
+        shape_counts = rec.count("matmul_int8w")
         emit({"phase": "main_path_shapes", "shapes": [
             [*k, c] for k, c in sorted(shape_counts.items())]})
         max_err = kernel_vs_plain(device, list(shape_counts))
@@ -1427,6 +2039,10 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]}
+        torch.cuda.empty_cache()
+
+    if "yolo_int8" in phases:
+        yolo_int8_phase(device, kernels)
         torch.cuda.empty_cache()
 
     if "llama_kernels" in phases:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Controls for chip_smoke.py's llama kernels-on-vs-off check (phase 7):
-can its limits tell a kernel that is wrong from bf16 noise?
+"""Controls for chip_smoke.py's kernels-on-vs-off checks: can their
+limits tell a kernel that is wrong from bf16 and int8 noise?
 
-    python3 scripts/torch_onoff_control.py     # from the root of a checkout
+    python3 scripts/torch_onoff_control.py          # llama (phase 7)
+    python3 scripts/torch_onoff_control.py --int8   # yolov5l int8 + C3
 
 Loads the llama "base" bf16 int4w engine (kernels on), the same graph
 with use_kernels=False, and the fp32 yardstick, as chip_smoke.py does,
@@ -16,8 +17,22 @@ bf16 inputs (the fp32 yardstick keeps the real kernels):
   version; a precision change, not a fault);
 - flash_causal_off_by_one: each query also sees the next key (a fault).
 
+With --int8: the yolov5l-640-b16 bf16 int8 c3_fusion engine (kernels
+on, calibrated) against the same graph and scales with use_kernels=False,
+as chip_smoke.py's yolo_int8 phase compares them (box and scores each
+against its own scale), sound and with:
+
+- s8s8_bf16_product: matmul_s8s8 multiplies in bf16 and rounds the
+  product to bf16 before the epilogue (a precision change, not a fault);
+- s8s8_drop_k_tile: matmul_s8s8 loses the last 64 of K (a fault);
+- int8w_drop_k_tile: matmul_int8w (the path's 3 weight-only pointwise
+  convs) loses the last 32 of K (a fault);
+- c3_fp_taps: c3_block runs fp taps where it takes s8 ones (a precision
+  change, not a fault);
+- c3_taps_mirrored: c3_block's 3x3 taps read x + dx as x - dx (a fault).
+
 Prints one JSON line of readings per run, each with whether
-chip_smoke.check_onoff fails it, then a summary line. Needs a CUDA card.
+chip_smoke's check fails it, then a summary line. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -71,6 +86,66 @@ def flash_causal_off_by_one(orig):
     return fn
 
 
+def s8s8_bf16_product(orig):
+    import torch
+    from simpleinfer_tpu_torch.kernels.matmul import resolve_activation
+
+    def fn(x_q, w_q, scale, bias=None, activation=None, *,
+           out_dtype=torch.bfloat16):
+        acc = torch.matmul(x_q.to(torch.bfloat16), w_q.to(torch.bfloat16))
+        out = acc.float() * scale.float()
+        if bias is not None:
+            out = out + bias.float()
+        return resolve_activation(activation)(out).to(out_dtype)
+    return fn
+
+
+def s8s8_drop_k_tile(orig):
+    def fn(x_q, w_q, scale, bias=None, activation=None, **kw):
+        k = max(x_q.shape[1] - 64, 1)
+        return orig(x_q[:, :k].contiguous(), w_q[:k].contiguous(), scale,
+                    bias, activation, **kw)
+    return fn
+
+
+def int8w_drop_k_tile(orig):
+    def fn(x, w_q, scale, bias=None, activation=None, **kw):
+        k = max(x.shape[1] - 32, 1)
+        return orig(x[:, :k].contiguous(), w_q[:k].contiguous(), scale,
+                    bias, activation, **kw)
+    return fn
+
+
+def c3_fp_taps(orig):
+    def fn(x, *args, btl_b_scale=None, **kw):
+        if btl_b_scale is None:
+            return orig(x, *args, **kw)
+        args = list(args)
+        args[9] = (args[9].float() * btl_b_scale.float()[:, None, None, :]
+                   ).to(x.dtype)
+        return orig(x, *args, **kw)
+    return fn
+
+
+def c3_taps_mirrored(orig):
+    def fn(x, *args, **kw):
+        args = list(args)
+        # tap = kh*3 + kw: swap kw 0 and 2
+        args[9] = args[9][:, [2, 1, 0, 5, 4, 3, 8, 7, 6]].contiguous()
+        return orig(x, *args, **kw)
+    return fn
+
+
+INT8_CONTROLS = {"s8s8_bf16_product": ("matmul", "matmul_s8s8",
+                                       s8s8_bf16_product),
+                 "s8s8_drop_k_tile": ("matmul", "matmul_s8s8",
+                                      s8s8_drop_k_tile),
+                 "int8w_drop_k_tile": ("matmul", "matmul_int8w",
+                                       int8w_drop_k_tile),
+                 "c3_fp_taps": ("c3block", "c3_block", c3_fp_taps),
+                 "c3_taps_mirrored": ("c3block", "c3_block",
+                                      c3_taps_mirrored)}
+
 CONTROLS = {"int4w_bf16_dequant": ("matmul", "matmul_int4w",
                                    int4w_bf16_dequant),
             "flash_bf16_p": ("attention", "flash_attention", flash_bf16_p),
@@ -90,6 +165,14 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     print(cs.device_and_build(device)["nvidia_smi"], flush=True)
+    if "--int8" in sys.argv[1:]:
+        on, in_name, out_name = cs.int8_engine(device, True)
+        off = cs.int8_engine(device, False)[0]
+        run = cs.int8_main_path(device, (on, off, in_name, out_name))
+        summary = run_int8_controls(on, off, out_name, run["feeds"])
+        print(json.dumps({"limits": {"on_vs_off": cs.INT8_ONOFF_TOL},
+                          "summary": summary}), flush=True)
+        return 0 if not summary["sound"]["caught"] else 1
     on, _, _ = cs.llama_engine(device)
     off, _, _ = cs.llama_engine(device, use_kernels=False)
     ref, _, _ = cs.llama_engine(device, compute="float32")
@@ -139,6 +222,41 @@ def run_controls(on, off, ref, device, **onoff_kw) -> dict:
                       "argmax_equal": res[part]["argmax_equal"]}
                for part in ("prefill_logits", "decode_step_logits")}}
         print(json.dumps({"control": name, "failed": failed}), flush=True)
+    return summary
+
+
+def run_int8_controls(on, off, out_name, feeds) -> dict:
+    """The int8 phase's on-vs-off readings, sound and under each int8
+    control, and whether chip_smoke.check_int8_onoff fails each."""
+    import importlib
+
+    import chip_smoke as cs
+
+    summary = {}
+    for name in ("sound", *INT8_CONTROLS):
+        restore = None
+        if name != "sound":
+            mod_name, attr, make = INT8_CONTROLS[name]
+            mod = importlib.import_module(
+                f"simpleinfer_tpu_torch.kernels.{mod_name}")
+            restore = (mod, attr, getattr(mod, attr))
+            setattr(mod, attr, make(restore[2]))
+        try:
+            outs = [on.run(f)[out_name] for f in feeds]
+        finally:
+            if restore:
+                setattr(*restore)
+        res = {"vs_kernels_off": cs.int8_onoff(off, out_name, feeds, outs)}
+        try:
+            cs.check_int8_onoff(res)
+            failed = None
+        except AssertionError as e:
+            failed = str(e)[:200]
+        summary[name] = {"caught": failed is not None, **{
+            part: [r["max_abs_over_scale"], r["mean_abs_over_scale"]]
+            for part, r in res["vs_kernels_off"].items()}}
+        print(json.dumps({"control": name, "failed": failed,
+                          **summary[name]}), flush=True)
     return summary
 
 

@@ -12,7 +12,9 @@ ops it lowers to, weight-only int8, the executor and the Engine — with
 path — the llama builder, Linear / norm / rotary-attention ops,
 group-wise int4 weights, the KV-cache decoder, sampling and
 serving.GenerationService — with `matmul_int4w`, `flash_attention` and
-`decode_attention` as CUDA kernels.
+`decode_attention` as CUDA kernels; and static int8 (calibration, int8
+chains, per-channel folding) with the C3 collapse — with `matmul_s8s8`
+and `c3_block` as CUDA kernels.
 """
 from .config import EngineConfig
 from .engine import Engine, EngineStateError

@@ -15,7 +15,8 @@
 // therefore aims at reading x once and writing out once:
 //   - one 64x64 output tile per block, K walked in a loop inside the
 //     block (the TPU's sequential K grid axis with a VMEM accumulator
-//     becomes registers; blocks run in parallel in no order);
+//     becomes registers; blocks run in parallel in no order): the f32
+//     tile of csrc/tiles.cuh;
 //   - x and w tiles are converted to f32 as they are staged into shared
 //     memory, so an int8 weight is read as 1 byte and dequantized by
 //     scale[n] once per output in the epilogue (the scale is constant
@@ -34,19 +35,12 @@
 //             -shared -Xcompiler -fPIC (kernels/matmul.py does this at
 //             first use) and called through ctypes via `si_matmul`.
 
-#include "epilogue.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 using namespace si;
-
-constexpr int BM = 64;   // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 32;   // K depth staged per step
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int PAD = 4;   // keeps float4 rows 16-byte aligned
+using namespace si::tile;
 
 template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(THREADS)
@@ -55,14 +49,17 @@ si_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                  const void* __restrict__ bias, int bias_dtype,
                  TO* __restrict__ out, int M, int N, int K, int act,
                  float act_arg) {
-  __shared__ __align__(16) float As[BK][BM + PAD];  // x tile, K-major
-  __shared__ __align__(16) float Bs[BK][BN + PAD];  // w tile
+  __shared__ __align__(16) FTileA As;  // x tile, K-major
+  __shared__ __align__(16) FTileB Bs;  // w tile
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);  // column group
   const int ty = tid / (BN / TN);  // row group
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
+  const auto row = [=](int r) -> int64_t {
+    return m0 + r < M ? m0 + r : -1;
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -71,42 +68,10 @@ si_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // stage x[m0:m0+BM, k0:k0+BK]: neighbouring threads read
-    // neighbouring k (coalesced), zero outside the matrix
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BK, c = e % BK;
-      const int64_t gm = m0 + r;
-      const int gk = k0 + c;
-      float v = 0.0f;
-      if (gm < M && gk < K) v = to_f32(x[gm * K + gk]);
-      As[c][r] = v;
-    }
-    // stage w[k0:k0+BK, n0:n0+BN]: neighbouring threads read
-    // neighbouring n
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      float v = 0.0f;
-      if (gk < K && gn < N) v = to_f32(w[static_cast<int64_t>(gk) * N + gn]);
-      Bs[r][c] = v;
-    }
+    stage_a_f32(As, x, row, k0, K, tid);
+    stage_w_f32(Bs, w, k0, n0, K, N, tid);
     __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    fma_step(As, Bs, acc, tx, ty);
     __syncthreads();
   }
 

@@ -1,0 +1,138 @@
+// The 64x64 output tile shared by the port's GEMM-shaped kernels
+// (csrc/matmul.cu, csrc/matmul_s8s8.cu, csrc/c3block.cu): 256 threads of
+// 4x4 outputs each, K walked in steps staged through shared memory, the
+// accumulator in registers. Two forms:
+//   - f32 FMA: a and w converted to f32 as they are staged, a K-major so
+//     that a thread reads its 4 rows and 4 columns as float4s;
+//   - int8 __dp4a: a and w staged as 32-bit words of 4 consecutive k,
+//     w transposed to [n][k / 4] so both operands of a __dp4a are one
+//     aligned word; rows padded to 17 words so a warp's reads hit 16
+//     banks. The sum is exact in int32.
+// A kernel stages its a tile its own way (masked rows, shifted 3x3 taps,
+// quantized on the fly) and takes the w staging and the inner loop from
+// here; the epilogues stay in the kernels.
+#pragma once
+
+#include "epilogue.cuh"
+
+namespace si {
+namespace tile {
+
+constexpr int BM = 64;        // output rows per block
+constexpr int BN = 64;        // output columns per block
+constexpr int TM = 4;         // rows per thread
+constexpr int TN = 4;         // columns per thread
+constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+// f32-FMA tiles
+constexpr int BK = 32;        // K depth staged per step
+constexpr int PAD = 4;        // keeps float4 rows 16-byte aligned
+// int8 tiles
+constexpr int BK8 = 64;       // K bytes staged per step
+constexpr int KW8 = BK8 / 4;  // 32-bit words per staged row
+constexpr int LD8 = KW8 + 1;  // padded row stride in words
+
+using FTileA = float[BK][BM + PAD];  // a tile, K-major
+using FTileB = float[BK][BN + PAD];  // w tile
+using WTile = int[BM][LD8];          // int8 tile, [row][k / 4]
+static_assert(BM == BN, "WTile holds both int8 operands");
+
+// a[src(r), k0:k0+BK] into row r of the K-major tile, for r < BM; a row
+// src(r) < 0 and k >= K read as zero. Neighbouring threads read
+// neighbouring k (coalesced).
+template <typename T, typename RowFn>
+__device__ __forceinline__ void stage_a_f32(FTileA& As,
+                                            const T* __restrict__ a,
+                                            RowFn src, int k0, int K,
+                                            int tid) {
+#pragma unroll
+  for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / BK, c = e % BK;
+    const int64_t row = src(r);
+    const int gk = k0 + c;
+    As[c][r] = (row >= 0 && gk < K) ? to_f32(a[row * K + gk]) : 0.0f;
+  }
+}
+
+// w[k0:k0+BK, n0:n0+BN] of a row-major [K, N] matrix, zero outside it.
+// Neighbouring threads read neighbouring n.
+template <typename TW>
+__device__ __forceinline__ void stage_w_f32(FTileB& Bs,
+                                            const TW* __restrict__ w, int k0,
+                                            int n0, int K, int N, int tid) {
+#pragma unroll
+  for (int i = 0; i < (BK * BN) / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / BN, c = e % BN;
+    const int gk = k0 + r, gn = n0 + c;
+    Bs[r][c] = (gk < K && gn < N)
+                   ? to_f32(w[static_cast<int64_t>(gk) * N + gn])
+                   : 0.0f;
+  }
+}
+
+// acc[i][j] += sum over the staged K of a[ty*TM + i] * w[tx*TN + j]
+__device__ __forceinline__ void fma_step(const FTileA& As, const FTileB& Bs,
+                                         float (&acc)[TM][TN], int tx,
+                                         int ty) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
+    const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
+    const float av[TM] = {a4.x, a4.y, a4.z, a4.w};
+    const float bv[TN] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// int8 w[k0:k0+BK8, n0:n0+BN] of a row-major [K, N] matrix into
+// [n][k / 4] words (byte b = k + b), zero outside it. Neighbouring
+// threads read neighbouring n of one k row (coalesced bytes).
+__device__ __forceinline__ void stage_w_s8(WTile& Bs,
+                                           const int8_t* __restrict__ w,
+                                           int k0, int n0, int K, int N,
+                                           int tid) {
+#pragma unroll
+  for (int i = 0; i < (BN * KW8) / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int n = e % BN, c = e / BN;
+    const int gn = n0 + n;
+    int v = 0;
+    if (gn < N) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int gk = k0 + 4 * c + b;
+        if (gk < K)
+          v |= static_cast<int>(static_cast<uint8_t>(
+                   w[static_cast<int64_t>(gk) * N + gn])) << (8 * b);
+      }
+    }
+    Bs[n][c] = v;
+  }
+}
+
+// acc[i][j] += exact int32 sum over the staged K of a[ty + 16 i] *
+// w[tx + 16 j] (rows and columns strided by 16, so the epilogue's stores
+// are coalesced along n)
+__device__ __forceinline__ void dp4a_step(const WTile& As, const WTile& Bs,
+                                          int (&acc)[TM][TN], int tx,
+                                          int ty) {
+#pragma unroll
+  for (int c = 0; c < KW8; ++c) {
+    int av[TM], bv[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = As[ty + 16 * i][c];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bv[j] = Bs[tx + 16 * j][c];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+  }
+}
+
+}  // namespace tile
+}  // namespace si

@@ -10,6 +10,8 @@ The counterpart of simpleinfer_tpu/engine.py, with the same surface:
     Engine.extract(name)
     Engine.run(**inputs)
     Engine.synchronize()           (the block_until_ready counterpart)
+    Engine.calibrate(batches)      (static int8: activation scales)
+    Engine.save_calibration(path) / load_calibration(path)
 
 Execution model: `load_model` lowers the pnnx graph once
 (executor.build_program) and places the weights on the engine's device
@@ -32,7 +34,8 @@ import torch
 from .config import EngineConfig
 from .executor import Program, build_program
 from .ir.graph import Graph
-from .quant.tensor import Quantized4Tensor, QuantizedTensor
+from .quant.tensor import (Quantized4Tensor, QuantizedTensor,
+                           quantize_per_channel)
 
 logger = logging.getLogger("simpleinfer_tpu_torch")
 
@@ -89,6 +92,9 @@ class Engine:
         self._device_weights = None
         self._staged: dict = {}
         self._outputs: dict = {}
+        # pre-fold quantized weights (per-channel act scales fold the
+        # act factor into the weight; re-installs restore from here)
+        self._pristine_qweights: dict = {}
 
     # ---- lifecycle -----------------------------------------------------
     def load_model(self, parampath: Optional[str],
@@ -113,6 +119,7 @@ class Engine:
         self._device_weights = None
         self._staged = {}
         self._outputs = {}
+        self._pristine_qweights = {}
 
     @property
     def loaded(self) -> bool:
@@ -143,6 +150,11 @@ class Engine:
         Token-id inputs (consumed only by nn.Embedding, e.g. [N, L] ids
         of an LM) are staged as float32, which holds every id below 2^24
         exactly (bf16 would round ids above 256)."""
+        self._staged[name] = self._prepare_input(name, array)
+
+    def _prepare_input(self, name: str, array) -> torch.Tensor:
+        """Convert + place one named input (dtype policy, u8 scaling,
+        layout) — shared by input() and calibrate()."""
         self._require_loaded()
         if name not in self._program.input_names:
             raise KeyError(
@@ -162,7 +174,7 @@ class Engine:
             raise ValueError(
                 f"input {name!r}: rank {x.ndim} does not match declared "
                 f"shape {spec.shape}")
-        self._staged[name] = x.contiguous()
+        return x.contiguous()
 
     def forward(self) -> None:
         """Run the plan on the staged inputs (queued on the device)."""
@@ -175,6 +187,175 @@ class Engine:
         with torch.inference_mode(), fp32_parity(fp32):
             self._outputs = self._program.fn(self._device_weights,
                                              self._staged)
+
+    # ---- static int8 ---------------------------------------------------
+    def calibrate(self, sample_batches) -> dict:
+        """Static-int8 activation calibration (quant='int8' only).
+
+        `sample_batches`: iterable of {input name: array} feeds (any
+        batch size; representative data). Runs one observer pass per
+        batch collecting per-op activation ranges (quant/calibrate.py),
+        takes the running max, installs `act_scale` entries into the
+        weights and re-places them: the next forward takes the
+        s8 x s8 -> s32 conv/linear paths. Returns {op name: scale}."""
+        self._require_loaded()
+        if self.config.quant != "int8":
+            raise EngineStateError(
+                "calibrate() requires EngineConfig(quant='int8')")
+        from .quant.calibrate import build_observer_fn, scales_from_stats
+
+        observer = build_observer_fn(
+            self._program, self.config.act_clip_percentile,
+            per_channel=self.config.act_per_channel)
+        fp32 = self.config.compute_torch_dtype == torch.float32
+        agg: dict = {}
+        n_batches = 0
+        for feeds in sample_batches:
+            staged = {k: self._prepare_input(k, v) for k, v in feeds.items()}
+            missing = [n for n in self._program.input_names
+                       if n not in staged]
+            if missing:
+                raise EngineStateError(
+                    f"calibration batch missing inputs: {missing}")
+            with torch.inference_mode(), fp32_parity(fp32):
+                stats = observer(self._device_weights, staged)
+            for k, v in stats.items():
+                v = v.float().cpu().numpy()  # scalar or per-channel
+                agg[k] = np.maximum(agg[k], v) if k in agg else v
+            n_batches += 1
+        if not n_batches:
+            raise EngineStateError("calibrate() needs at least one batch")
+        scales = scales_from_stats(agg)
+        if self.config.act_per_channel:
+            scales = self._balance_per_channel(scales)
+        self._install_act_scales(scales)
+        logger.info("calibrated %d ops over %d batches (observer=%s)",
+                    len(scales), n_batches,
+                    self.config.act_clip_percentile or "absmax")
+        return scales
+
+    def _balance_per_channel(self, scales: dict) -> dict:
+        """Replace raw per-channel scale vectors (absmax/127) with
+        SmoothQuant-balanced ones (quant/calibrate.smooth_balanced_scales)
+        for ops whose weight they will fold into. save_calibration
+        artifacts store the BALANCED vectors, so load_calibration folds
+        them verbatim and round-trips exactly."""
+        from .quant.calibrate import smooth_balanced_scales
+
+        impls = {i.name: i for i in self._program.impls}
+        out = {}
+        for name, s in scales.items():
+            s = np.asarray(s, np.float32)
+            impl = impls.get(name)
+            w = self._pristine_qweights.get(name)
+            if w is None:
+                w = self._program.weights[name].get("weight")
+            fold = impl.act_fold if impl is not None else None
+            if (s.ndim == 1 and fold is not None
+                    and isinstance(w, QuantizedTensor)
+                    and w.data.shape[fold[1]] == s.size):
+                w_fp = self._program.fp_weights.get(name)
+                w_fp = (w.dequantize() if w_fp is None else w_fp).numpy()
+                ic = fold[1] % w_fp.ndim
+                w_ic = np.abs(w_fp).max(
+                    axis=tuple(i for i in range(w_fp.ndim) if i != ic))
+                out[name] = smooth_balanced_scales(s * 127.0, w_ic)
+            else:
+                out[name] = s
+        return out
+
+    def _install_act_scales(self, scales: dict) -> None:
+        """Install per-op activation scales into the weights and
+        re-place them (switches conv/linear onto the s8 path).
+
+        Vector (per-channel) scales are FOLDED into the op's quantized
+        weight along its input-channel axis (OpImpl.act_fold): with
+        w~ = w·s[ic] requantized per-out-channel and x̂ = x/s[ic], the
+        s32 accumulator dequantizes by w~'s per-out-channel scale alone.
+        The pre-fold weight is kept, so re-installs (re-calibration,
+        loading another artifact) never fold twice."""
+        unknown = [k for k in scales if k not in self._program.weights]
+        if unknown:
+            raise EngineStateError(
+                f"calibration names not in this model: {unknown[:5]}")
+        weights = self._program.weights
+        impls = {i.name: i for i in self._program.impls}
+        # restore pre-fold weights before applying the new scales; an op
+        # absent from the NEW scales also loses its old act_scale (a
+        # stale per-channel vector over an unfolded weight would
+        # quantize by s while the epilogue dequantizes by w_scale alone)
+        for opname, w0 in self._pristine_qweights.items():
+            weights[opname]["weight"] = w0
+            if opname not in scales:
+                weights[opname].pop("act_scale", None)
+        for opname, s in scales.items():
+            s = np.asarray(s, np.float32)
+            if s.ndim == 1:
+                impl = impls.get(opname)
+                w = weights[opname].get("weight")
+                fold = impl.act_fold if impl is not None else None
+                if (fold is None or not isinstance(w, QuantizedTensor)
+                        or w.data.shape[fold[1]] != s.size):
+                    logger.warning(
+                        "per-channel act scale for %r cannot fold "
+                        "(act_fold=%s); reducing to per-tensor",
+                        opname, fold)
+                    s = np.float32(s.max())
+                else:
+                    w0 = self._pristine_qweights.setdefault(opname, w)
+                    wf = self._program.fp_weights.get(opname)
+                    wf = (w0.dequantize() if wf is None else wf).numpy()
+                    bshape = [1] * wf.ndim
+                    bshape[fold[1] % wf.ndim] = s.size
+                    weights[opname]["weight"] = quantize_per_channel(
+                        wf * s.reshape(bshape), axis=w0.axis)
+            weights[opname]["act_scale"] = torch.from_numpy(
+                np.array(s, np.float32))
+        # chain producers (ir/passes.mark_int8_chains) requantize their
+        # output to the consumer's scale: install it as out_scale. A
+        # per-channel consumer scale (or an absent one) disables the
+        # chain; every consumer then quantizes its own input.
+        for impl in self._program.impls:
+            c = impl.q_out_consumer
+            if c is None:
+                continue
+            s = np.asarray(scales[c], np.float32) if c in scales else None
+            if s is not None and s.ndim == 0:
+                weights[impl.name]["out_scale"] = torch.from_numpy(
+                    np.array(s, np.float32))
+            else:
+                weights[impl.name].pop("out_scale", None)
+        self._device_weights = self.place_weights(weights, self._program)
+
+    def save_calibration(self, path: str) -> None:
+        """Persist the installed activation scales as an npz artifact
+        {op name: f32 scalar or per-channel vector}, the JAX package's
+        format: an artifact either package saves, the other loads."""
+        self._require_loaded()
+        scales = {name: w["act_scale"].numpy()
+                  for name, w in self._program.weights.items()
+                  if "act_scale" in w}
+        if not scales:
+            raise EngineStateError(
+                "no activation scales installed; run calibrate() first")
+        # through a file object: np.savez would append ".npz" to a path
+        with open(path, "wb") as f:
+            np.savez(f, **scales)
+
+    def load_calibration(self, path: str) -> dict:
+        """Install activation scales from a `save_calibration` artifact
+        (of either package). Requires quant='int8'. Returns the
+        {op name: scale} dict."""
+        self._require_loaded()
+        if self.config.quant != "int8":
+            raise EngineStateError(
+                "load_calibration() requires EngineConfig(quant='int8')")
+        with np.load(path) as z:
+            scales = {k: np.asarray(z[k], np.float32) for k in z.files}
+        self._install_act_scales(scales)
+        logger.info("loaded calibration for %d ops from %s",
+                    len(scales), path)
+        return scales
 
     def synchronize(self) -> None:
         """Wait until the last forward's work on the device is done."""

@@ -10,7 +10,7 @@ load lifecycle is the same:
     (fusions)         -> ir.passes.run_inference_fusions
     CreateTensorNodes -> input/output discovery by op type, then degree;
                          NCHW -> NHWC declared shapes
-    CreateLayers      -> ops.lower_operator per op, int8w / int4w
+    CreateLayers      -> ops.lower_operator per op, int8w / int8 / int4w
                          quantization of `quantizable` weights
     CreatePipeline    -> the topo-sorted plan
 """
@@ -58,6 +58,13 @@ class Program:
     fn: Callable  # fn(weights, inputs_dict) -> outputs_dict
     # execution plan: [(OpImpl, input operand names, output operand names)]
     plan: list = field(default_factory=list)
+    # HOST-only pre-quantization fp32 weights of the ops a per-channel
+    # activation scale can fold into (OpImpl.act_fold), for quant="int8":
+    # op name -> HWIO / [in, out] tensor. The fold
+    # (engine._install_act_scales) requantizes w·s from these, not from
+    # the quantized weight, whose per-out-channel scales may have zeroed
+    # small input channels. Never placed on the device.
+    fp_weights: dict = field(default_factory=dict)
 
     @property
     def input_names(self) -> list:
@@ -141,15 +148,22 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
 
     impls: list[OpImpl] = []
     weights: dict = {}
+    fp_weights: dict = {}
     plan: list[tuple] = []
     for op in order:
         if op.type in ("pnnx.Input", "pnnx.Output"):
             continue
         impl = lower_operator(op, cfg)
-        if cfg.quant in ("int8w", "int4w"):
+        if cfg.quant in ("int8w", "int8", "int4w"):
             for key, axis in impl.quantizable.items():
                 if key not in impl.weights:
                     continue
+                # kept for any int8 engine, so that a per-channel
+                # calibration artifact loads whatever act_per_channel
+                # this engine was built with
+                if (key == "weight" and cfg.quant == "int8"
+                        and impl.act_fold):
+                    fp_weights[impl.name] = impl.weights[key]
                 w = impl.weights[key].numpy()
                 if cfg.quant == "int4w" and w.ndim == 2 and axis == 1:
                     # the W4 serving dtype: 2-D [in, out] weights are
@@ -191,4 +205,5 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
         weights=weights,
         fn=fn,
         plan=plan,
+        fp_weights=fp_weights,
     )

@@ -1,10 +1,10 @@
 """Load-time graph rewrite passes (inference fusions), ported subset.
 
 A copy of the passes of simpleinfer_tpu/ir/passes.py that the port's
-path runs: fuse_conv_bn, fuse_conv_activation and fuse_cat_conv1x1. The
-W-packed chain marking (a TPU layout means), the C3 collapse (its kernel
-is not ported yet) and static-int8 chain marking (a later slice) are
-left out.
+path runs: fuse_conv_bn, fuse_conv_activation, fuse_c3_blocks,
+fuse_cat_conv1x1 and mark_int8_chains, in the JAX order. The W-packed
+chain marking (a TPU layout means) is left out, and with it the checks
+for its markers in mark_int8_chains.
 
 The reference has exactly one graph pass — expand_expression
 (SURVEY.md §2.2 #12) — and leaves op fusion to nobody (each layer runs
@@ -220,9 +220,301 @@ def fuse_cat_conv1x1(graph: Graph) -> int:
     return n
 
 
+def _binary_add(op) -> bool:
+    return (op.type == "BinaryOp" and len(op.inputs) == 2
+            and len(op.outputs) == 1 and _conv_param(op, "0") == 0)
+
+
+def _conv3x3_s1(op) -> bool:
+    return (_plain_conv(op)
+            and _conv_param(op, "kernel_size") == [3, 3]
+            and _conv_param(op, "stride") == [1, 1]
+            and _conv_param(op, "padding") == [1, 1])
+
+
+def _internal(rand, consumer) -> bool:
+    """Operand produced and consumed entirely inside the block."""
+    return (len(rand.consumers) == 1 and rand.consumers[0] is consumer
+            and not any(c.type == "pnnx.Output" for c in rand.consumers))
+
+
+def fuse_c3_blocks(graph: Graph, cfg=None) -> int:
+    """Collapse eligible YOLOv5 C3 blocks into one `si.FusedC3` op
+    (ops/c3.py, run by kernels/c3block.c3_block where its gates pass).
+
+    Pattern (zoo/builders.py c3(), after conv+bn/act folding):
+        cv1 1x1 ── T x [a 1x1 ── b 3x3 ── (+residual)] ──┐
+        x ──┤                                             cat ── cv3 1x1
+        cv2 1x1 ─────────────────────────────────────────┘
+    Must run BEFORE fuse_cat_conv1x1 (which would erase the cat).
+    Eligibility: every conv plain + biased + the SAME activation,
+    every intermediate operand internal to the block, and the shape
+    passes kernels.c3block.c3_supported (hid >= 64, VMEM fit) —
+    ineligible blocks are left for the normal conv path. Weights are
+    re-laid out kernel-ready at pass time (matmul [in, out] forms,
+    3x3 taps flattened kh*3+kw).
+    """
+    from ..kernels.c3block import c3_supported
+
+    n = 0
+    for cat in list(graph.ops):
+        if cat.type != "torch.cat" or _conv_param(cat, "dim") != 1:
+            continue
+        if len(cat.inputs) != 2 or len(cat.outputs) != 1:
+            continue
+        if len(cat.outputs[0].consumers) != 1:
+            continue
+        cv3 = cat.outputs[0].consumers[0]
+        if not (_pointwise_conv(cv3) and len(cv3.inputs) == 1
+                and len(cv3.outputs) == 1):
+            continue
+        y1_rand, y2_rand = cat.inputs
+        cv2 = y2_rand.producer
+        if (cv2 is None or not _pointwise_conv(cv2)
+                or not _internal(y2_rand, cat) or len(cv2.inputs) != 1):
+            continue
+
+        # walk the bottleneck chain backwards from y1 to cv1
+        btl_rev = []        # [(a_conv, b_conv, add_or_None), ...]
+        dead_rev = []       # ops to delete, reverse order
+        cur = y1_rand
+        cv1 = None
+        ok = True
+        while ok:
+            prod = cur.producer
+            if prod is None:
+                ok = False
+            elif prod is not cv2 and _pointwise_conv(prod) \
+                    and len(prod.inputs) == 1:
+                cv1 = prod
+                break
+            elif _binary_add(prod):
+                b_out, prev = prod.inputs
+                b_conv = b_out.producer
+                if (b_conv is None or not _conv3x3_s1(b_conv)
+                        or not _internal(b_out, prod)
+                        or len(b_conv.inputs) != 1):
+                    ok = False
+                    break
+                a_out = b_conv.inputs[0]
+                a_conv = a_out.producer
+                if (a_conv is None or not _pointwise_conv(a_conv)
+                        or not _internal(a_out, b_conv)
+                        or len(a_conv.inputs) != 1
+                        or a_conv.inputs[0] is not prev):
+                    ok = False
+                    break
+                # prev feeds both a_conv and the add — nothing else
+                # unless it is the block input (checked when the loop
+                # terminates at cv1)
+                btl_rev.append((a_conv, b_conv, prod))
+                dead_rev += [prod, b_conv, a_conv]
+                cur = prev
+            elif _conv3x3_s1(prod) and len(prod.inputs) == 1:
+                # shortcut=False bottleneck: a 1x1 then b 3x3, no add
+                b_conv = prod
+                a_out = b_conv.inputs[0]
+                a_conv = a_out.producer
+                if (a_conv is None or not _pointwise_conv(a_conv)
+                        or not _internal(a_out, b_conv)
+                        or len(a_conv.inputs) != 1):
+                    ok = False
+                    break
+                btl_rev.append((a_conv, b_conv, None))
+                dead_rev += [b_conv, a_conv]
+                cur = a_conv.inputs[0]
+            else:
+                ok = False
+        if not ok or cv1 is None or not btl_rev:
+            continue
+        if cv1.inputs[0] is not cv2.inputs[0]:
+            continue    # cv1/cv2 must share the block input
+        x_rand = cv1.inputs[0]
+        btl = btl_rev[::-1]
+        shortcuts = {add is not None for _a, _b, add in btl}
+        if len(shortcuts) != 1:
+            continue    # mixed shortcut forms: not a c3() block
+        shortcut = shortcuts.pop()
+
+        # internal-edge checks along the forward chain: cv1 out feeds
+        # only the first bottleneck (a conv + its add when shortcut)
+        chain_in = cv1.outputs[0]
+        for a_conv, _b, add in btl:
+            want = {id(a_conv)} | ({id(add)} if add is not None else set())
+            if {id(c) for c in chain_in.consumers} != want:
+                ok = False
+                break
+            chain_in = (add or _b).outputs[0]
+        if not ok or chain_in is not y1_rand:
+            continue
+        if not _internal(y1_rand, cat):
+            continue
+
+        # uniform activation + bias across every conv
+        convs = [cv1, cv2, cv3] + [c for a, b, _ in btl for c in (a, b)]
+        acts = {(_conv_param(c, FUSED_ACT_PARAM)) for c in convs}
+        if len(acts) != 1 or not all(
+                c.has_attr("bias") for c in convs):
+            continue
+        act = acts.pop()
+
+        # geometry + eligibility: the JAX package's channel gates
+        # (hid >= 64, multiples of 8), kept so both packages fuse the
+        # same blocks and their graphs compare one to one
+        c_in = _conv_param(cv1, "in_channels")
+        hid = _conv_param(cv1, "out_channels")
+        oc = _conv_param(cv3, "out_channels")
+        if not c_in or not hid or not oc:
+            continue
+        if hid < 64 or hid % 8 or c_in % 8 or oc % 8:
+            continue
+        if _conv_param(cv2, "out_channels") != hid \
+                or _conv_param(cv3, "in_channels") != 2 * hid:
+            continue
+        if any(_conv_param(a, "in_channels") != hid
+               or _conv_param(a, "out_channels") != hid
+               or _conv_param(b, "in_channels") != hid
+               or _conv_param(b, "out_channels") != hid
+               for a, b, _ in btl):
+            continue
+        # declared shapes (when present) skip blocks that can never pass
+        # c3_supported; pnnx intermediates often carry no shape — then
+        # the apply-time dispatch (ops/c3.py) makes the same decision
+        # per actual input and runs the reference chain when unfit.
+        oshape = cv3.outputs[0].shape
+        if (len(oshape) == 4 and oshape[2] > 0 and oshape[3] > 0
+                and not c3_supported(oshape[2], oshape[3], c_in, hid,
+                                     oc)):
+            continue
+
+        # ---- rewrite ----------------------------------------------------
+        def w1x1(c):
+            w = c.attrs["weight"].array()          # OIHW [O, I, 1, 1]
+            return np.ascontiguousarray(
+                w.reshape(w.shape[0], w.shape[1]).T)  # [I, O]
+
+        def w3x3(c):
+            w = c.attrs["weight"].array()          # OIHW [O, I, 3, 3]
+            return np.ascontiguousarray(
+                w.transpose(2, 3, 1, 0).reshape(9, w.shape[1],
+                                                w.shape[0]))
+
+        fused = graph.new_operator_before("si.FusedC3",
+                                          f"c3_{cv3.name}", cv1)
+        fused.params["in_channels"] = Parameter.from_value(c_in)
+        fused.params["hidden_channels"] = Parameter.from_value(hid)
+        fused.params["out_channels"] = Parameter.from_value(oc)
+        fused.params["n_bottlenecks"] = Parameter.from_value(len(btl))
+        fused.params["shortcut"] = Parameter.from_value(shortcut)
+        if act is not None:
+            fused.params[FUSED_ACT_PARAM] = Parameter.from_value(act)
+        from .graph import Attribute
+
+        A = Attribute.from_array
+        fused.attrs["cv1_w"] = A(w1x1(cv1))
+        fused.attrs["cv1_b"] = A(cv1.attrs["bias"].array())
+        fused.attrs["cv2_w"] = A(w1x1(cv2))
+        fused.attrs["cv2_b"] = A(cv2.attrs["bias"].array())
+        fused.attrs["cv3_w"] = A(w1x1(cv3))       # [2*hid, OC]
+        fused.attrs["cv3_b"] = A(cv3.attrs["bias"].array())
+        fused.attrs["btl_a_w"] = A(np.stack(
+            [w1x1(a) for a, _b, _ in btl]))
+        fused.attrs["btl_a_b"] = A(np.stack(
+            [a.attrs["bias"].array() for a, _b, _ in btl]))
+        fused.attrs["btl_b_w"] = A(np.stack(
+            [w3x3(b) for _a, b, _ in btl]))
+        fused.attrs["btl_b_b"] = A(np.stack(
+            [b.attrs["bias"].array() for _a, b, _ in btl]))
+
+        out_rand = cv3.outputs[0]
+        fused.inputs = [x_rand]
+        fused.outputs = [out_rand]
+        out_rand.producer = fused
+        x_rand.remove_consumer(cv1)
+        x_rand.remove_consumer(cv2)
+        x_rand.consumers.append(fused)
+
+        dead_ops = [cv1, cv2, cat, cv3] + dead_rev
+        dead_rands = {id(r): r for r in
+                      [y1_rand, y2_rand, cat.outputs[0],
+                       cv1.outputs[0], cv2.outputs[0]]
+                      + [o.outputs[0] for o in dead_rev]}
+        dead_rands.pop(id(out_rand), None)
+        for r in dead_rands.values():
+            graph.remove_operand(r)
+        for o in dead_ops:
+            graph.remove_operator(o)
+        n += 1
+    return n
+
+
+FUSED_Q_OUT = "si_q_out"  # value: the consumer op name whose calibrated
+#                            act_scale the producer requantizes to
+
+
+def mark_int8_chains(graph: Graph, min_channels: int | None = None,
+                     pointwise: bool | None = None) -> int:
+    """Mark conv->conv edges where the producer should requantize its
+    output to int8 itself (static-int8 mode only): the intermediate is
+    handed on as 1-byte data and the consumer's quantize pass
+    disappears (the JAX package measured the standalone quantize at up
+    to 40% of the s8 chain's win on a TPU v5e).
+
+    Edge eligibility: producer is a plain single-output conv outside the
+    cat domain (and, in the JAX package, its packed domain) and not a
+    graph output; EVERY consumer is a single-input plain conv that will
+    take the s8 path (ops/conv.int8_conv_eligible). All consumers read
+    the same operand, so they share one calibrated scale by
+    construction. `min_channels` / `pointwise` default to the gate's
+    constants (ops/conv.INT8_MIN_CHANNELS / INT8_POINTWISE). Returns
+    #edges marked."""
+    from ..ops import conv as _conv
+
+    if min_channels is None:
+        min_channels = _conv.INT8_MIN_CHANNELS
+    if pointwise is None:
+        pointwise = _conv.INT8_POINTWISE
+    n = 0
+    for op in list(graph.ops):
+        if op.type != "nn.Conv2d" or len(op.outputs) != 1:
+            continue
+        if FUSED_CAT_INPUTS in op.params:
+            continue
+        operand = op.outputs[0]
+        consumers = operand.consumers
+        if not consumers:
+            continue
+
+        def takes_s8(c) -> bool:
+            # must mirror the runtime dispatch gate (shared predicate),
+            # conservatively restricted to plain single-input convs
+            if c.type != "nn.Conv2d" or len(c.inputs) != 1:
+                return False
+            if FUSED_CAT_INPUTS in c.params:
+                return False
+            ks = _conv_param(c, "kernel_size") or [1, 1]
+            ic = _conv_param(c, "in_channels") or 0
+            return (_plain_conv(c) and _conv.int8_conv_eligible(
+                ks[0] * ks[1], ic, min_channels, pointwise))
+
+        if all(takes_s8(c) for c in consumers):
+            op.params[FUSED_Q_OUT] = Parameter.from_value(
+                consumers[0].name)
+            n += 1
+    return n
+
+
 def run_inference_fusions(graph: Graph, cfg=None) -> dict:
     """conv+bn first (so conv+bn+act chains end as one fused conv), then
-    activation folding, then the cat-split of pointwise convs."""
-    return {"conv_bn": fuse_conv_bn(graph),
-            "conv_act": fuse_conv_activation(graph),
-            "cat_conv": fuse_cat_conv1x1(graph)}
+    activation folding, then the C3 collapse (it must see the cat, so
+    before fuse_cat_conv1x1; only with EngineConfig.c3_fusion), then the
+    cat-split of pointwise convs; int8-chain marking last, in static-int8
+    mode only."""
+    stats = {"conv_bn": fuse_conv_bn(graph),
+             "conv_act": fuse_conv_activation(graph)}
+    if cfg is not None and getattr(cfg, "c3_fusion", False):
+        stats["c3"] = fuse_c3_blocks(graph, cfg)
+    stats["cat_conv"] = fuse_cat_conv1x1(graph)
+    if cfg is not None and getattr(cfg, "quant", None) == "int8":
+        stats["int8_chain"] = mark_int8_chains(graph)
+    return stats

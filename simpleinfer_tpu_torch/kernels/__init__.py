@@ -3,8 +3,10 @@ package's Pallas TPU kernels (simpleinfer_tpu/kernels/). Each wrapper
 runs its plain PyTorch version for CPU tensors and launches its kernel
 (or raises) for CUDA tensors.
 
-- matmul.py: `matmul` / `matmul_int8w` (csrc/matmul.cu) and
-  `matmul_int4w` (csrc/matmul_int4w.cu)
+- matmul.py: `matmul` / `matmul_int8w` (csrc/matmul.cu),
+  `matmul_int4w` (csrc/matmul_int4w.cu) and `matmul_s8s8`
+  (csrc/matmul_s8s8.cu)
+- c3block.py: `c3_block` (csrc/c3block.cu)
 - attention.py: `flash_attention` (csrc/flash_attention.cu)
 - decode_attn.py: `decode_attention` (csrc/decode_attention.cu)
 - build.py: nvcc build and ctypes binding of the sources

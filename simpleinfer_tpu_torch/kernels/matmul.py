@@ -9,20 +9,26 @@ Entry points with the JAX signatures:
 - matmul_int4w(x, wq4, ...)       — a Quantized4Tensor (group-wise int4,
   nibble-packed; quant/tensor.py), the counterpart of the Pallas
   `_matmul_int4w_kernel`.
+- matmul_s8s8(x_q, w_q, scale, ...) — static int8: int8 activations x
+  int8 weights with an exact s32 sum, dequantized by scale[N] in the
+  epilogue; the counterpart of the Pallas `_matmul_s8s8_kernel`.
 
-All compute ``act(x @ w (dequantized) + bias?)`` with f32 accumulation
-for any M, N and K. `matmul` and `matmul_int8w` share ONE CUDA kernel
-(csrc/matmul.cu), templated on the input, weight and output dtypes;
-`matmul_int4w` is its own (csrc/matmul_int4w.cu). The kernels are built
+The first three compute ``act(x @ w (dequantized) + bias?)`` with f32
+accumulation for any M, N and K. `matmul` and `matmul_int8w` share ONE
+CUDA kernel (csrc/matmul.cu), templated on the input, weight and output
+dtypes; `matmul_int4w` (csrc/matmul_int4w.cu) and `matmul_s8s8`
+(csrc/matmul_s8s8.cu) are their own. The kernels are built
 with nvcc for sm_90a at first use, into `_build/` beside this package,
 and bound with ctypes (kernels/build.py).
 
 A wrapper runs its plain PyTorch version (`matmul_ref`,
-`matmul_int8w_ref`, `matmul_int4w_ref`) only for tensors on the CPU.
+`matmul_int8w_ref`, `matmul_int4w_ref`, `matmul_s8s8_ref`) only for
+tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; there is no
-fallback. `launches` counts the launches of csrc/matmul.cu and
-`launches_int4w` those of csrc/matmul_int4w.cu, so a run can show that
-its path went through each kernel.
+fallback. `launches` counts the launches of csrc/matmul.cu,
+`launches_int4w` those of csrc/matmul_int4w.cu and `launches_s8s8`
+those of csrc/matmul_s8s8.cu, so a run can show that its path went
+through each kernel.
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ from . import build
 # kernel launches since import (or since a caller reset them to 0)
 launches = 0
 launches_int4w = 0
+launches_s8s8 = 0
 
 SOURCE = "matmul.cu"
 SOURCE_INT4W = "matmul_int4w.cu"
+SOURCE_S8S8 = "matmul_s8s8.cu"
 
 # dtype codes of csrc/matmul.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -117,6 +125,20 @@ def matmul_int4w_ref(x, wq4, bias=None, activation: Optional[str] = None,
     return resolve_activation(activation)(out).to(out_dtype or x.dtype)
 
 
+def matmul_s8s8_ref(x_q, w_q, scale, bias=None,
+                    activation: Optional[str] = None,
+                    out_dtype=torch.bfloat16):
+    """Exact s32 reference of matmul_s8s8 on every device: the product
+    in float64 (|acc| <= K * 127^2, far below 2^53, so every sum is
+    exact in any order; CPU torch has no int8 matmul that keeps s32),
+    then the f32 epilogue of the JAX package's matmul_s8s8_ref."""
+    acc = x_q.double() @ w_q.double()
+    out = acc.float() * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return resolve_activation(activation)(out).to(out_dtype)
+
+
 # ---- bind ---------------------------------------------------------------
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -132,6 +154,13 @@ def _bind_int4w(lib):
     lib.si_matmul_int4w.restype = ci
 
 
+def _bind_s8s8(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.si_matmul_s8s8.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci, ci, ci,
+                                   ci, ctypes.c_float, vp]
+    lib.si_matmul_s8s8.restype = ci
+
+
 def load_library(rebuild: bool = False):
     """The ctypes library of csrc/matmul.cu (built at first use)."""
     return build.load(SOURCE, _bind, rebuild)
@@ -140,6 +169,11 @@ def load_library(rebuild: bool = False):
 def load_library_int4w(rebuild: bool = False):
     """The ctypes library of csrc/matmul_int4w.cu (built at first use)."""
     return build.load(SOURCE_INT4W, _bind_int4w, rebuild)
+
+
+def load_library_s8s8(rebuild: bool = False):
+    """The ctypes library of csrc/matmul_s8s8.cu (built at first use)."""
+    return build.load(SOURCE_S8S8, _bind_s8s8, rebuild)
 
 
 # ---- wrappers -----------------------------------------------------------
@@ -287,4 +321,62 @@ def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
         raise RuntimeError(f"si_matmul_int4w launch failed with CUDA error "
                            f"{err} (M={m}, N={n}, K={k})")
     launches_int4w += 1
+    return out
+
+
+def matmul_s8s8(x_q, w_q, scale, bias=None, activation: Optional[str] = None,
+                *, out_dtype=torch.bfloat16):
+    """out = act(float(x_q[M,K] s8 @ w_q[K,N] s8, summed exactly in s32)
+    * scale[N] + bias[N]) — the static-int8 GEMM, with the quant
+    semantics of ops/conv.int8_epilogue (scale = act_scale * w_scale per
+    output channel, or w_scale alone for folded per-channel activation
+    scales; a scalar scale applies to every column). The TPU wrapper's
+    block sizes are its VMEM tiles and have no counterpart here."""
+    global launches_s8s8
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.tensor(scale, dtype=torch.float32)
+    if x_q.device.type == "cpu":
+        return matmul_s8s8_ref(x_q, w_q, scale, bias, activation, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"the CUDA s8s8 kernel needs CUDA tensors, got "
+                         f"{x_q.device}")
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"matmul_s8s8 shapes {tuple(x_q.shape)} @ "
+                         f"{tuple(w_q.shape)} do not chain")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"matmul_s8s8 needs int8 operands, got {x_q.dtype}"
+                        f" and {w_q.dtype}")
+    if w_q.device != x_q.device:
+        raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype} is not float32/bfloat16")
+    if not (x_q.is_contiguous() and w_q.is_contiguous()):
+        raise ValueError("x_q and w_q must be contiguous (row-major)")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if m >= 2 ** 31 or k >= 2 ** 31 or n > 65535 * 64:
+        raise ValueError(f"matmul_s8s8 too large for the kernel: M={m}, "
+                         f"K={k}, N={n}")
+    scale = scale.to(x_q.device, torch.float32)
+    if scale.ndim == 0:
+        scale = scale.expand(n)
+    scale = scale.contiguous()
+    _check_vec("scale", scale, n, (torch.float32,), x_q.device)
+    _check_vec("bias", bias, n, (torch.float32, torch.bfloat16), x_q.device)
+    code, arg = _act_code(activation)
+    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    if m == 0 or n == 0:
+        return out
+    lib = load_library_s8s8()
+    with torch.cuda.device(x_q.device):
+        err = lib.si_matmul_s8s8(
+            x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            _DTYPE_CODES[bias.dtype] if bias is not None else 0,
+            out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, code, arg,
+            torch.cuda.current_stream(x_q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"si_matmul_s8s8 launch failed with CUDA error "
+                           f"{err} (M={m}, N={n}, K={k})")
+    launches_s8s8 += 1
     return out

@@ -2,7 +2,7 @@
 
 Importing this package registers every ported lowering: the op types a
 fused YOLOv5 graph uses (nn.Conv2d, BinaryOp, nn.MaxPool2d, nn.Upsample,
-torch.cat, models.yolo.Detect), those of a llama graph (nn.Embedding,
+torch.cat, models.yolo.Detect, and si.FusedC3 with c3_fusion), those of a llama graph (nn.Embedding,
 nn.RMSNorm, si.RotaryAttention, nn.Linear, nn.SiLU) and their
 file-mates.
 """
@@ -10,6 +10,7 @@ from . import (  # noqa: F401
     activation,
     attention,
     binary,
+    c3,
     conv,
     linear,
     norm,

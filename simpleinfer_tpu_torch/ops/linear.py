@@ -10,8 +10,16 @@ kernels/matmul.py with bias and the fused activation in their epilogue:
 int8w to `matmul_int8w`, int4w to `matmul_int4w` (the JAX package
 dispatches int4w to its kernel without an opt-in; its int8w dispatch
 waits for use_pallas). Everything else resolves the weight dense and
-runs torch.matmul with f32 bias and activation. Static int8 (an
-`act_scale` weight) is not ported yet.
+runs torch.matmul with f32 bias and activation.
+
+Static int8 (an `act_scale` installed by Engine.calibrate over an int8
+weight) quantizes the activation and takes the exact s8 x s8 -> s32
+product of kernels/matmul.matmul_s8s8 with the dequant / bias /
+activation epilogue (ops/conv.int8_epilogue). The JAX package chooses
+between two exact paths there, its Pallas kernel for
+min(M, K, N) >= 256 with use_pallas and XLA's s32 einsum below; the
+port has one exact path on the card: every static-int8 product goes to
+matmul_s8s8 with kernels on, to its plain version with kernels off.
 """
 from __future__ import annotations
 
@@ -20,7 +28,9 @@ import torch
 
 from ..ir.graph import PARAM_BOOL, PARAM_INT
 from ..kernels import matmul as kmm
-from ..quant.tensor import Quantized4Tensor, QuantizedTensor, resolve_weight
+from ..quant.tensor import (Quantized4Tensor, QuantizedTensor, quantize_act,
+                            resolve_weight)
+from .conv import int8_epilogue
 from .registry import OpImpl, register_op, require_attr, require_param
 
 
@@ -33,6 +43,23 @@ def linear(x, w, bias=None, activation=None):
     if activation is not None:
         out = kmm.resolve_activation(activation)(out)
     return out.to(x.dtype)
+
+
+def _linear_act_fold(op):
+    """(act_axis, weight_ic_axis) for per-channel activation scales
+    (OpImpl.act_fold). The contracted dim is the logical last dim; for
+    rank-4 inputs the physical layout is NHWC of the logical NCHW shape
+    (ops/shape.py), so logical dim 3 sits at physical axis 2. Unknown
+    ranks get no per-channel support (per-tensor fallback)."""
+    shape = op.inputs[0].shape if op.inputs else None
+    if not shape:
+        return None
+    rank = len(shape)
+    if rank == 4:
+        return (2, 0)
+    if rank in (2, 3):
+        return (-1, 0)
+    return None
 
 
 @register_op("nn.Linear")
@@ -60,10 +87,17 @@ def lower_linear(op, cfg):
         if phys4:
             x = x.permute(0, 3, 1, 2)
         w, bias = weights["weight"], weights.get("bias")
-        if "act_scale" in weights:
-            raise NotImplementedError(
-                f"Linear {op.name}: static int8 is not ported yet")
+        act_scale = weights.get("act_scale")
         lead = x.shape[:-1]
+        if act_scale is not None and isinstance(w, QuantizedTensor):
+            # the JAX package's gate min(M, K, N) >= 256 chose its Pallas
+            # kernel over XLA's s32 einsum; both are this exact product
+            q = quantize_act(x, act_scale).reshape(-1, in_features)
+            q = q.contiguous()
+            out = int8_epilogue(q, w.data, act_scale, w.scale, bias,
+                                fused_act, x.dtype, use_kernels=use_kernels)
+            out = out.reshape(*lead, out_features)
+            return out.permute(0, 2, 3, 1).contiguous() if phys4 else out
         if use_kernels and isinstance(
                 w, (QuantizedTensor, Quantized4Tensor)):
             x2 = x.reshape(-1, in_features).contiguous()
@@ -80,4 +114,7 @@ def lower_linear(op, cfg):
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"weight": 1},  # [in, out]: out channels on axis 1
+        fp32_keys=("act_scale",),
+        act_quant=True,
+        act_fold=_linear_act_fold(op),
     )

@@ -34,6 +34,22 @@ class OpImpl:
     # weights to a lower compute dtype (e.g. YOLO grids: box coordinates
     # lose pixels in bf16)
     fp32_keys: tuple = ()
+    # op can consume int8-quantized activations (static quant): the
+    # calibration observer (quant/calibrate.py) records its input
+    # activation range, and Engine.calibrate installs an `act_scale`
+    # weight entry that switches apply onto the s8 path
+    act_quant: bool = False
+    # int8-chain producer: name of the consumer op whose calibrated
+    # act_scale this op requantizes its output to (Engine.calibrate
+    # installs `out_scale` from it); None = not a chain producer
+    q_out_consumer: Optional[str] = None
+    # per-CHANNEL activation quantization (EngineConfig.act_per_channel):
+    # (act_axis, weight_ic_axis) — the channel axis of the physical
+    # activation the observer sees, and the weight axis the per-channel
+    # scales fold into at install (engine._install_act_scales), so the
+    # s8 epilogue dequant stays one per-OUT-channel vector. None =
+    # per-tensor scales only.
+    act_fold: Optional[tuple] = None
     # head geometry of attention ops, read by zoo/generate.CachedDecoder
     decode_info: Optional[dict] = None
 

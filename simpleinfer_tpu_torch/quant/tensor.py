@@ -1,11 +1,14 @@
-"""Weight-only quantization containers: int8 and group-wise int4.
+"""Quantization containers: int8 and group-wise int4 weights, int8
+activations.
 
 The counterpart of simpleinfer_tpu/quant/tensor.py: weights are held as
 an int8 tensor plus a per-output-channel fp32 scale (`QuantizedTensor`),
 or as nibble-packed int4 plus per-(K-group, column) fp32 scales
-(`Quantized4Tensor`, the LLM decode serving dtype). Quantization itself
-stays in numpy, with the same arithmetic as the JAX package, so the
-bytes and scales come out equal to the JAX package's. Dequantization
+(`Quantized4Tensor`, the LLM decode serving dtype). Static int8
+quantizes activations with `quantize_act`; a chained producer hands its
+consumer a `QuantizedActivation`. Weight quantization stays in numpy,
+with the same arithmetic as the JAX package, so the bytes and scales
+come out equal to the JAX package's. Dequantization
 happens either in the plain path (`resolve_weight`) or inside the CUDA
 matmul kernels (kernels/matmul.py).
 """
@@ -138,6 +141,39 @@ def quantize_int4_grouped(w, group: int = 256) -> Quantized4Tensor:
         packed=torch.from_numpy(np.ascontiguousarray(
             packed.reshape(kp // 2, n))),
         scale=torch.from_numpy(scale), group=group, k=k)
+
+
+@dataclass
+class QuantizedActivation:
+    """An int8 activation flowing between chained static-int8 convs
+    (ir/passes.mark_int8_chains): the producer requantized its f32
+    epilogue result to the consumer's calibrated scale and wrote 1-byte
+    data, and the consumer skips its quantize pass."""
+
+    data: torch.Tensor   # int8
+    scale: torch.Tensor  # f32 scalar (the consumer's act_scale)
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def ndim(self):
+        return self.data.ndim
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.data.float() * self.scale).to(dtype)
+
+
+def quantize_act(x, scale) -> torch.Tensor:
+    """Symmetric int8 quantization of an activation: `scale` is an f32
+    scalar (per-tensor) or a vector broadcasting over the channel (last)
+    axis (per-channel; the matching factor is folded into the weight).
+    Values beyond ±127·scale saturate. Computed as the JAX package does,
+    x in f32 times the f32 reciprocal, rounded half to even, so the
+    bytes come out equal."""
+    q = torch.round(x.float() * (1.0 / scale))
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
 def resolve_weight(w, dtype=torch.float32) -> torch.Tensor:

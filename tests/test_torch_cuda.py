@@ -9,7 +9,10 @@ jax nor the JAX package, so they run where only PyTorch is installed:
 Tolerances as in chip_smoke.py: 1e-4 x max(1, max|ref|) for the kernel
 against its plain version (f32 sums in another order), plus one bf16
 ulp (2^-7 relative) for a bf16 output; fp32 Engine on the card against
-the CPU within 1e-4 x scale + 1e-4 x |ref|.
+the CPU within 1e-4 x scale + 1e-4 x |ref|. c3_block: 1e-5 x max(1,
+|ref|) elementwise in f32 with fp taps; with bf16 or s8 taps max 0.05 x
+scale and mean 5e-4 x scale (an intermediate within rounding of a bf16
+or int8 step takes the next step on one side: chip_smoke.C3_MAX_TOL).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 from simpleinfer_tpu_torch import Engine, EngineConfig
 from simpleinfer_tpu_torch.engine import fp32_parity
 from simpleinfer_tpu_torch.kernels import attention as kattn
+from simpleinfer_tpu_torch.kernels import c3block as kc3
 from simpleinfer_tpu_torch.kernels import decode_attn as kdec
 from simpleinfer_tpu_torch.kernels import matmul as tmm
 from simpleinfer_tpu_torch.quant.tensor import (quantize_int4_grouped,
@@ -192,3 +196,71 @@ def test_llama_int4w_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-4 * scale,
                                rtol=1e-4)
     np.testing.assert_array_equal(toks["cuda"], toks["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SHAPES + [(300, 1152, 200)])
+def test_s8s8_kernel_matches_plain_on_card(cuda, m, k, n):
+    """matmul_s8s8: the s32 sum exact (unit scale, f32 out), then the
+    epilogue with vector and scalar scales, bias, SiLU, bf16 out."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    before = tmm.launches_s8s8
+    got = tmm.matmul_s8s8(xq, wq, torch.ones(n, device=cuda),
+                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, (xq.double() @ wq.double()).float())
+    b = torch.randn(n, generator=gen, device=cuda)
+    for scale, bias, act in ((torch.rand(n, generator=gen, device=cuda)
+                              * 1e-3, b, "silu"),
+                             (torch.tensor(1e-3), None, None)):
+        got = tmm.matmul_s8s8(xq, wq, scale, bias, act)
+        torch.cuda.synchronize()
+        _assert_close(got, tmm.matmul_s8s8_ref(xq, wq, scale, bias, act))
+    assert tmm.launches_s8s8 - before == 3
+
+
+def _c3_case(cuda, n, h, w, c, hid, oc, t, s8, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n * h + w + c + hid)
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device=cuda) * 0.2
+
+    ws = [r(c, hid), r(hid), r(c, hid), r(hid), r(hid, oc), r(hid, oc),
+          r(oc), r(t, hid, hid), r(t, hid), r(t, 9, hid, hid), r(t, hid)]
+    scale = None
+    if s8:
+        wq, wsc = kc3.quantize_taps(ws[9].cpu().numpy())
+        ws[9], scale = (torch.from_numpy(wq).to(cuda),
+                        torch.from_numpy(wsc).to(cuda))
+    return r(n, h, w, c).to(dtype), ws, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,hid,oc,t,shortcut", [
+    (2, 9, 7, 16, 8, 16, 2, True), (2, 32, 24, 16, 8, 16, 2, False),
+    (3, 20, 20, 64, 72, 48, 1, False), (1, 16, 16, 128, 64, 128, 3, True)])
+@pytest.mark.parametrize("s8", [False, True], ids=["fp", "s8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c3_kernel_matches_plain_on_card(cuda, n, h, w, c, hid, oc, t,
+                                         shortcut, s8, dtype):
+    x, ws, scale = _c3_case(cuda, n, h, w, c, hid, oc, t, s8, dtype)
+    before = kc3.launches
+    with fp32_parity(True):
+        got = kc3.c3_block(x, *ws, btl_b_scale=scale, shortcut=shortcut)
+        torch.cuda.synchronize()
+        ref = kc3.c3_block_reference(x, *ws, btl_b_scale=scale,
+                                     shortcut=shortcut)
+    assert kc3.launches - before == 1 and got.dtype == ref.dtype
+    got, ref = got.float().cpu(), ref.float().cpu()
+    d = (got - ref).abs()
+    scale_ = max(1.0, float(ref.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32 and not s8:
+        assert bool((d <= 1e-5 * scale_).all()), float(d.max())
+    else:
+        assert float(d.max()) <= 0.05 * scale_, float(d.max())
+        assert float(d.mean()) <= 5e-4 * scale_, float(d.mean())

@@ -199,9 +199,12 @@ def test_engine_states():
 
 
 def test_config_rejects_unported():
+    """Static int8 and the C3 collapse are ported now (they construct);
+    what no package supports still raises."""
     for kw in (dict(quant="int8"), dict(c3_fusion=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            EngineConfig(device="cpu", **kw)
+        EngineConfig(device="cpu", **kw)
+    with pytest.raises(ValueError, match="quant"):
+        EngineConfig(device="cpu", quant="int4")
     with pytest.raises(ValueError):
         EngineConfig(device="cpu", compute_dtype="float16")
     with pytest.raises(ValueError, match="int4_group"):
