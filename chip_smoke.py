@@ -51,7 +51,28 @@ Phases, each printing JSON lines:
 8. fp32 int4w llama (2 layers, window 256) on the card: logits against
    a float64 numpy reference of the same int4 model (`llama_ref64`),
    the forward rerun bit-equal, and greedy tokens through the decode
-   kernel equal to the port's on the CPU.
+   kernel equal to the port's on the CPU;
+9. `conv_kernels`: conv3x3_s1_same and stem_s2d, which no op dispatches
+   (in the JAX package either), driven through their own entry points
+   at the main shapes with the counts set to 0 just before: every
+   distinct 3x3 s1 p1 conv of the fused ResNet-50-224-b128 (relu) and
+   YOLOv5s-640-b8 (silu) graphs on their own folded weights, x bf16,
+   and the stem at N 8 and 1 with the YOLOv5s (OC 32) and yolov5l (OC
+   64) folded stem weights on a seeded image; each against its plain
+   version there and (conv3x3) at ragged shapes, x bf16 and f32, every
+   activation, with and without bias; times beside plain, library
+   (F.conv2d, channels-last bf16, + bias + activation) and bound;
+10. `resnet_int8`, this slice's main path: ResNet-50-224-b128 (torchvision
+   widths and depths, 25.6 M parameters) bf16 static int8 per-tensor,
+   calibrated by Engine.calibrate on 2 seeded batches (wall time
+   printed); launches of matmul_int8w (33 pointwise s1 convs) and
+   matmul_s8s8 (13 3x3 convs with ic >= 128 and the fc) per forward
+   with the counts set to 0 just before; both kernels against their
+   plain versions at every call of a forward; their times; forwards on,
+   off, on; a profile; logits on vs off within limits set between the
+   sound reading and a fault's (scripts/torch_onoff_control.py
+   --resnet), top-1 agreement reported; classify_images top-5 of 8
+   seeded 256x320 images; fp32 ResNet-18 on the card vs the CPU port.
 
 The line before the last two is the card's nvidia-smi name and power
 limit, then {"kernels": [...]}, then {"ok": true, "device": {...}}. Any
@@ -81,7 +102,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # every kernel source of the port, built in phase 1
 SOURCES = ("matmul.cu", "matmul_int4w.cu", "flash_attention.cu",
-           "decode_attention.cu", "matmul_s8s8.cu", "c3block.cu")
+           "decode_attention.cu", "matmul_s8s8.cu", "c3block.cu",
+           "conv3x3.cu", "stem.cu")
 
 # YOLOv5s pointwise convs that reach matmul_int8w per forward (the other
 # 17 pointwise convs are cat-split sums)
@@ -660,7 +682,8 @@ def c3_close(got, ref, elementwise: bool):
     return float(d.max()), float(d.mean()), scale, ok and finite
 
 
-def int8_kernel_checks(device, rec=None, seed=11) -> dict:
+def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
+                       phase="int8_kernel_vs_plain") -> dict:
     """The int8 path's kernels against their plain versions on `device`:
     matmul_s8s8 and c3_block at ragged shapes (matmul: every dim off the
     tiles, f32 and bf16 out, scalar and vector scales; c3: fp and s8
@@ -669,7 +692,7 @@ def int8_kernel_checks(device, rec=None, seed=11) -> dict:
     must agree to f32 rounding), then every call the main path recorded
     (`rec`) to matmul_s8s8, matmul_int8w and c3_block, with its own
     inputs. Returns the largest max-abs error of each kernel at the main
-    path's calls."""
+    path's calls. ragged=False checks the recorded calls only."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import c3block as kc3
@@ -700,7 +723,7 @@ def int8_kernel_checks(device, rec=None, seed=11) -> dict:
         if main:
             worst[name] = max(worst[name], err)
 
-    for (m, k, n) in RAGGED_SHAPES + [(300, 1152, 200)]:
+    for (m, k, n) in (RAGGED_SHAPES + [(300, 1152, 200)]) * ragged:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=device,
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (k, n), generator=gen, device=device,
@@ -713,7 +736,7 @@ def int8_kernel_checks(device, rec=None, seed=11) -> dict:
                 check_mm("matmul_s8s8", (xq, wq, scale, bias, act),
                          {"out_dtype": od}, [m, k, n, str(od)[6:], act],
                          False)
-    for (n, h, w, c, hid, oc, t, sc_) in C3_RAGGED:
+    for (n, h, w, c, hid, oc, t, sc_) in C3_RAGGED * ragged:
         for dt in (torch.float32, torch.bfloat16):
             for s8 in (False, True):
                 x, ws, scale = _c3_args(gen, device, n, h, w, c, hid, oc, t,
@@ -729,8 +752,8 @@ def int8_kernel_checks(device, rec=None, seed=11) -> dict:
                     failures.append(dict(kernel="c3_block", case=[
                         n, h, w, c, hid, oc, t, sc_, str(dt)[6:], s8],
                         max_abs_err=err, mean_abs_err=mean, scale=scl))
-    for (n, h, w, c, hid, oc) in ((2, 9, 7, 16, 8, 16), (3, 12, 11, 32, 64,
-                                                         24)):
+    for (n, h, w, c, hid, oc) in ((2, 9, 7, 16, 8, 16),
+                                  (3, 12, 11, 32, 64, 24)) * ragged:
         for s8 in (False, True):
             x, ws, scale = _c3_args(gen, device, n, h, w, c, hid, oc, 1, s8,
                                     torch.float32, grid=True)
@@ -767,7 +790,7 @@ def int8_kernel_checks(device, rec=None, seed=11) -> dict:
                     *args[0].shape, kw.get("btl_b_scale") is not None],
                     max_abs_err=err, mean_abs_err=mean, scale=scl))
             del got, ref
-    emit({"phase": "int8_kernel_vs_plain", "checks": n_checks,
+    emit({"phase": phase, "checks": n_checks,
           "failures": failures[:10], "n_failures": len(failures),
           "matmul_tol": f"{KERNEL_ATOL}*max(1,|ref|) + bf16 ulp",
           "main_calls": {k: len(v) for k, v in (rec.calls.items()
@@ -789,7 +812,8 @@ def c3_flops(n, h, w, c, hid, oc, t) -> tuple:
             2 * px * 9 * t * hid * hid)
 
 
-def time_int8_kernels(device, rec, iters=5) -> dict:
+def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
+                      tag="") -> dict:
     """Each kernel at every call one forward recorded, on that call's
     inputs: kernel, plain version and library call ms (CUDA events, L2
     flushed before each launch) beside the bound, summed per forward.
@@ -801,7 +825,10 @@ def time_int8_kernels(device, rec, iters=5) -> dict:
     c3_block reads x and its weights and writes its output, against its
     1x1 FLOPs at the bf16 (or f32) peak plus its 3x3 ops at the int8
     peak with s8 taps. Then the fused blocks below c3_profitable, which
-    run the plain version: their count and ms per forward."""
+    run the plain version: their count and ms per forward.
+    `s8s8_in_bytes`, one per recorded matmul_s8s8 call, replaces the
+    3x3-stride-2 estimate of the conv's own input bytes; `tag` prefixes
+    the phase names; the C3 parts run where the recorder has them."""
     import torch
     from simpleinfer_tpu_torch.kernels import c3block as kc3
     from simpleinfer_tpu_torch.kernels import matmul as kmm
@@ -812,14 +839,15 @@ def time_int8_kernels(device, rec, iters=5) -> dict:
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes_ms=0.0, ops_ms=0.0, launches=0)
     lib_err = None
-    for args, kw in rec.calls["matmul_s8s8"]:
+    for i, (args, kw) in enumerate(rec.calls["matmul_s8s8"]):
         xq, wq = args[0], args[1]
         m, k = xq.shape
         n = wq.shape[1]
         od = kw.get("out_dtype", torch.bfloat16)
-        # the conv's own int8 input, not its im2col copy: the main
+        # the conv's own int8 input, not its im2col copy: the yolov5l
         # path's calls are 3x3 stride-2 convs, K = 9 IC, N*H*W = 4 M
-        in_bytes = 4 * m * (k // 9)
+        in_bytes = (s8s8_in_bytes[i] if s8s8_in_bytes is not None
+                    else 4 * m * (k // 9))
         nbytes = in_bytes + k * n + n * 4 + n * 2 + m * n * od.itemsize
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_o = 2.0 * m * n * k / INT8_PEAK_OPS * 1e3
@@ -851,7 +879,7 @@ def time_int8_kernels(device, rec, iters=5) -> dict:
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
         else "operations"
     out["matmul_s8s8"] = tot
-    emit({"phase": "kernel_time_s8s8", "unit": "one forward", **tot,
+    emit({"phase": f"{tag}kernel_time_s8s8", "unit": "one forward", **tot,
           "library": "torch._int_mm (s32 out, no epilogue)",
           "library_error": lib_err, "calls": rows})
 
@@ -889,8 +917,11 @@ def time_int8_kernels(device, rec, iters=5) -> dict:
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
         else "operations"
     out["matmul_int8w"] = tot
-    emit({"phase": "kernel_time_int8w_int8_path", "unit": "one forward",
-          **tot, "library": "torch.addmm (no activation)", "calls": rows})
+    emit({"phase": f"{tag}kernel_time_int8w_int8_path",
+          "unit": "one forward", **tot,
+          "library": "torch.addmm (no activation)", "calls": rows})
+    if "c3_block" not in rec.calls:
+        return out
 
     c3 = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
               bytes_ms=0.0, ops_ms=0.0, launches=0)
@@ -1131,6 +1162,525 @@ def yolo_int8_rehearsal(device, image=64, batch=2) -> dict:
         int8_kernel_checks(device, run["recorder"])
     finally:
         kc3.C3_MIN_WORK = prev
+    return run["res"]
+
+
+# ---- conv3x3_s1_same and stem_s2d ---------------------------------------
+# no op dispatches either kernel (nor its Pallas original in the JAX
+# package): the phase drives each through its own entry point at the
+# shapes of the models the port runs
+CONV_MODELS = (("resnet50", dict(batch=128, image_size=224), "relu"),
+               ("yolov5s", dict(variant="s", batch=8, image_size=640),
+                "silu"))
+# (n, h, w, c, oc): H x W of 1x1, 5x7 and 3x33; C and OC off 8 and 64
+CONV_RAGGED = [(2, 1, 1, 3, 5), (2, 5, 7, 13, 17), (1, 3, 33, 70, 131),
+               (3, 5, 7, 129, 66)]
+# (N, variant): the stem at the YOLOv5s-640 (OC 32) and yolov5l-640
+# (OC 64) widths
+STEM_CASES = ((8, "s"), (1, "s"), (8, "l"), (1, "l"))
+
+
+def spatial_sizes(graph) -> dict:
+    """(H, W) of every operand up to the head of a CNN graph, from the
+    input's declared shape through convs, pools and upsamples (other ops
+    keep their first input's size)."""
+    hw = {}
+    for op in graph.ops:
+        p = {k: v.value for k, v in op.params.items()}
+        if op.type == "pnnx.Input":
+            hw[op.outputs[0].name] = tuple(op.outputs[0].shape[2:4])
+            continue
+        if not op.inputs or op.inputs[0].name not in hw:
+            continue
+        h, w = hw[op.inputs[0].name]
+        if op.type in ("nn.Conv2d", "nn.MaxPool2d"):
+            (kh, kw), (sh, sw) = p["kernel_size"], p["stride"]
+            (ph, pw), (dh, dw) = p["padding"], p.get("dilation", [1, 1])
+            h = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+            w = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        elif op.type == "nn.Upsample":
+            h, w = int(h * p["scale_factor"][0]), int(w * p["scale_factor"][1])
+        for r in op.outputs:
+            hw[r.name] = (h, w)
+    return hw
+
+
+def fused_graph(name, kw):
+    """A zoo graph after the port's load-time fusions (conv+bn folded,
+    activations tagged), without loading it into an engine."""
+    from simpleinfer_tpu_torch.config import EngineConfig
+    from simpleinfer_tpu_torch.ir.expression import expand_expression
+    from simpleinfer_tpu_torch.ir.passes import run_inference_fusions
+    from simpleinfer_tpu_torch import zoo
+
+    build = zoo.build_resnet50 if name == "resnet50" else zoo.build_yolov5
+    graph = build(**kw)[0]
+    expand_expression(graph)
+    run_inference_fusions(graph, EngineConfig(device="cpu"))
+    return graph
+
+
+def conv3x3_main_convs(models=CONV_MODELS) -> list:
+    """Every distinct (model, N, H, W, C, OC, activation) of a 3x3 stride-1
+    pad-1 ungrouped zero-padded conv in the fused graphs, with the folded
+    fp32 HWIO weight and bias of its first conv."""
+    out, seen = [], set()
+    for name, kw, want_act in models:
+        graph = fused_graph(name, kw)
+        hw = spatial_sizes(graph)
+        for op in graph.ops:
+            p = {k: v.value for k, v in op.params.items()}
+            if (op.type != "nn.Conv2d" or len(op.inputs) != 1
+                    or p["kernel_size"] != [3, 3] or p["stride"] != [1, 1]
+                    or p["padding"] != [1, 1] or p["dilation"] != [1, 1]
+                    or p["groups"] != 1 or p["padding_mode"] != "zeros"):
+                continue
+            act = p.get("si_fused_act")
+            h, w = hw[op.inputs[0].name]
+            key = (name, kw["batch"], h, w, p["in_channels"],
+                   p["out_channels"], act)
+            if key in seen:
+                continue
+            if act != want_act:
+                raise AssertionError(f"{name} {op.name}: activation {act}")
+            seen.add(key)
+            w_hwio = np.ascontiguousarray(
+                op.attrs["weight"].array().transpose(2, 3, 1, 0))
+            out.append((*key, w_hwio, op.attrs["bias"].array()))
+    return out
+
+
+def stem_weights(variant):
+    """The folded stem conv (OIHW [OC, 3, 6, 6], bias, activation) of a
+    fused YOLOv5-640 graph."""
+    graph = fused_graph("yolov5", dict(variant=variant, batch=1,
+                                       image_size=640))
+    op = next(o for o in graph.ops if o.type == "nn.Conv2d")
+    return (op.attrs["weight"].array(), op.attrs["bias"].array(),
+            op.params["si_fused_act"].value)
+
+
+def conv_bound(nbytes, flops) -> tuple:
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def conv_kernels_phase(device, convs=None, stem_cases=STEM_CASES,
+                       seed=21) -> dict:
+    """conv3x3_s1_same and stem_s2d through their own entry points at the
+    main shapes (counts set to 0 just before, read just after), then
+    each against its plain version there and (conv3x3) at ragged shapes,
+    then their times beside plain, library and bound on a card. Returns
+    the two entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.kernels import conv3x3 as kc
+    from simpleinfer_tpu_torch.kernels import stem as ks
+    from simpleinfer_tpu_torch.kernels.matmul import resolve_activation
+
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
+        lambda: None)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    convs = conv3x3_main_convs() if convs is None else convs
+    # (args of the entry point, case): x bf16, w, bias, activation
+    conv_in = [((torch.randn(n, h, w, c, generator=gen, device=device)
+                 .to(torch.bfloat16), torch.from_numpy(w_hwio).to(device),
+                 torch.from_numpy(bias).to(device), act),
+                [model, n, h, w, c, oc, act])
+               for (model, n, h, w, c, oc, act, w_hwio, bias) in convs]
+    rng = np.random.default_rng(seed)
+    stems, stem_in = {}, []
+    for n, variant in stem_cases:
+        if variant not in stems:
+            stems[variant] = stem_weights(variant)
+        w_oihw, bias, act = stems[variant]
+        img = rng.integers(0, 256, (n, 640, 640, 3), dtype=np.uint8)
+        x_img = img.astype(np.float32) / 255
+        args = (torch.from_numpy(ks.pack_stem_input(x_img)).to(
+                    device, torch.bfloat16),
+                torch.from_numpy(ks.pack_stem_weights(w_oihw)).to(device),
+                torch.from_numpy(bias).to(device), act)
+        stem_in.append((args, [n, w_oihw.shape[0], act], x_img, w_oihw))
+
+    # the path: each kernel through its entry point at the main shapes
+    kc.launches = ks.launches = 0
+    conv_out = [kc.conv3x3_s1_same(*args) for args, _ in conv_in]
+    stem_out = [ks.stem_s2d(*args) for args, _, _, _ in stem_in]
+    sync()
+    launches = {"conv3x3_s1_same": kc.launches, "stem_s2d": ks.launches}
+    if cuda and launches != {"conv3x3_s1_same": len(conv_in),
+                             "stem_s2d": len(stem_in)}:
+        raise AssertionError(f"conv kernel launches {launches}, expected "
+                             f"{len(conv_in)} and {len(stem_in)}")
+
+    failures, n_checks = [], 0
+    worst = {"conv3x3_s1_same": 0.0, "stem_s2d": 0.0}
+
+    def check(name, got, ref, case, main):
+        nonlocal n_checks
+        err, ok = _close(got, ref)
+        n_checks += 1
+        if not ok:
+            failures.append(dict(kernel=name, case=case, max_abs_err=err))
+        if main:
+            worst[name] = max(worst[name], err)
+
+    with fp32_parity(True):   # no TF32 in the plain versions' convs
+        for (args, case), got in zip(conv_in, conv_out):
+            check("conv3x3_s1_same", got, kc.conv3x3_s1_same_ref(*args),
+                  case, True)
+        for (n, h, w, c, oc) in CONV_RAGGED:
+            for x_dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(n, h, w, c, generator=gen,
+                                device=device).to(x_dtype)
+                wt = torch.randn(3, 3, c, oc, generator=gen,
+                                 device=device) / math.sqrt(9 * c)
+                bias = 0.1 * torch.randn(oc, generator=gen, device=device)
+                for act in ACTIVATIONS:
+                    for b in (bias, None):
+                        got = kc.conv3x3_s1_same(x, wt, b, act)
+                        sync()
+                        check("conv3x3_s1_same", got,
+                              kc.conv3x3_s1_same_ref(x, wt, b, act),
+                              [n, h, w, c, oc, str(x_dtype)[6:], act,
+                               b is not None], False)
+        for (args, case, _, _), got in zip(stem_in, stem_out):
+            check("stem_s2d", got, ks.stem_s2d_ref(*args), case, True)
+            got = ks.stem_s2d(*args[:3])
+            sync()
+            check("stem_s2d", got, ks.stem_s2d_ref(*args[:3]),
+                  case[:2] + [None], False)
+    emit({"phase": "conv_kernel_vs_plain", "checks": n_checks,
+          "failures": failures[:10], "n_failures": len(failures),
+          "atol": f"{KERNEL_ATOL}*max(1,|ref|)",
+          "bf16_out_rtol": KERNEL_BF16_RTOL,
+          "main_shapes": {"conv3x3_s1_same": [c for _, c in conv_in],
+                          "stem_s2d": [s[1] for s in stem_in]},
+          "launches": launches, "max_abs_err_main": worst})
+    if failures:
+        raise AssertionError(f"{len(failures)} conv kernel-vs-plain "
+                             f"mismatches")
+    entries = {
+        name: {"name": name, "route": "cuda",
+               "source": f"simpleinfer_tpu_torch/csrc/{src}",
+               "replaces": repl, "launches": launches[name],
+               "max_abs_err": worst[name]}
+        for name, src, repl in (
+            ("conv3x3_s1_same", "conv3x3.cu",
+             "simpleinfer_tpu/kernels/conv3x3.py:118"),
+            ("stem_s2d", "stem.cu", "simpleinfer_tpu/kernels/stem.py:141"))}
+    if not cuda:
+        return entries
+
+    # times, each main shape once (the unit of the kernels line: one
+    # launch per main shape, summed). Library: F.conv2d on the
+    # channels-last bf16 tensor (the stem's on the unpacked image, pad 2)
+    # + bias + activation
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0) for k in entries}
+    rows = []
+
+    def timed(name, case, kern, plain, lib_x, lib_w, lib_b, act, stride,
+              pad, nbytes, flops):
+        fa = resolve_activation(act)
+        w_lib, b_lib = lib_w.to(torch.bfloat16), lib_b.to(torch.bfloat16)
+        bd, by = conv_bound(nbytes, flops)
+        t = {"ms": _time_ms(device, kern, flush=flush),
+             "plain_ms": _time_ms(device, plain, flush=flush),
+             "library_ms": _time_ms(device, lambda: fa(F.conv2d(
+                 lib_x.permute(0, 3, 1, 2), w_lib, b_lib, stride=stride,
+                 padding=pad)), flush=flush),
+             "bound_ms": bd}
+        rows.append({"kernel": name, "case": case, **t, "bound_by": by})
+        for k, v in t.items():
+            tot[name][k] += v
+        tot[name]["bytes_ms" if by == "bytes" else "ops_ms"] += bd
+
+    for args, case in conv_in:
+        x, w, b, act = args
+        n, h, wd, c = x.shape
+        oc = w.shape[3]
+        timed("conv3x3_s1_same", case, lambda: kc.conv3x3_s1_same(*args),
+              lambda: kc.conv3x3_s1_same_ref(*args), x,
+              w.permute(3, 2, 0, 1).contiguous(), b, act, 1, 1,
+              2 * n * h * wd * (c + oc) + 18 * c * oc + 4 * oc,
+              2.0 * n * h * wd * 9 * c * oc)
+    for args, case, x_img, w_oihw in stem_in:
+        xp, wp, b, act = args
+        n, oc = case[:2]
+        timed("stem_s2d", case, lambda: ks.stem_s2d(*args),
+              lambda: ks.stem_s2d_ref(*args),
+              torch.from_numpy(x_img).to(device, torch.bfloat16),
+              torch.from_numpy(w_oihw).to(device), b, act, 2, 2,
+              xp.numel() * 2 + wp.numel() * 2 + 4 * oc
+              + n * 320 * 320 * oc * 2, 2.0 * n * 320 * 320 * 108 * oc)
+    for name, t in tot.items():
+        by = "bytes" if t.pop("bytes_ms") >= t.pop("ops_ms") else \
+            "operations"
+        entries[name].update(t, bound_by=by)
+    emit({"phase": "conv_kernel_time", "unit": "one launch per main shape",
+          "library": "F.conv2d on the channels-last bf16 tensor (for the "
+          "stem the unpacked image, pad 2) + bias + activation",
+          "rows": rows, "per_unit": {k: {kk: v for kk, v in e.items()
+                                         if kk.endswith("ms")}
+                                     for k, e in entries.items()}})
+    return entries
+
+
+# ---- ResNet-50 static int8: the CNN classification path ------------------
+# ResNet-50-224-b128 (torchvision's widths and depths, 25.6 M parameters,
+# nothing cut), bf16, quant="int8" per-tensor. Per forward, by the gates
+# of ops/conv.py: the 33 pointwise stride-1 convs are outside the int8
+# gate (kernel_area 1) and run weight-only through matmul_int8w; the 13
+# 3x3 convs with ic >= 128 (10 stride 1, 3 stride 2) and the fc
+# (nn.Linear, every static-int8 product) reach matmul_s8s8; the stem,
+# stage 1's 3x3s (ic 64) and the 3 strided downsample 1x1s run cuDNN
+RESNET = dict(batch=128, image_size=224, num_classes=1000, seed=0)
+RESNET_INT8W_CONVS = 33
+RESNET_S8S8_CALLS = 14
+RESNET_CALIB_BATCHES = 2
+# kernels on vs off (off: matmul_s8s8_ref and cuDNN), the logits over
+# their scale max(1, max|off|): (max, mean) limits between the sound
+# reading and the fault stand-in's (scripts/torch_onoff_control.py
+# --resnet; PERF.md)
+RESNET_ONOFF_TOL = (0.05, 0.01)
+RESNET_CLASSIFY_IMAGES = 8
+
+
+def resnet_engine(device, use_kernels, batch=RESNET["batch"],
+                  image=RESNET["image_size"], compute="bfloat16",
+                  quant="int8", **build_kw):
+    """ResNet-50 (seeded random weights) in an Engine on `device`;
+    (engine, input name, output name)."""
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_resnet50
+
+    kw = {**RESNET, "batch": batch, "image_size": image, **build_kw}
+    graph, in_name, out_name = build_resnet50(**kw)
+    eng = Engine(EngineConfig(compute_dtype=compute, quant=quant,
+                              device=str(device), use_kernels=use_kernels))
+    eng.load_model(None, graph=graph)
+    return eng, in_name, out_name
+
+
+def resnet_onoff(off, out_name, feeds, outs) -> dict:
+    """Kernels-on logits `outs` against `off` on the same feeds: max and
+    mean |diff| over max(1, max|off|), and top-1 agreement (reported,
+    not gated: random weights leave near-ties)."""
+    worst, agree, rows = [0.0, 0.0], 0, 0
+    for f, got in zip(feeds, outs):
+        want = off.run(f)[out_name]
+        scale = max(1.0, float(np.abs(want).max()))
+        d = np.abs(got - want)
+        worst = [max(worst[0], float(d.max()) / scale),
+                 max(worst[1], float(d.mean()) / scale)]
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        rows += got.shape[0]
+    return {"max_abs_over_scale": worst[0], "mean_abs_over_scale": worst[1],
+            "top1_agreement": agree / rows, "tol": list(RESNET_ONOFF_TOL)}
+
+
+def check_resnet_onoff(r) -> None:
+    if (r["max_abs_over_scale"] > RESNET_ONOFF_TOL[0]
+            or r["mean_abs_over_scale"] > RESNET_ONOFF_TOL[1]):
+        raise AssertionError(f"resnet int8 kernels on vs off: {r}")
+
+
+def resnet_main_path(device, engines, n_forwards=2, calib_batches=None,
+                     seed=9) -> dict:
+    """The slice's main path on `engines` = (kernels on, kernels off,
+    input name, output name): calibrate the kernels-on engine on seeded
+    batches (wall time reported), install the same scales in the other,
+    record one forward's kernel calls, then `n_forwards` forwards with
+    the launch counts set to 0 just before and read just after; logits
+    (finite, shape) against the kernels-off engine's."""
+    import tempfile
+
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.ops import conv as tconv
+    from simpleinfer_tpu_torch.quant.tensor import QuantizedActivation
+
+    on, off, in_name, out_name = engines
+    batch, image = on.program.inputs[0].shape[:2]
+    rng = np.random.default_rng(seed)
+
+    def feed():     # ImageNet-normalized scale
+        return {in_name: rng.standard_normal(
+            (batch, image, image, 3), dtype=np.float32)}
+
+    calib = [feed() for _ in range(calib_batches or RESNET_CALIB_BATCHES)]
+    t0 = time.perf_counter()
+    scales = on.calibrate(calib)
+    on.synchronize()
+    calib_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "calib.npz")
+        on.save_calibration(path)
+        off.load_calibration(path)
+    feeds = [feed() for _ in range(n_forwards)]
+
+    def conv_in_bytes(x, *a, **kw):     # the int8 conv's own input
+        t = x.data if isinstance(x, QuantizedActivation) else x
+        return int(t.numel())
+    with Recorder({"matmul_s8s8": kmm, "matmul_int8w": kmm}) as rec, \
+            Recorder({"conv2d_int8_static": tconv},
+                     keep={"conv2d_int8_static": conv_in_bytes}) as crec:
+        on.run(feeds[0])
+    kmm.launches = kmm.launches_s8s8 = 0
+    outs = [on.run(f)[out_name] for f in feeds]
+    launches = {"matmul_int8w": kmm.launches,
+                "matmul_s8s8": kmm.launches_s8s8}
+    if any(o.shape != (batch, RESNET["num_classes"])
+           or not np.isfinite(o).all() for o in outs):
+        raise AssertionError(f"resnet outputs {[o.shape for o in outs]}")
+    conv_bytes = crec.calls["conv2d_int8_static"]
+    in_bytes = conv_bytes + [int(args[0].numel()) for args, _ in
+                             rec.calls["matmul_s8s8"][len(conv_bytes):]]
+    res = {"phase": "resnet_int8_main_path", **RESNET, "batch": batch,
+           "image_size": image, "compute": "bfloat16", "quant": "int8",
+           "act_per_channel": False, "calibration_batches": len(calib),
+           "calibration_s": calib_s, "scales": len(scales),
+           "forwards": n_forwards, "launches": launches,
+           "predicted_per_forward": {"matmul_int8w": RESNET_INT8W_CONVS,
+                                     "matmul_s8s8": RESNET_S8S8_CALLS},
+           "int8w_calls_per_forward": len(rec.calls["matmul_int8w"]),
+           "s8s8_calls_per_forward": len(rec.calls["matmul_s8s8"]),
+           "s8s8_conv_calls_per_forward": len(conv_bytes),
+           "output_shape": list(outs[0].shape),
+           "vs_kernels_off": resnet_onoff(off, out_name, feeds, outs)}
+    emit(res)
+    for name, per in (("matmul_int8w", RESNET_INT8W_CONVS),
+                      ("matmul_s8s8", RESNET_S8S8_CALLS)):
+        calls = len(rec.calls[name])
+        if calls != per or (device.type == "cuda"
+                            and launches[name] != per * n_forwards):
+            raise AssertionError(
+                f"{name}: {calls} calls per forward, {launches[name]} "
+                f"launches over {n_forwards} forwards; expected {per}")
+    return {"res": res, "recorder": rec, "feeds": feeds,
+            "s8s8_in_bytes": in_bytes}
+
+
+def resnet_fp32_card_vs_cpu(device, batch=2, image=64, width=16,
+                            seed=0) -> dict:
+    """fp32 ResNet-18 on `device` against the port on the CPU (TF32 off
+    on the card, as Engine.forward sets it): within FP32_TOL * scale."""
+    import torch
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_resnet18
+
+    outs = []
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, image, image, 3)).astype(np.float32)
+    for dev in (device, torch.device("cpu")):
+        g, in_name, out_name = build_resnet18(batch=batch, image_size=image,
+                                              width=width)
+        eng = Engine(EngineConfig(device=str(dev))).load_model(None, graph=g)
+        outs.append(eng.run({in_name: x})[out_name])
+    got, want = outs
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    res = {"phase": "resnet_fp32_card_vs_cpu", "shape": list(got.shape),
+           "max_abs_err": err, "scale": scale, "tol": f"{FP32_TOL}*scale"}
+    emit(res)
+    if not err <= FP32_TOL * scale:
+        raise AssertionError(f"resnet18 fp32 card vs CPU: {res}")
+    return res
+
+
+def resnet_classify(engine, n=RESNET_CLASSIFY_IMAGES, seed=17) -> list:
+    """classify_images on `n` seeded 256x320 u8 images: top-5 each."""
+    from simpleinfer_tpu_torch.zoo.classify import classify_images
+
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (256, 320, 3), dtype=np.uint8)
+              for _ in range(n)]
+    top = classify_images(engine, images, k=5)
+    if len(top) != n or any(len(t) != 5 for t in top):
+        raise AssertionError(f"classify_images gave {top}")
+    emit({"phase": "resnet_classify_images", "images": n,
+          "image_shape": [256, 320, 3],
+          "top5": [[[c, round(p, 6)] for c, p in t] for t in top]})
+    return top
+
+
+def resnet_int8_phase(device, kernels: dict) -> dict:
+    """ResNet-50-224-b128 bf16 static int8 on the card: build and
+    calibrate, launches per forward, both kernels against their plain
+    versions at every recorded call, their times, forwards on / off / on,
+    a profile, on vs off, classify_images and the fp32 ResNet-18 check;
+    adds the path's readings to the two kernels' entries."""
+    import torch
+
+    t0 = time.perf_counter()
+    on = resnet_engine(device, True)
+    off = resnet_engine(device, False)
+    emit({"phase": "resnet_engines", "config": RESNET, "load_s":
+          time.perf_counter() - t0,
+          "weight_bytes_on_card": torch.cuda.memory_allocated(device)})
+    run = resnet_main_path(device, (on[0], off[0], on[1], on[2]))
+    check_resnet_onoff(run["res"]["vs_kernels_off"])
+    rec = run["recorder"]
+    worst = int8_kernel_checks(device, rec, ragged=False,
+                               phase="resnet_kernel_vs_plain")
+    times = time_int8_kernels(device, rec, s8s8_in_bytes=run["s8s8_in_bytes"],
+                              tag="resnet_")
+    del rec
+    run.pop("recorder")
+    torch.cuda.empty_cache()
+    feeds = {on[1]: run["feeds"][0][on[1]]}
+    t_on = forward_times(on[0], feeds)
+    t_off = forward_times(off[0], feeds)
+    t_on2 = forward_times(on[0], feeds)
+    ms_on = statistics.median([t_on["median_ms"], t_on2["median_ms"]])
+    batch = RESNET["batch"]
+    emit({"phase": "resnet_forward_time", "forward_kernels_on": [t_on, t_on2],
+          "forward_kernels_off": t_off,
+          "img_per_s_kernels_on": batch * 1e3 / ms_on,
+          "img_per_s_kernels_off": batch * 1e3 / t_off["median_ms"]})
+    emit({"phase": "resnet_profile_kernels_on", **profile_forward(
+        on[0], feeds, ms_on, iters=1, top=15)})
+    emit({"phase": "resnet_profile_kernels_off", **profile_forward(
+        off[0], feeds, t_off["median_ms"], iters=1, top=10)})
+    resnet_classify(on[0])
+    del on, off
+    torch.cuda.empty_cache()
+    resnet_fp32_card_vs_cpu(device)
+    launches = run["res"]["launches"]
+    for name, src, repl in (
+            ("matmul_s8s8", "matmul_s8s8.cu",
+             "simpleinfer_tpu/kernels/matmul.py:428"),
+            ("matmul_int8w", "matmul.cu",
+             "simpleinfer_tpu/kernels/matmul.py:183")):
+        t = times[name]
+        entry = {"launches": launches[name], "max_abs_err": worst[name],
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"]}
+        # the entry of an earlier phase, when it ran; this path's
+        # readings go beside it
+        kernels.setdefault(name, {"name": name, "route": "cuda",
+                                  "source": f"simpleinfer_tpu_torch/csrc/"
+                                  f"{src}", "replaces": repl, **entry})[
+            "resnet_int8"] = entry
+    return {"ms_on": ms_on, "ms_off": t_off["median_ms"]}
+
+
+def resnet_int8_rehearsal(device, image=64, batch=2) -> dict:
+    """The resnet_int8 main path at a tiny size (the CPU tests run it
+    with the plain versions): ResNet-50 at full width, `image` pixels."""
+    on = resnet_engine(device, True, batch=batch, image=image)
+    off = resnet_engine(device, False, batch=batch, image=image)
+    run = resnet_main_path(device, (on[0], off[0], on[1], on[2]),
+                           n_forwards=1, calib_batches=1)
+    check_resnet_onoff(run["res"]["vs_kernels_off"])
+    int8_kernel_checks(device, run["recorder"], ragged=False,
+                       phase="resnet_kernel_vs_plain")
+    resnet_classify(on[0], n=2)
     return run["res"]
 
 
@@ -1978,8 +2528,8 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
 
 
 # ---- driver -------------------------------------------------------------
-PHASES = ("yolo", "yolo_int8", "llama_kernels", "llama_service",
-          "llama_onoff", "llama_fp32")
+PHASES = ("yolo", "yolo_int8", "conv_kernels", "resnet_int8",
+          "llama_kernels", "llama_service", "llama_onoff", "llama_fp32")
 
 
 def main(argv=None) -> int:
@@ -2043,6 +2593,13 @@ def main(argv=None) -> int:
 
     if "yolo_int8" in phases:
         yolo_int8_phase(device, kernels)
+        torch.cuda.empty_cache()
+
+    if "conv_kernels" in phases:
+        kernels.update(conv_kernels_phase(device))
+        torch.cuda.empty_cache()
+    if "resnet_int8" in phases:
+        resnet_int8_phase(device, kernels)
         torch.cuda.empty_cache()
 
     if "llama_kernels" in phases:

@@ -4,6 +4,7 @@ limits tell a kernel that is wrong from bf16 and int8 noise?
 
     python3 scripts/torch_onoff_control.py          # llama (phase 7)
     python3 scripts/torch_onoff_control.py --int8   # yolov5l int8 + C3
+    python3 scripts/torch_onoff_control.py --resnet # ResNet-50 int8
 
 Loads the llama "base" bf16 int4w engine (kernels on), the same graph
 with use_kernels=False, and the fp32 yardstick, as chip_smoke.py does,
@@ -30,6 +31,12 @@ against its own scale), sound and with:
 - c3_fp_taps: c3_block runs fp taps where it takes s8 ones (a precision
   change, not a fault);
 - c3_taps_mirrored: c3_block's 3x3 taps read x + dx as x - dx (a fault).
+
+With --resnet: the ResNet-50-224-b128 bf16 int8 engine (kernels on,
+calibrated) against the same graph and scales with use_kernels=False,
+as chip_smoke.py's resnet_int8 phase compares their logits, sound and
+with s8s8_bf16_product and s8s8_drop_k_tile as above, and
+int8w_drop_k_tile on the path's 33 pointwise convs (a fault).
 
 Prints one JSON line of readings per run, each with whether
 chip_smoke's check fails it, then a summary line. Needs a CUDA card.
@@ -146,6 +153,9 @@ INT8_CONTROLS = {"s8s8_bf16_product": ("matmul", "matmul_s8s8",
                  "c3_taps_mirrored": ("c3block", "c3_block",
                                       c3_taps_mirrored)}
 
+RESNET_CONTROLS = {k: INT8_CONTROLS[k] for k in (
+    "s8s8_bf16_product", "s8s8_drop_k_tile", "int8w_drop_k_tile")}
+
 CONTROLS = {"int4w_bf16_dequant": ("matmul", "matmul_int4w",
                                    int4w_bf16_dequant),
             "flash_bf16_p": ("attention", "flash_attention", flash_bf16_p),
@@ -165,6 +175,16 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     print(cs.device_and_build(device)["nvidia_smi"], flush=True)
+    if "--resnet" in sys.argv[1:]:
+        on, in_name, out_name = cs.resnet_engine(device, True)
+        off = cs.resnet_engine(device, False)[0]
+        run = cs.resnet_main_path(device, (on, off, in_name, out_name))
+        del run["recorder"]
+        summary = run_int8_controls(on, off, out_name, run["feeds"],
+                                    RESNET_CONTROLS, resnet=True)
+        print(json.dumps({"limits": {"on_vs_off": cs.RESNET_ONOFF_TOL},
+                          "summary": summary}), flush=True)
+        return 0 if not summary["sound"]["caught"] else 1
     if "--int8" in sys.argv[1:]:
         on, in_name, out_name = cs.int8_engine(device, True)
         off = cs.int8_engine(device, False)[0]
@@ -225,18 +245,20 @@ def run_controls(on, off, ref, device, **onoff_kw) -> dict:
     return summary
 
 
-def run_int8_controls(on, off, out_name, feeds) -> dict:
-    """The int8 phase's on-vs-off readings, sound and under each int8
-    control, and whether chip_smoke.check_int8_onoff fails each."""
+def run_int8_controls(on, off, out_name, feeds, controls=INT8_CONTROLS,
+                      resnet=False) -> dict:
+    """The int8 phase's on-vs-off readings, sound and under each of
+    `controls`, and whether chip_smoke.check_int8_onoff fails each (with
+    resnet=True: the resnet_int8 phase's logits and check_resnet_onoff)."""
     import importlib
 
     import chip_smoke as cs
 
     summary = {}
-    for name in ("sound", *INT8_CONTROLS):
+    for name in ("sound", *controls):
         restore = None
         if name != "sound":
-            mod_name, attr, make = INT8_CONTROLS[name]
+            mod_name, attr, make = controls[name]
             mod = importlib.import_module(
                 f"simpleinfer_tpu_torch.kernels.{mod_name}")
             restore = (mod, attr, getattr(mod, attr))
@@ -246,15 +268,24 @@ def run_int8_controls(on, off, out_name, feeds) -> dict:
         finally:
             if restore:
                 setattr(*restore)
-        res = {"vs_kernels_off": cs.int8_onoff(off, out_name, feeds, outs)}
+        if resnet:
+            r = cs.resnet_onoff(off, out_name, feeds, outs)
+            res = {"logits": r}
+        else:
+            res = cs.int8_onoff(off, out_name, feeds, outs)
         try:
-            cs.check_int8_onoff(res)
+            if resnet:
+                cs.check_resnet_onoff(r)
+            else:
+                cs.check_int8_onoff({"vs_kernels_off": res})
             failed = None
         except AssertionError as e:
             failed = str(e)[:200]
         summary[name] = {"caught": failed is not None, **{
             part: [r["max_abs_over_scale"], r["mean_abs_over_scale"]]
-            for part, r in res["vs_kernels_off"].items()}}
+            for part, r in res.items()}}
+        if resnet:
+            summary[name]["top1_agreement"] = r["top1_agreement"]
         print(json.dumps({"control": name, "failed": failed,
                           **summary[name]}), flush=True)
     return summary

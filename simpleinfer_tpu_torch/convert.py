@@ -11,8 +11,11 @@ per-output-channel scales, the llama ops' wq/wk/wv/wo, wqn/wkn, gamma
 and weight, the static-int8 `act_scale` / `out_scale` entries that JAX's
 own Engine.calibrate installs — scalars or per-channel vectors, with the
 folded weights they go with — and the si.FusedC3 keys with its s8 taps
-`btl_b_wq` / `btl_b_wsc`), so a JAX program runs in the port on the same
-bytes and scales; the exceptions:
+`btl_b_wq` / `btl_b_wsc`, and the CNN family's BatchNorm / InstanceNorm
+`scale` / `shift`, GroupNorm / LayerNorm `gamma` / `beta`, the flipped
+HWIO ConvTranspose2d `weight`, PReLU `slope` and pnnx.Attribute
+`value`), so a JAX program runs in the port on the same bytes and
+scales; the exceptions:
 - the Detect decode tables: per level (`gridc{i}`, `anchorc{i}`) in the
   JAX package, row-concatenated (`grid`, `anchor`) in the port;
 - the block-Toeplitz stem packs `bt_in{g}` of the JAX package's W-packed

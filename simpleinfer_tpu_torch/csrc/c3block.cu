@@ -74,20 +74,6 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// the source pixel of output row gm for the 3x3 tap (dy, dx) of an
-// [N, H, W, K] map: its row in that map, or -1 off the image ("same"
-// zero padding)
-__device__ __forceinline__ int64_t tap_row(int64_t gm, int M, int H, int W,
-                                           int dy, int dx) {
-  if (gm >= M) return -1;
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const int64_t img = gm / hw;
-  const int rem = static_cast<int>(gm - img * hw);
-  const int y = rem / W + dy, x = rem % W + dx;
-  if (y < 0 || y >= H || x < 0 || x >= W) return -1;
-  return (img * H + y) * W + x;
-}
-
 // the image's s8 activation scale from its abs-max bits
 __device__ __forceinline__ float image_scale(const int* amax, int64_t img) {
   return fmaxf(__int_as_float(amax[img]), 1e-8f) / 127.0f;

@@ -10,7 +10,8 @@
 //     banks. The sum is exact in int32.
 // A kernel stages its a tile its own way (masked rows, shifted 3x3 taps,
 // quantized on the fly) and takes the w staging and the inner loop from
-// here; the epilogues stay in the kernels.
+// here; the epilogues stay in the kernels. `tap_row` is the 3x3 "same"
+// tap addressing that csrc/c3block.cu and csrc/conv3x3.cu share.
 #pragma once
 
 #include "epilogue.cuh"
@@ -35,6 +36,20 @@ using FTileA = float[BK][BM + PAD];  // a tile, K-major
 using FTileB = float[BK][BN + PAD];  // w tile
 using WTile = int[BM][LD8];          // int8 tile, [row][k / 4]
 static_assert(BM == BN, "WTile holds both int8 operands");
+
+// the source pixel of output row gm for the 3x3 tap (dy, dx) of an
+// [N, H, W, K] map: its row in that map, or -1 off the image ("same"
+// zero padding) or past the M rows
+__device__ __forceinline__ int64_t tap_row(int64_t gm, int64_t M, int H,
+                                           int W, int dy, int dx) {
+  if (gm >= M) return -1;
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  const int64_t img = gm / hw;
+  const int rem = static_cast<int>(gm - img * hw);
+  const int y = rem / W + dy, x = rem % W + dx;
+  if (y < 0 || y >= H || x < 0 || x >= W) return -1;
+  return (img * H + y) * W + x;
+}
 
 // a[src(r), k0:k0+BK] into row r of the K-major tile, for r < BM; a row
 // src(r) < 0 and k >= K read as zero. Neighbouring threads read

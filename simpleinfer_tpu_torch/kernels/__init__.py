@@ -9,6 +9,9 @@ runs its plain PyTorch version for CPU tensors and launches its kernel
 - c3block.py: `c3_block` (csrc/c3block.cu)
 - attention.py: `flash_attention` (csrc/flash_attention.cu)
 - decode_attn.py: `decode_attention` (csrc/decode_attention.cu)
+- conv3x3.py: `conv3x3_s1_same` (csrc/conv3x3.cu)
+- stem.py: `stem_s2d` (csrc/stem.cu), with the host packing of its input
+  and weights
 - build.py: nvcc build and ctypes binding of the sources
 
 The submodules are not re-exported by function name, so

@@ -2,9 +2,12 @@
 
 Importing this package registers every ported lowering: the op types a
 fused YOLOv5 graph uses (nn.Conv2d, BinaryOp, nn.MaxPool2d, nn.Upsample,
-torch.cat, models.yolo.Detect, and si.FusedC3 with c3_fusion), those of a llama graph (nn.Embedding,
-nn.RMSNorm, si.RotaryAttention, nn.Linear, nn.SiLU) and their
-file-mates.
+torch.cat, models.yolo.Detect, and si.FusedC3 with c3_fusion), those of a
+llama graph (nn.Embedding, nn.RMSNorm, si.RotaryAttention, nn.Linear,
+nn.SiLU), those of the CNN classification and segmentation builders
+(nn.BatchNorm2d, nn.AvgPool2d, nn.AdaptiveAvgPool2d, torch.flatten,
+nn.ConvTranspose2d) and their file-mates: the rest of ops/norm.py,
+ops/extra.py and ops/functional.py.
 """
 from . import (  # noqa: F401
     activation,
@@ -12,6 +15,8 @@ from . import (  # noqa: F401
     binary,
     c3,
     conv,
+    extra,
+    functional,
     linear,
     norm,
     pool,

@@ -1,11 +1,12 @@
-"""Programmatic pnnx graph builders: the YOLOv5 and llama families,
-ported subset.
+"""Programmatic pnnx graph builders: the YOLOv5, llama and CNN
+classification / segmentation families, ported subset.
 
-A copy of `GraphBuilder` (the layers YOLOv5 and llama use),
-`build_yolov5`, `LLAMA_PRESETS` and `build_llama` from
+A copy of `GraphBuilder` (the layers those families use), `build_yolov5`,
+`build_resnet18`, `build_resnet50`, `build_mobilenet_like`,
+`build_densenet`, `build_unet`, `LLAMA_PRESETS` and `build_llama` from
 simpleinfer_tpu/zoo/builders.py (numpy only), so the port builds the
-same graphs with the same seeded weights without importing the JAX
-package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
+same graphs with the same seeded weights (the same RNG calls in the same
+order) without importing the JAX package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
 ``pnnx_5``, anchor grids in ``pnnx_{4,2,0}``, grids in ``pnnx_{6,3,1}``,
 head convs in ``m.{0,1,2}.weight/bias``).
 
@@ -308,6 +309,109 @@ class GraphBuilder:
         self.shape[out] = list(self.shape[idx]) + [embedding_dim]
         return out
 
+    def gelu(self, x: str, approximate: str | None = None) -> str:
+        out = self._act("nn.GELU", x)
+        if approximate is not None:     # pnnx/torch "tanh" variant
+            self.g.get_operand(out).producer.params["approximate"] = \
+                Parameter.from_value(approximate)
+        return out
+
+    def permute(self, x: str, dims: list) -> str:
+        (out,) = self._op("torch.permute", self._name("perm"), [x],
+                          params=dict(dims=list(dims)))
+        s = self.shape[x]
+        self.shape[out] = [s[d] for d in dims]
+        return out
+
+    def conv_transpose(self, x: str, out_c: int, k: int = 2,
+                       s: int = 2, p: int = 0) -> str:
+        n, c, h, w = self.shape[x]
+        name = self._name("convt")
+        attrs = {"weight": self._rand((c, out_c, k, k), fan_in=c * k * k),
+                 "bias": (self.rng.standard_normal(out_c)
+                          .astype(np.float32) * 0.05)}
+        (out,) = self._op("nn.ConvTranspose2d", name, [x], params=dict(
+            bias=True, dilation=[1, 1], groups=1, in_channels=c,
+            kernel_size=[k, k], out_channels=out_c,
+            output_padding=[0, 0], padding=[p, p], stride=[s, s]),
+            attrs=attrs)
+        oh = (h - 1) * s - 2 * p + k
+        ow = (w - 1) * s - 2 * p + k
+        self.shape[out] = [n, out_c, oh, ow]
+        return out
+
+    def avgpool(self, x: str, k: int, s: int | None = None,
+                p: int = 0) -> str:
+        s = s or k
+        n, c, h, w = self.shape[x]
+        (out,) = self._op("nn.AvgPool2d", self._name("avgpool"), [x],
+                          params=dict(ceil_mode=False,
+                                      count_include_pad=True,
+                                      kernel_size=[k, k], padding=[p, p],
+                                      stride=[s, s]))
+        oh = (h + 2 * p - k) // s + 1
+        ow = (w + 2 * p - k) // s + 1
+        self.shape[out] = [n, c, oh, ow]
+        return out
+
+    def adaptive_avg_pool(self, x: str, size: int = 1) -> str:
+        n, c, h, w = self.shape[x]
+        (out,) = self._op("nn.AdaptiveAvgPool2d", self._name("gap"), [x],
+                          params=dict(output_size=[size, size]))
+        self.shape[out] = [n, c, size, size]
+        return out
+
+    def flatten(self, x: str) -> str:
+        (out,) = self._op("torch.flatten", self._name("flat"), [x],
+                          params=dict(start_dim=1, end_dim=-1))
+        s = self.shape[x]
+        self.shape[out] = [s[0], int(np.prod(s[1:]))]
+        return out
+
+    def chunk(self, x: str, chunks: int, dim: int = 1) -> list:
+        n_out = chunks
+        outs = self._op("torch.chunk", self._name("chunk"), [x],
+                        n_out=n_out, params=dict(chunks=chunks, dim=dim))
+        s = list(self.shape[x])
+        per = -(-s[dim] // chunks)
+        for j, o in enumerate(outs):
+            so = list(s)
+            so[dim] = min(per, s[dim] - j * per)
+            self.shape[o] = so
+        return outs
+
+    def attr_const(self, value: np.ndarray) -> str:
+        """Constant tensor as a pnnx.Attribute op (what real pnnx exports
+        emit for cls tokens / position embeddings)."""
+        name = self._name("const")
+        (out,) = self._op("pnnx.Attribute", name, [],
+                          attrs={"data": np.asarray(value, np.float32)})
+        self.shape[out] = list(np.asarray(value).shape)
+        return out
+
+    def transpose(self, x: str, d0: int, d1: int) -> str:
+        (out,) = self._op("torch.transpose", self._name("tr"), [x],
+                          params=dict(dim0=d0, dim1=d1))
+        s = list(self.shape[x])
+        s[d0], s[d1] = s[d1], s[d0]
+        self.shape[out] = s
+        return out
+
+    def reshape(self, x: str, shape: list) -> str:
+        (out,) = self._op("torch.reshape", self._name("rs"), [x],
+                          params=dict(shape=[int(d) for d in shape]))
+        self.shape[out] = [int(d) for d in shape]
+        return out
+
+    def expand(self, x: str, shape: list) -> str:
+        (out,) = self._op("Tensor.expand", self._name("exp"), [x],
+                          params=dict(shape=[int(d) for d in shape]))
+        self.shape[out] = [int(d) for d in shape]
+        return out
+
+    def tanh(self, x: str) -> str:
+        return self._act("nn.Tanh", x)
+
     def yolo_detect(self, features: list, nc: int = 80,
                     anchors=YOLO_ANCHORS, strides=YOLO_STRIDES) -> str:
         na = len(anchors[0])
@@ -421,6 +525,190 @@ def build_yolov5(variant: str = "n", batch: int = 1, image_size: int = 640,
     out = b.yolo_detect([d3, d4, d5], nc=num_classes)
     b.output(out)
     return b.build(), "0", out
+
+
+# ---- the CNN classification and segmentation family ----
+def build_resnet18(batch: int = 1, image_size: int = 224,
+                   num_classes: int = 1000, width: int = 64,
+                   seed: int = 0) -> tuple:
+    """ResNet-18 (conv-bn-relu basic blocks, Expression residual adds).
+
+    Returns (graph, input_name, output_name). The reference's analog
+    fixture is resnet_batchnorm_sigmoid (test_engine.cpp:5-31).
+    """
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def block(x, out_c, stride):
+        in_c = b.shape[x][1]
+        y = b.relu(b.bn(b.conv(x, out_c, 3, stride, 1, bias=False)))
+        y = b.bn(b.conv(y, out_c, 3, 1, 1, bias=False))
+        if stride != 1 or in_c != out_c:
+            x = b.bn(b.conv(x, out_c, 1, stride, 0, bias=False))
+        return b.relu(b.add(y, x))
+
+    x = b.relu(b.bn(b.conv(x, width, 7, 2, 3, bias=False)))
+    x = b.maxpool(x, 3, 2, 1)
+    for i, (c, blocks) in enumerate(
+            [(width, 2), (width * 2, 2), (width * 4, 2), (width * 8, 2)]):
+        for j in range(blocks):
+            x = block(x, c, 2 if (i > 0 and j == 0) else 1)
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
+def build_resnet50(batch: int = 1, image_size: int = 224,
+                   num_classes: int = 1000, width: int = 64,
+                   seed: int = 0) -> tuple:
+    """ResNet-50 (1x1-3x3-1x1 bottleneck blocks, expansion 4) — the
+    larger classification model of BASELINE.json config 4."""
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def bottleneck(x, planes, stride):
+        in_c = b.shape[x][1]
+        out_c = planes * 4
+        y = b.relu(b.bn(b.conv(x, planes, 1, bias=False)))
+        y = b.relu(b.bn(b.conv(y, planes, 3, stride, 1, bias=False)))
+        y = b.bn(b.conv(y, out_c, 1, bias=False))
+        if stride != 1 or in_c != out_c:
+            x = b.bn(b.conv(x, out_c, 1, stride, 0, bias=False))
+        return b.relu(b.add(y, x))
+
+    x = b.relu(b.bn(b.conv(x, width, 7, 2, 3, bias=False)))
+    x = b.maxpool(x, 3, 2, 1)
+    for i, (planes, blocks) in enumerate(
+            [(width, 3), (width * 2, 4), (width * 4, 6), (width * 8, 3)]):
+        for j in range(blocks):
+            x = bottleneck(x, planes, 2 if (i > 0 and j == 0) else 1)
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
+def build_mobilenet_like(batch: int = 1, image_size: int = 224,
+                         num_classes: int = 1000, width_mult: float = 1.0,
+                         seed: int = 0) -> tuple:
+    """MobileNetV2-style inverted residuals with depthwise (grouped)
+    convs and Hardswish/Hardsigmoid activations — covers the grouped-conv
+    and hard-activation surface of the reference's mobile_batch8 fixture.
+    """
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def c(ch):
+        return max(8, int(ch * width_mult))
+
+    def inverted_residual(x, out_c, stride, expand):
+        in_c = b.shape[x][1]
+        hidden = in_c * expand
+        y = x
+        if expand != 1:
+            y = b.hardswish(b.bn(b.conv(y, hidden, 1, bias=False)))
+        y = b.hardswish(b.bn(b.conv(y, hidden, 3, stride, 1, groups=hidden,
+                                    bias=False)))
+        y = b.bn(b.conv(y, out_c, 1, bias=False))
+        if stride == 1 and in_c == out_c:
+            y = b.add(y, x)
+        return y
+
+    x = b.hardswish(b.bn(b.conv(x, c(32), 3, 2, 1, bias=False)))
+    cfgs = [(c(16), 1, 1), (c(24), 2, 6), (c(24), 1, 6), (c(32), 2, 6),
+            (c(32), 1, 6), (c(64), 2, 6), (c(64), 1, 6), (c(96), 1, 6),
+            (c(160), 2, 6), (c(160), 1, 6), (c(320), 1, 6)]
+    for out_c, stride, expand in cfgs:
+        x = inverted_residual(x, out_c, stride, expand)
+    x = b.hardswish(b.bn(b.conv(x, c(1280), 1, bias=False)))
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
+def build_unet(batch: int = 1, image_size: int = 128, in_ch: int = 3,
+               num_classes: int = 21, width: int = 32,
+               depth: int = 3, seed: int = 0) -> tuple:
+    """UNet-style encoder/decoder segmenter (superset family — the
+    reference has no segmentation workload).
+
+    conv-bn-relu double blocks, maxpool downs, ConvTranspose2d k2 s2
+    ups with encoder skip cats, 1x1 class head producing
+    [N, num_classes, H, W] logits. Exercises the transpose-conv lowering
+    and cat junctions in a real topology.
+    """
+    b = GraphBuilder(seed)
+    x = b.input([batch, in_ch, image_size, image_size], name="0")
+
+    def double(x, c):
+        x = b.relu(b.bn(b.conv(x, c, 3, 1, 1, bias=False)))
+        return b.relu(b.bn(b.conv(x, c, 3, 1, 1, bias=False)))
+
+    skips = []
+    c = width
+    x = double(x, c)
+    for _ in range(depth):
+        skips.append(x)
+        x = b.maxpool(x, 2)
+        c *= 2
+        x = double(x, c)
+    for skip in reversed(skips):
+        c //= 2
+        x = b.conv_transpose(x, c, 2, 2)
+        x = double(b.cat([x, skip], 1), c)
+    out = b.conv(x, num_classes, 1)
+    b.output(out)
+    return b.build(), "0", out
+
+
+_DENSENET_BLOCKS = {"121": (6, 12, 24, 16), "169": (6, 12, 32, 32),
+                    "201": (6, 12, 48, 32)}
+
+
+def build_densenet(variant: str | tuple = "121", batch: int = 1,
+                   image_size: int = 224, num_classes: int = 1000,
+                   growth_rate: int = 32, init_width: int = 64,
+                   seed: int = 0) -> tuple:
+    """DenseNet (dense concat-growth blocks, BN-ReLU-conv pre-activation
+    ordering, avgpool transitions) — a concat-heavy topology class the
+    zoo otherwise lacks; superset family (the reference's classify
+    fixtures are MobileNet/ResNet-style).
+
+    variant: "121"/"169"/"201" or a tuple of per-block layer counts.
+    Dense layer: BN-ReLU-1x1(4g)-BN-ReLU-3x3(g), concatenated onto the
+    running feature map; transition: BN-ReLU-1x1(c/2) + 2x2 avgpool s2.
+    """
+    blocks = (_DENSENET_BLOCKS[variant] if isinstance(variant, str)
+              else tuple(variant))
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def dense_layer(x):
+        y = b.conv(b.relu(b.bn(x)), 4 * growth_rate, 1, bias=False)
+        y = b.conv(b.relu(b.bn(y)), growth_rate, 3, 1, 1, bias=False)
+        return b.cat([x, y], 1)
+
+    x = b.relu(b.bn(b.conv(x, init_width, 7, 2, 3, bias=False)))
+    x = b.maxpool(x, 3, 2, 1)
+    for i, layers in enumerate(blocks):
+        for _ in range(layers):
+            x = dense_layer(x)
+        if i < len(blocks) - 1:  # transition
+            c = b.shape[x][1]
+            x = b.conv(b.relu(b.bn(x)), c // 2, 1, bias=False)
+            x = b.avgpool(x, 2)
+    x = b.relu(b.bn(x))
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
 
 
 LLAMA_PRESETS = {

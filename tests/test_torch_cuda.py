@@ -13,6 +13,7 @@ the CPU within 1e-4 x scale + 1e-4 x |ref|. c3_block: 1e-5 x max(1,
 |ref|) elementwise in f32 with fp taps; with bf16 or s8 taps max 0.05 x
 scale and mean 5e-4 x scale (an intermediate within rounding of a bf16
 or int8 step takes the next step on one side: chip_smoke.C3_MAX_TOL).
+conv3x3_s1_same and stem_s2d as the matmul kernels.
 """
 import numpy as np
 import pytest
@@ -22,8 +23,10 @@ from simpleinfer_tpu_torch import Engine, EngineConfig
 from simpleinfer_tpu_torch.engine import fp32_parity
 from simpleinfer_tpu_torch.kernels import attention as kattn
 from simpleinfer_tpu_torch.kernels import c3block as kc3
+from simpleinfer_tpu_torch.kernels import conv3x3 as kconv
 from simpleinfer_tpu_torch.kernels import decode_attn as kdec
 from simpleinfer_tpu_torch.kernels import matmul as tmm
+from simpleinfer_tpu_torch.kernels import stem as kstem
 from simpleinfer_tpu_torch.quant.tensor import (quantize_int4_grouped,
                                                 quantize_per_channel)
 from simpleinfer_tpu_torch.zoo import build_llama, build_yolov5
@@ -264,3 +267,47 @@ def test_c3_kernel_matches_plain_on_card(cuda, n, h, w, c, hid, oc, t,
     else:
         assert float(d.max()) <= 0.05 * scale_, float(d.max())
         assert float(d.mean()) <= 5e-4 * scale_, float(d.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,oc", [
+    (2, 1, 1, 3, 5), (2, 5, 7, 13, 17), (1, 3, 33, 70, 131),
+    (2, 14, 14, 256, 256), (3, 9, 11, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_matches_plain_on_card(cuda, n, h, w, c, oc, dtype):
+    """conv3x3_s1_same: H x W down to 1 x 1, C and OC off the tiles,
+    images across a tile, with and without bias, three activations."""
+    gen = torch.Generator(device=cuda).manual_seed(n * h + w + c + oc)
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
+    wt = torch.randn(3, 3, c, oc, generator=gen, device=cuda) / (3 * c ** 0.5)
+    b = 0.1 * torch.randn(oc, generator=gen, device=cuda)
+    before = kconv.launches
+    for bias in (b, None):
+        for act in ("silu", "relu", None):
+            with fp32_parity(True):
+                got = kconv.conv3x3_s1_same(x, wt, bias, act)
+                torch.cuda.synchronize()
+                _assert_close(got, kconv.conv3x3_s1_same_ref(x, wt, bias,
+                                                             act))
+    assert kconv.launches - before == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,oc", [(1, 32), (2, 64), (1, 24)])
+def test_stem_kernel_matches_plain_on_card(cuda, n, oc):
+    """stem_s2d on the packed input of a seeded image: lanes -1 / 320
+    and the staged pad rows, OC of 32, 64 and one off the tile."""
+    rng = np.random.default_rng(n + oc)
+    img = rng.random((n, 640, 640, 3)).astype(np.float32)
+    w = (rng.standard_normal((oc, 3, 6, 6)) / 10).astype(np.float32)
+    xp = torch.from_numpy(kstem.pack_stem_input(img)).to(cuda, torch.bfloat16)
+    wp = torch.from_numpy(kstem.pack_stem_weights(w)).to(cuda)
+    bias = torch.from_numpy(0.05 * rng.standard_normal(oc).astype(
+        np.float32)).to(cuda)
+    before = kstem.launches
+    for act in ("silu", None):
+        got = kstem.stem_s2d(xp, wp, bias, act)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 320, 320, oc)
+        _assert_close(got, kstem.stem_s2d_ref(xp, wp, bias, act))
+    assert kstem.launches - before == 2

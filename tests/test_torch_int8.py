@@ -334,12 +334,15 @@ def _images(batch=2, image=64, seed=0):
         (batch, image, image, 3)).astype(np.float32) / 3
 
 
-def _same_weights_as_jax(je, te, in_name, variant="n", batch=2, image=64):
+def _same_weights_as_jax(je, te, in_name, variant="n", batch=2, image=64,
+                         build=None):
     """Give the port's int8 engine the fp weights of the convs that the
     JAX package runs on its W-packed path (the stem and the convs that
     receive a packed input: its `bt_in*` packs are not quantized), so
     both compute the same network; ROADMAP.md §3 records the
-    difference. Those convs are outside the int8 gate (ic <= 64)."""
+    difference. Those convs are outside the int8 gate (ic <= 64).
+    `build` makes the port's graph (default: build_yolov5 of `variant`
+    at `batch` and `image`)."""
     env = je.program.wrap_inputs({in_name: jnp.zeros(
         (batch, image, image, 3), jnp.float32)})
     names = []
@@ -352,8 +355,9 @@ def _same_weights_as_jax(je, te, in_name, variant="n", batch=2, image=64):
         out = impl.apply(je._device_weights[impl.name], *args)
         outs_ = [out] if impl.n_outputs == 1 else list(out)
         env.update(zip(outs, outs_))
-    fp = Engine(EngineConfig(device="cpu")).load_model(
-        None, graph=build_yolov5(variant, batch=batch, image_size=image)[0])
+    graph = (build() if build is not None else
+             build_yolov5(variant, batch=batch, image_size=image)[0])
+    fp = Engine(EngineConfig(device="cpu")).load_model(None, graph=graph)
     for name in names:
         te.program.weights[name]["weight"] = fp.program.weights[name]["weight"]
     te._device_weights = te.place_weights(te.program.weights, te.program)

@@ -101,3 +101,29 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(EngineConfig(device="cuda:0"))
     assert Engine(EngineConfig(device="cpu")).device.type == "cpu"
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each csrc/*.cu is in chip_smoke.py's SOURCES (built in its phase
+    1), is some kernels/ module's SOURCE, and that module keeps a plain
+    integer launch count."""
+    import importlib
+
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    sources = sorted(n for n in os.listdir(os.path.join(PKG, "csrc"))
+                     if n.endswith(".cu"))
+    assert sorted(chip_smoke.SOURCES) == sources
+    owners = {}
+    for name in ("matmul", "c3block", "attention", "decode_attn",
+                 "conv3x3", "stem"):
+        mod = importlib.import_module(f"simpleinfer_tpu_torch.kernels.{name}")
+        for key in dir(mod):
+            if key.startswith("SOURCE"):
+                owners[getattr(mod, key)] = mod
+    assert sorted(owners) == sources
+    for mod in owners.values():
+        assert isinstance(mod.launches, int)
