@@ -6,7 +6,10 @@
 Phases, each printing JSON lines:
 1. device and build: the card (torch and nvidia-smi), the nvcc build of
    every kernel source (one nvcc each, started together) with
-   `-Xptxas -v` registers and spills;
+   `-Xptxas -v` registers and spills; then the tensor-core instructions
+   (HMMA / HGMMA) of each function of matmul_int4w.cu and
+   flash_attention.cu in the built SASS (cuobjdump -sass), which fails
+   if a bf16 route has none;
 2. kernel vs plain version on the card: `matmul` and `matmul_int8w` at
    the YOLOv5s-640-b8 pointwise-conv shapes (taken from the main path)
    and at ragged shapes, x in bf16 and f32, every activation; then the
@@ -33,9 +36,12 @@ Phases, each printing JSON lines:
    scale, within limits set between the sound reading and a fault's
    (scripts/torch_onoff_control.py --int8);
 5. llama kernels vs plain: matmul_int4w, flash_attention and
-   decode_attention at ragged shapes, f32 and bf16 (decode: lengths 0,
+   decode_attention at ragged shapes, f32 and bf16 (int4w: the down
+   projection's K 5456 and the MLP's N 5456 at M 17; decode: lengths 0,
    1, straddling a tile and full; bf16, f32 and int8 leaves; flash:
-   causal, non-causal, banded);
+   causal, non-causal, banded, head_dim 128 at L 2048); then the flash
+   gate: flash_attention against the unblocked path at [12, 32, L, 64]
+   bf16 for L from 256 to 2048;
 6. the llama main path: llama "base" (16 layers, width 2048, vocab
    32000), bf16 int4w, GenerationService(slots=16, kv bf16) serving 48
    greedy requests (seeded prompt lengths uniform in 32..1900, 64 new
@@ -43,7 +49,8 @@ Phases, each printing JSON lines:
    launches of each kernel (counts reset just before); then each kernel
    against its plain version at the shapes the run recorded, and its
    time beside its plain version's, a torch library call's and the
-   bound;
+   bound (matmul_int4w per decode step and per admission wave, with a
+   line per projection shape of the wave);
 7. kernels on vs off: the llama engine against one of the same graph
    with use_kernels=False; prefill logits at width 2048 and one
    decode-block step's logits, each side also against an fp32 engine of
@@ -162,6 +169,61 @@ def device_and_build(device) -> dict:
     emit({"phase": "build_all", "seconds": round(time.perf_counter() - t0,
                                                  3)})
     return info
+
+
+# tensor-core kernels of the bf16 routes: (source, function name part)
+MMA_KERNELS = (("matmul_int4w.cu", "si_int4w_mma_kernel"),
+               ("flash_attention.cu", "si_flash_mma_kernel"))
+
+
+def _tool(name) -> str:
+    import shutil
+
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"{name} not found")
+
+
+def sass_mma_counts() -> dict:
+    """The tensor-core instructions (HMMA / HGMMA) of every kernel
+    function in the built libraries of MMA_KERNELS, read from their SASS
+    (cuobjdump -sass). Fails if a bf16 route's function is missing or
+    has none."""
+    from simpleinfer_tpu_torch.kernels import build
+
+    counts = {}
+    for source, part in MMA_KERNELS:
+        sass = subprocess.run(
+            [_tool("cuobjdump"), "-sass", str(build.library_path(source))],
+            capture_output=True, text=True, check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            ln = ln.strip()
+            if ln.startswith("Function :"):
+                fn = ln.split(":", 1)[1].strip()
+                counts[fn] = {"source": source, "HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                op = ln.split("*/", 1)[-1].strip().split(" ")[0]
+                if op.startswith("HGMMA"):
+                    counts[fn]["HGMMA"] += 1
+                elif op.startswith("HMMA"):
+                    counts[fn]["HMMA"] += 1
+    names = sorted(counts)
+    try:
+        plain = subprocess.run([_tool("cu++filt")], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (RuntimeError, subprocess.CalledProcessError):
+        plain = names
+    rows = {p: counts[n] for n, p in zip(names, plain)}
+    emit({"phase": "sass_tensor_core", "functions": rows})
+    for source, part in MMA_KERNELS:
+        mine = [r for n, r in counts.items() if part in n]
+        if not mine or not all(r["HMMA"] + r["HGMMA"] for r in mine):
+            raise AssertionError(f"{part} ({source}): no tensor-core "
+                                 f"instruction in its SASS")
+    return rows
 
 
 # ---- phase 2 ------------------------------------------------------------
@@ -1690,11 +1752,13 @@ def resnet_int8_rehearsal(device, image=64, batch=2) -> dict:
 LLAMA = dict(variant="base", seq_len=2048, vocab_size=32000, seed=0)
 SERVICE = dict(slots=16, kv_dtype="bfloat16")
 N_REQUESTS, PROMPT_RANGE, MAX_NEW = 48, (32, 1900), 64
-# flash kernel vs plain in bf16: the kernel keeps P in f32 for P.V, the
-# plain version rounds P to bf16 first (as the JAX oracle does), which
-# moves a row's output by at most 2^-8 (bf16's unit roundoff) times
-# sum_j p_j |v_j|: the check adds that bound per element
-FLASH_BF16_P_ROUNDOFF = 2.0 ** -8
+# flash kernel vs plain in bf16: both round P to bf16 before P.V (the
+# TPU body's semantics), the kernel its unnormalized P of each 64-key
+# tile, the plain version the normalized P (as the JAX oracle does). Each
+# rounding moves a row's output by at most 2^-8 (bf16's unit roundoff)
+# times sum_j p_j |v_j|, so the two sides may differ by twice that: the
+# check adds 2 x 2^-8 x sum_j p_j |v_j| per element
+FLASH_BF16_P_ROUNDOFF = 2.0 ** -7
 # kernels on vs off (two bf16 engines of the same int4 weights), over 16
 # layers of random weights: the kernels dequantize in f32 and keep f32
 # projection outputs and P, the torch paths round the dequantized
@@ -1797,9 +1861,11 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
     cases = [(m, k, n, xd, od, b, a, True)
              for (m, k, n, xd, od, b, a) in main_shapes.get("matmul_int4w",
                                                             [])]
-    for (m, k, n, group) in [(1, 200, 70, 128), (37, 129, 131, 64),
-                             (100, 256, 50, 128), (17, 384, 96, 128),
-                             (16, 2048, 33, 128), (64, 130, 64, 32)]:
+    ragged = [(1, 200, 70, 128), (37, 129, 131, 64), (100, 256, 50, 128),
+              (17, 384, 96, 128), (16, 2048, 33, 128), (64, 130, 64, 32)]
+    if device.type == "cuda":   # the down projection's K, the MLP's N
+        ragged.append((17, 5456, 5456, 128))
+    for (m, k, n, group) in ragged:
         for xd in ("float32", "bfloat16"):
             cases.append((m, k, n, xd, "float32", True, "silu", False,
                           group))
@@ -1831,6 +1897,8 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
                    (1, 2, 129, 129, 256, dt, True, None, False)]
         if device.type == "cuda":   # the main path's width, banded
             fcases.append((1, 32, 2048, 2048, 64, dt, True, 256, False))
+    if device.type == "cuda":       # head_dim 128 at the main width
+        fcases.append((1, 8, 2048, 2048, 128, "bfloat16", True, None, False))
     for (b, h, lq, lk, d, dt, causal, sw, main) in fcases:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, h, l_, d, generator=gen, device=device)
@@ -1841,7 +1909,7 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
             ref = kattn.flash_attention_ref(q, k, v, causal=causal,
                                             sliding_window=sw)
         lim = KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
-        if dtype == torch.bfloat16:     # sum_j p_j |v_j| per element
+        if dtype == torch.bfloat16:     # P's roundoff, both sides
             lim = lim + FLASH_BF16_P_ROUNDOFF * kattn.flash_attention_ref(
                 q.float(), k.float(), v.float().abs(), causal=causal,
                 sliding_window=sw)
@@ -1888,6 +1956,50 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
         raise AssertionError(f"{len(failures)} llama kernel-vs-plain "
                              f"mismatches")
     return worst
+
+
+FLASH_GATE_LENGTHS = (256, 512, 1024, 1536, 2048)
+
+
+def flash_gate_sweep(device, rows=12, heads=32, d=64,
+                     lengths=FLASH_GATE_LENGTHS, seed=9) -> dict:
+    """The causal flash gate on the card: flash_attention against the
+    unblocked path it replaces below the gate (ops/attention.
+    causal_context with kernels off) at [rows, heads, L, d] bf16 for each
+    L (CUDA events, L2 flushed). The crossover is the least L from which
+    flash is faster at every longer L measured (kernels/attention.
+    flash_profitable's default takes it, not below 256)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.ops.attention import causal_context
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    scale = 1.0 / math.sqrt(d)
+    sweep = []
+    for l_ in lengths:
+        q, k, v = (torch.randn(rows, heads, l_, d, generator=gen,
+                               device=device).bfloat16() for _ in range(3))
+        t = {"L": l_,
+             "flash_ms": _time_ms(device, lambda: kattn.flash_attention(
+                 q, k, v, causal=True, scale=scale), 5, flush),
+             "unblocked_ms": _time_ms(device, lambda: causal_context(
+                 q, k, v, scale, False), 3, flush)}
+        t["speedup"] = t["unblocked_ms"] / t["flash_ms"]
+        sweep.append(t)
+        del q, k, v
+        torch.cuda.empty_cache()
+    cross = None
+    for t in reversed(sweep):
+        if t["speedup"] <= 1.0:
+            break
+        cross = t["L"]
+    res = {"phase": "flash_gate_sweep", "shape": [rows, heads, "L", d],
+           "dtype": "bfloat16", "sweep": sweep, "crossover_L": cross,
+           "gate_min_lk": int(os.environ.get("SI_FLASH_MIN_LK", "0"))
+           or kattn.FLASH_MIN_LK}
+    emit(res)
+    return res
 
 
 def llama_engine(device, compute="bfloat16", quant="int4w", use_kernels=None,
@@ -2221,6 +2333,13 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     waves = rec.count("flash_attention")[fkey] / layers
     ptot, prows = int4w_sum({k: round(c / waves) for k, c in c4.items()
                              if k[0] == wave_m}, 3)
+    ptot["launches_per_wave"] = ptot.pop("launches")
+    out["matmul_int4w_prefill"] = ptot
+    for r in prows:     # one line per projection shape of the wave
+        m, k, n = r["shape"]
+        emit({"phase": "kernel_time_int4w_prefill_shape", **r,
+              "tflops": 2.0 * m * k * n / (r["ms"] * 1e9),
+              "library_tflops": 2.0 * m * k * n / (r["library_ms"] * 1e9)})
     emit({"phase": "kernel_time_int4w_prefill",
           "unit": "one admission wave's full-width projections",
           "rows": fkey[0], "width": fkey[2], **ptot, "shapes": prows})
@@ -2556,6 +2675,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
     info = device_and_build(device)
+    sass_mma_counts()
     kernels = {}
 
     if "yolo" in phases:
@@ -2604,6 +2724,7 @@ def main(argv=None) -> int:
 
     if "llama_kernels" in phases:
         llama_kernel_checks(device)
+        flash_gate_sweep(device)
     if {"llama_service", "llama_onoff"} & set(phases):
         eng, build_s, load_s = llama_engine(device)
         emit({"phase": "llama_engine", "config": LLAMA,
@@ -2634,7 +2755,13 @@ def main(argv=None) -> int:
                     "max_abs_err": worst[name], "ms": t["ms"],
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"],
-                    "library_ms": t["library_ms"]}
+                    "library_ms": t["library_ms"],
+                    **{u: t[u] for u in ("launches_per_step",
+                                         "launches_per_wave") if u in t}}
+            p = times["matmul_int4w_prefill"]   # per admission wave
+            kernels["matmul_int4w"]["prefill"] = {
+                u: p[u] for u in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "launches_per_wave")}
         if "llama_onoff" in phases:
             off, _, _ = llama_engine(device, use_kernels=False)
             ref, _, _ = llama_engine(device, compute="float32")

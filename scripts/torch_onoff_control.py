@@ -16,7 +16,10 @@ bf16 inputs (the fp32 yardstick keeps the real kernels):
   in bf16, as the torch path does (a precision change, not a fault);
 - flash_bf16_p: flash_attention rounds P to bf16 before P.V (its plain
   version; a precision change, not a fault);
-- flash_causal_off_by_one: each query also sees the next key (a fault).
+- flash_causal_off_by_one: each query also sees the next key (a fault);
+- int4w_nibbles_swapped: matmul_int4w reads each packed byte's high
+  nibble as its low one and the low as the high, so the two halves of
+  every K-group trade places (a fault).
 
 With --int8: the yolov5l-640-b16 bf16 int8 c3_fusion engine (kernels
 on, calibrated) against the same graph and scales with use_kernels=False,
@@ -93,6 +96,26 @@ def flash_causal_off_by_one(orig):
     return fn
 
 
+def int4w_nibbles_swapped(orig):
+    import torch
+    from simpleinfer_tpu_torch.quant.tensor import Quantized4Tensor
+
+    swapped = {}     # per weight: its bytes with the nibbles swapped
+
+    def fn(x, wq4, bias=None, activation=None, *, out_dtype=None):
+        if x.dtype != torch.bfloat16:
+            return orig(x, wq4, bias, activation, out_dtype=out_dtype)
+        key = wq4.packed.data_ptr()
+        if key not in swapped:
+            p = wq4.packed.to(torch.int32) & 0xFF
+            b = (((p & 0xF) << 4) | (p >> 4)).to(torch.uint8)
+            swapped[key] = Quantized4Tensor(packed=b.view(torch.int8),
+                                            scale=wq4.scale,
+                                            group=wq4.group, k=wq4.k)
+        return orig(x, swapped[key], bias, activation, out_dtype=out_dtype)
+    return fn
+
+
 def s8s8_bf16_product(orig):
     import torch
     from simpleinfer_tpu_torch.kernels.matmul import resolve_activation
@@ -160,7 +183,9 @@ CONTROLS = {"int4w_bf16_dequant": ("matmul", "matmul_int4w",
                                    int4w_bf16_dequant),
             "flash_bf16_p": ("attention", "flash_attention", flash_bf16_p),
             "flash_causal_off_by_one": ("attention", "flash_attention",
-                                        flash_causal_off_by_one)}
+                                        flash_causal_off_by_one),
+            "int4w_nibbles_swapped": ("matmul", "matmul_int4w",
+                                      int4w_nibbles_swapped)}
 
 
 def main() -> int:

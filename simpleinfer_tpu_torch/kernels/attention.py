@@ -19,8 +19,9 @@ the input dtype before P·V, as in the JAX oracle. A query row with no
 live key gives 0 in both (the JAX oracle's softmax gives NaN there).
 
 The dispatch gates `flash_profitable` / `flash_band_profitable` keep
-the JAX package's thresholds and env knobs; they were measured on a
-TPU and are to be re-measured on the H100.
+the JAX package's env knobs and thresholds, but for the causal Lk,
+which was measured on the H100 (`FLASH_MIN_LK`); the others were
+measured on a TPU and are still to be re-measured.
 
 `launches` counts kernel launches.
 """
@@ -42,13 +43,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
+# the causal gate's least Lk (SI_FLASH_MIN_LK overrides it): on an H100
+# the tensor-core kernel beats the unblocked path at every L measured,
+# from 256 up (chip_smoke.flash_gate_sweep), and the JAX package's gate
+# never goes below 256 either
+FLASH_MIN_LK = 256
+
+
 def flash_profitable(lq: int, lk: int, causal: bool = True) -> bool:
     """Sequence-length dispatch gate for the flash kernel: causal
-    Lk >= 2048, non-causal Lk >= 4096, Lq >= 256 (the JAX package's
-    thresholds); SI_FLASH_MIN_LK / SI_FLASH_MIN_LK_NC / SI_FLASH_MIN_LQ
-    override them, read at call time."""
+    Lk >= FLASH_MIN_LK (measured on the H100), non-causal Lk >= 4096 and
+    Lq >= 256 (the JAX package's thresholds); SI_FLASH_MIN_LK /
+    SI_FLASH_MIN_LK_NC / SI_FLASH_MIN_LQ override them, read at call
+    time."""
     if causal:
-        min_lk = int(os.environ.get("SI_FLASH_MIN_LK", "2048"))
+        min_lk = int(os.environ.get("SI_FLASH_MIN_LK", FLASH_MIN_LK))
     else:
         min_lk = int(os.environ.get("SI_FLASH_MIN_LK_NC", "4096"))
     min_lq = int(os.environ.get("SI_FLASH_MIN_LQ", "256"))
@@ -136,7 +145,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (key j live for query i iff i-W < j <= i, the window includes
     self); a band at least as wide as L is plain causal. The TPU
     wrapper's block_q / block_k are its VMEM tile sizes and have no
-    counterpart here (the CUDA tile is 64 x 64).
+    counterpart here. bf16 inputs on the card run on the tensor cores
+    (128 queries x 64 keys a tile, P rounded to bf16 for P·V, as the TPU
+    body does) and take scale > 0; f32 inputs keep P in f32.
     """
     global launches
     sliding_window = _check_args(q, k, causal, sliding_window)

@@ -150,7 +150,7 @@ def _bind(lib):
 def _bind_int4w(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.si_matmul_int4w.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
-                                    ci, ci, ci, ci, ctypes.c_float, vp]
+                                    ci, ci, ci, ci, ci, ctypes.c_float, vp]
     lib.si_matmul_int4w.restype = ci
 
 
@@ -262,13 +262,50 @@ def matmul_int8w(x, w_q, scale, bias=None, activation: Optional[str] = None,
     return _launch(x, w_q, scale, bias, activation, out_dtype)
 
 
+# output columns of one block of the tensor-core route, and the most K
+# slices of its decode route (one thread-block cluster; csrc/matmul_int4w.cu)
+INT4W_BLOCK_N = 128
+INT4W_MAX_SLICES = 8
+_sm_counts: dict = {}
+
+
+def int4w_decode_splits(n: int, n_groups: int, sms: int) -> int:
+    """K slices of the bf16 decode route (M <= 16) for N columns and
+    `n_groups` K-groups on a card of `sms` SMs: enough 128-column blocks
+    for ~2 per SM, at most INT4W_MAX_SLICES (a cluster), each slice whole
+    groups, as even as the groups allow (ceil(n_groups / ceil(n_groups /
+    splits)) slices)."""
+    tiles = -(-n // INT4W_BLOCK_N)
+    want = min(max(-(-2 * sms // tiles), 1), n_groups, INT4W_MAX_SLICES)
+    per = -(-n_groups // want)
+    return -(-n_groups // per)
+
+
+def _int4w_splits(x, n, kp2, group) -> int:
+    """K slices of the split-K decode route for bf16 x, else 0."""
+    if x.dtype != torch.bfloat16 or x.shape[0] > 16 or group % 32 or \
+            group & (group - 1):
+        return 0
+    dev = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return int4w_decode_splits(n, 2 * kp2 // group, _sm_counts[dev])
+
+
 def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
                  out_dtype=None):
     """out = act(x[M,K] @ dequant(wq4) + bias[N]) with wq4 a
     Quantized4Tensor (group-wise nibble-packed int4; see quant/tensor.py
     for the layout the kernel shares). The TPU wrapper's block_m /
     block_n / groups_per_block are its VMEM tile sizes and have no
-    counterpart here: the CUDA kernel picks its tile from M."""
+    counterpart here: the CUDA kernel picks its route from x's dtype,
+    the group and M. bf16 x with a group of 32, 64, 128, ... runs on
+    the tensor cores, summing each group in f32 before its scale;
+    for M <= 16 K is split over `int4w_decode_splits` slices, one
+    thread-block cluster, which sum their f32 partials in a fixed order
+    through shared memory (reruns are bit-equal)."""
     global launches_int4w
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -314,8 +351,9 @@ def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
             scale.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             _DTYPE_CODES[bias.dtype] if bias is not None else 0,
-            out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, kp2,
-            wq4.group, code, arg,
+            out.data_ptr(), _DTYPE_CODES[out_dtype],
+            _int4w_splits(x, n, kp2, wq4.group), m, n, k, kp2, wq4.group,
+            code, arg,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_matmul_int4w launch failed with CUDA error "

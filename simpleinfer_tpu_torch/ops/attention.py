@@ -4,9 +4,10 @@ the KV-cache decoder (zoo/generate.py) shares (counterparts of
 simpleinfer_tpu/ops/attention.py's).
 
 Attention logits and softmax run in f32, P·V at the compute dtype. Past
-the flash gate (kernels/attention.flash_profitable, causal Lk >= 2048 by
-default) prefill runs kernels/attention.flash_attention when kernels are
-on; shorter sequences take the unblocked torch path, as the JAX package
+the flash gate (kernels/attention.flash_profitable, causal Lk >= 256 by
+default, the H100's crossover; the JAX package's TPU gate is 2048)
+prefill runs kernels/attention.flash_attention when kernels are on;
+shorter sequences take the unblocked torch path, as the JAX package
 leaves them to XLA. Rank-3 [N, L, E] tensors are logical == physical.
 
 Not ported yet: alibi, logit_softcap and sliding_window on the op (the

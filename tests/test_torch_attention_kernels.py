@@ -12,6 +12,9 @@ q.k in another order) and exactly the -1e30 sentinel for an empty row;
 a query row with no live key is 0 in the port where the JAX oracle's
 softmax gives NaN (the Pallas kernel, like the port's kernel, gives 0).
 """
+import os
+import sys
+
 import jax  # noqa: F401  (both frameworks in one process, JAX on CPU)
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +139,10 @@ def test_flash_argument_rules():
     (1, 2048, True, None), (2048, 2048, True, 256), (1024, 1024, True, 256),
     (2048, 2048, True, 1024), (8192, 8192, True, 256)])
 def test_flash_gates_match_jax(lq, lk, causal, sw, monkeypatch):
+    """The port's gates are the JAX package's, but for the causal Lk
+    threshold, measured on the H100 (FLASH_MIN_LK): with the JAX
+    package's causal threshold set, they agree everywhere."""
+    monkeypatch.setattr(tattn, "FLASH_MIN_LK", 2048)
     assert tattn.flash_profitable(lq, lk, causal) == \
         jattn.flash_profitable(lq, lk, causal)
     assert tattn.flash_band_profitable(lq, lk, sw) == \
@@ -146,6 +153,18 @@ def test_flash_gates_match_jax(lq, lk, causal, sw, monkeypatch):
         jattn.flash_profitable(lq, lk, causal)
     assert tattn.flash_band_profitable(lq, lk, sw) == \
         jattn.flash_band_profitable(lq, lk, sw)
+
+
+@pytest.mark.parametrize("lq,lk,causal,want", [
+    (256, 256, True, True), (255, 255, True, False), (2048, 2048, True, True),
+    (512, 512, False, False), (1, 2048, True, False)])
+def test_flash_gate_measured_default(lq, lk, causal, want, monkeypatch):
+    """Causal prefill takes the flash kernel from Lk 256 (the H100
+    crossover lies at or below the shortest length measured); the
+    non-causal and Lq gates stay the JAX package's."""
+    monkeypatch.delenv("SI_FLASH_MIN_LK", raising=False)
+    assert tattn.FLASH_MIN_LK == 256
+    assert tattn.flash_profitable(lq, lk, causal) == want
 
 
 # ---- decode attention -----------------------------------------------------
@@ -244,3 +263,77 @@ def test_attention_wrappers_without_card():
     with pytest.raises(ValueError, match="CUDA"):
         tdec.decode_attention(qd.to("meta"), kd.to("meta"), vd.to("meta"),
                               torch.tensor([5]), scale=0.5)
+
+
+# ---- the tensor-core flash route's arithmetic, emulated -------------------
+def _chip_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _flash_mma_order(q, k, v, causal, scale, sw, tk=64):
+    """The bf16 route of csrc/flash_attention.cu in its arithmetic order:
+    f32 logits of the bf16 q, k, an online softmax over 64-key tiles
+    (running max of the raw logits and running sum in f32; exponents
+    s * scale * log2(e) - m * scale * log2(e) in base 2; a row with no
+    live key so far is shifted by 0), the unnormalized P rounded to bf16
+    before P.V with f32 sums, divided by the running sum at the end."""
+    lq, lk = q.shape[-2], k.shape[-2]
+    sl2 = scale * 1.4426950408889634
+    qf, kf, vf = q.float(), k.float(), v.float()
+    i = torch.arange(lq)[:, None]
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for k0 in range(0, lk, tk):
+        j = torch.arange(k0, min(k0 + tk, lk))[None, :]
+        s = qf @ kf[..., k0:k0 + tk, :].transpose(-1, -2)
+        if causal:
+            live = j <= i
+            if sw is not None:
+                live &= j > i - sw
+            s = s.masked_fill(~live, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        safe = torch.where(torch.isinf(m_new), 0.0, m_new * sl2)
+        alpha = torch.where(torch.isinf(m), 0.0, torch.exp2(m * sl2 - safe))
+        p = torch.exp2(s * sl2 - safe)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.bfloat16().float() @ vf[..., k0:k0 + tk, :]
+        m = m_new
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0).to(q.dtype)
+
+
+# chip_smoke's flash cases (bf16) and the llama width cut to L <= 512
+FLASH_MMA_CASES = [(2, 3, 100, 100, 24, True, None),
+                   (1, 4, 77, 130, 64, False, None),
+                   (2, 2, 300, 300, 64, True, 50),
+                   (1, 2, 200, 200, 128, True, 64),
+                   (1, 2, 129, 129, 256, True, None),
+                   (1, 8, 512, 512, 64, True, None),
+                   (2, 4, 384, 384, 64, True, None)]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,sw", FLASH_MMA_CASES)
+def test_flash_mma_order_within_card_tolerance(b, h, lq, lk, d, causal, sw):
+    """The tensor-core route's order against the plain version (one f32
+    softmax, normalized P rounded to bf16), bf16 inputs, within
+    chip_smoke's flash limit: 1e-4 x max(1, |ref|) + one bf16 ulp +
+    2 x 2^-8 sum_j p_j |v_j| (both sides round P to bf16)."""
+    cs = _chip_smoke()
+    q, k, v = (torch.from_numpy(t).bfloat16()
+               for t in _qkv(b, h, lq, lk, d, seed=lq + d + 2))
+    scale = 1.0 / np.sqrt(d)
+    got = _flash_mma_order(q, k, v, causal, scale, sw)
+    ref = tattn.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                    sliding_window=sw)
+    lim = cs.KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
+    lim = lim + cs.FLASH_BF16_P_ROUNDOFF * tattn.flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=causal, scale=scale,
+        sliding_window=sw)
+    _, ok, share = cs._close_tol(got, ref, lim, cs.KERNEL_BF16_RTOL)
+    assert ok, share

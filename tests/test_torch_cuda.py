@@ -105,11 +105,17 @@ def test_engine_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,group", [(1, 200, 70, 128), (16, 2048, 96, 128),
-                                         (37, 129, 131, 64), (100, 256, 50, 32)])
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 200, 70, 128), (16, 2048, 96, 128), (37, 129, 131, 64),
+    (100, 256, 50, 32), (15, 5456, 33, 128), (16, 5456, 512, 128),
+    (17, 5456, 5456, 128), (24576, 2048, 512, 128), (1, 2048, 5456, 128),
+    (40, 96, 48, 6)])
 def test_int4w_kernel_matches_plain_on_card(cuda, m, k, n, group):
-    """matmul_int4w: the decode GEMV (M <= 16) and the tiled kernel, a
-    logical K that is not a multiple of the group, ragged M and N."""
+    """matmul_int4w, f32 and bf16 x: the split-K decode route (M <= 16)
+    and the prefill tiles on the tensor cores for bf16, the CUDA-core
+    kernels for f32 (and a group that is no multiple of 32); the llama
+    down projection's K = 5456 (a last group of 64 live high and 16 live
+    low rows), ragged M and N (narrower staging loads)."""
     rng = np.random.default_rng(m + k + n)
     x = rng.standard_normal((m, k), dtype=np.float32)
     w = rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)
@@ -129,13 +135,47 @@ def test_int4w_kernel_matches_plain_on_card(cuda, m, k, n, group):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 2048, 2048), (16, 5456, 2048),
+                                   (15, 2048, 32000), (5, 200, 70)])
+def test_int4w_decode_split_k_reruns_bit_equal(cuda, m, k, n):
+    """The bf16 decode route sums its K slices in a fixed order: the
+    same call gives the same bits every time."""
+    rng = np.random.default_rng(m + k + n)
+    w = rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)
+    q = quantize_int4_grouped(w, group=128).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    first = tmm.matmul_int4w(x, q, out_dtype=torch.float32)
+    for _ in range(3):
+        assert torch.equal(tmm.matmul_int4w(x, q, out_dtype=torch.float32),
+                           first)
+
+
+def _flash_bf16_lim(q, k, v, ref, causal, sw):
+    """chip_smoke's flash bf16 limit: 1e-4 x max(1, |ref|) + one bf16 ulp
+    + 2 x 2^-8 sum_j p_j |v_j| (P rounded to bf16 on both sides, each
+    moving the output by at most 2^-8 sum_j p_j |v_j|)."""
+    return (1e-4 * max(1.0, float(ref.float().abs().max()))
+            + 2.0 ** -7 * ref.float().abs()
+            + 2.0 ** -7 * kattn.flash_attention_ref(
+                q.float(), k.float(), v.float().abs(), causal=causal,
+                sliding_window=sw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,lq,lk,d,causal,sw", [
     (2, 3, 100, 100, 24, True, None), (1, 4, 77, 130, 64, False, None),
-    (2, 2, 300, 300, 64, True, 50), (1, 2, 129, 129, 128, True, None)])
+    (2, 2, 300, 300, 64, True, 50), (1, 2, 129, 129, 128, True, None),
+    (1, 2, 200, 200, 256, False, None), (1, 2, 300, 300, 256, True, 64),
+    (2, 2, 260, 260, 128, True, 100), (1, 3, 150, 150, 20, True, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(cuda, b, h, lq, lk, d, causal,
-                                            sw):
+                                            sw, dtype):
+    """f32 (CUDA cores) and bf16 (tensor cores): head dims 20 / 24
+    (padded to 32; 20 stages with narrow loads), 64, 128 and 256,
+    causal, non-causal with Lq != Lk, banded."""
     gen = torch.Generator(device=cuda).manual_seed(lq + d)
-    q, k, v = (torch.randn(b, h, l_, d, generator=gen, device=cuda)
+    q, k, v = (torch.randn(b, h, l_, d, generator=gen, device=cuda).to(dtype)
                for l_ in (lq, lk, lk))
     before = kattn.launches
     with fp32_parity(True):
@@ -143,8 +183,30 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, lq, lk, d, causal,
         torch.cuda.synchronize()
         ref = kattn.flash_attention_ref(q, k, v, causal=causal,
                                         sliding_window=sw)
-    _assert_close(got, ref)
-    assert kattn.launches - before == 1
+    assert kattn.launches - before == 1 and got.dtype == ref.dtype
+    if dtype == torch.float32:
+        _assert_close(got, ref)
+    else:
+        d_ = (got.float() - ref.float()).abs()
+        lim = _flash_bf16_lim(q, k, v, ref, causal, sw)
+        assert bool((d_ <= lim).all()), float((d_ / lim).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 24])
+def test_flash_bf16_strided_views_on_card(cuda, d):
+    """The rotary op's call: q, k, v transposed from [N, L, H, D] (L
+    stride H*D), the output laid out [N, L, H, D] under its view."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, l_, h = 2, 320, 4
+    q, k, v = (torch.randn(n, l_, h, d, generator=gen, device=cuda)
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    got = kattn.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.stride(2) == h * d
+    ref = kattn.flash_attention_ref(q, k, v, causal=True)
+    d_ = (got.float() - ref.float()).abs()
+    assert bool((d_ <= _flash_bf16_lim(q, k, v, ref, True, None)).all())
 
 
 @pytest.mark.cuda

@@ -15,6 +15,8 @@ tests/test_kernels.py runs it. Tolerances:
   two sides may round an f32 value on either side of a bf16 boundary.
 """
 import importlib
+import os
+import sys
 
 import jax  # noqa: F401
 import jax.numpy as jnp
@@ -248,3 +250,80 @@ def test_int4w_wrapper_checks_without_card():
     assert out.shape == (4, 8) and tmm.launches_int4w == before
     with pytest.raises(ValueError, match="CUDA"):
         tmm.matmul_int4w(torch.from_numpy(x).to("meta"), q)
+
+
+# ---- the tensor-core route's arithmetic, emulated -------------------------
+def _chip_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _int4w_mma_order(x, q, bias, act, out_dtype):
+    """The bf16 route of csrc/matmul_int4w.cu in its arithmetic order:
+    each group's bf16 x int4 products (exact) summed in f32, times the
+    group's f32 scale, folded into an f32 sum group after group; then
+    bias, activation and the cast."""
+    p = q.packed.to(torch.int32)
+    kp2, n = p.shape
+    kg, half = q.scale.shape[0], q.group // 2
+    hi = (p >> 4).reshape(kg, half, n)
+    lo = (((p & 0xF) ^ 8) - 8).reshape(kg, half, n)
+    wq = torch.cat([hi, lo], dim=1).float()            # [kg, group, N]
+    xf = torch.zeros(x.shape[0], kg * q.group)
+    xf[:, :q.k] = x.float()
+    acc = torch.zeros(x.shape[0], n)
+    for g in range(kg):
+        part = xf[:, g * q.group:(g + 1) * q.group] @ wq[g]
+        acc = acc + part * q.scale[g]
+    if bias is not None:
+        acc = acc + bias.float()
+    return tmm.resolve_activation(act)(acc).to(out_dtype)
+
+
+# chip_smoke's ragged int4w cases and the llama widths (K 2048 and 5456,
+# group 128; N cut to keep the CPU quick)
+INT4_MMA_CASES = [(1, 200, 70, 128), (37, 129, 131, 64), (100, 256, 50, 128),
+                  (17, 384, 96, 128), (16, 2048, 33, 128), (64, 130, 64, 32),
+                  (16, 2048, 256, 128), (64, 5456, 128, 128),
+                  (17, 5456, 96, 128)]
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,group", INT4_MMA_CASES)
+def test_int4w_mma_order_within_card_tolerance(m, k, n, group, out):
+    """The tensor-core route's order of sums against the plain version
+    (matmul_int4w_ref: f32 dequant, one f32 product), bf16 x, bias +
+    silu, within chip_smoke's kernel-vs-plain limit: 1e-4 x max(1,
+    |ref|), plus one bf16 ulp for a bf16 output."""
+    cs = _chip_smoke()
+    x, w, b = _int4_case(m, k, n, seed=3)
+    q = tquant4(w, group=group)
+    xt = torch.from_numpy(x).bfloat16()
+    bt = torch.from_numpy(b).bfloat16()
+    od = getattr(torch, out)
+    got = _int4w_mma_order(xt, q, bt, "silu", od)
+    ref = tmm.matmul_int4w_ref(xt, q, bt, "silu", out_dtype=od)
+    lim = cs.KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
+    _, ok, share = cs._close_tol(got, ref, lim, cs.KERNEL_BF16_RTOL
+                                 if od == torch.bfloat16 else 0.0)
+    assert ok, share
+
+
+@pytest.mark.parametrize("n,k,splits", [(2048, 2048, 8), (512, 2048, 8),
+                                        (5456, 2048, 6), (2048, 5456, 8),
+                                        (32000, 2048, 2), (33, 200, 2)])
+def test_int4w_decode_splits(n, k, splits):
+    """The decode route's K slices at the llama projections on 132 SMs:
+    whole groups each, about 2 x 132 blocks of 128 columns where the
+    groups and a cluster's 8 blocks allow, and the count the C entry
+    accepts."""
+    groups = -(-k // 128)
+    got = tmm.int4w_decode_splits(n, groups, 132)
+    assert got == splits
+    per = -(-groups // got)
+    assert -(-groups // per) == got and 1 <= got <= min(groups, 8)
