@@ -7,9 +7,9 @@ Phases, each printing JSON lines:
 1. device and build: the card (torch and nvidia-smi), the nvcc build of
    every kernel source (one nvcc each, started together) with
    `-Xptxas -v` registers and spills; then the tensor-core instructions
-   (HMMA / HGMMA) of each function of matmul_int4w.cu and
-   flash_attention.cu in the built SASS (cuobjdump -sass), which fails
-   if a bf16 route has none;
+   (HMMA / HGMMA) of each function of matmul_int4w.cu,
+   flash_attention.cu, matmul.cu and conv3x3.cu in the built SASS
+   (cuobjdump -sass), which fails if a bf16 route has none;
 2. kernel vs plain version on the card: `matmul` and `matmul_int8w` at
    the YOLOv5s-640-b8 pointwise-conv shapes (taken from the main path)
    and at ragged shapes, x in bf16 and f32, every activation; then the
@@ -17,7 +17,8 @@ Phases, each printing JSON lines:
    `torch.addmm`'s and the bound;
 3. main path: YOLOv5s 640x640, batch 8, bf16 int8w through `Engine.run`,
    with the launch count per forward, output checks, a comparison with
-   the same model run with kernels off, and throughput both ways;
+   the same model run with kernels off, and throughput both ways (both
+   matmul entries take csrc/matmul.cu's bf16 tensor-core route there);
 4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s;
 4b. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
    bf16, quant="int8", c3_fusion, calibrated by Engine.calibrate on 2
@@ -30,11 +31,14 @@ Phases, each printing JSON lines:
    f32 rounding), and all three at every call a forward made, on its
    own inputs; their times beside plain, library (`torch._int_mm` for
    matmul_s8s8, `torch.addmm` for matmul_int8w, none for a C3 block)
-   and bound, and the time of the 4 fused blocks below c3_profitable,
-   which run the plain version; forward times kernels on, off, on; a
-   profile; kernels on vs off, box and scores each against its own
-   scale, within limits set between the sound reading and a fault's
-   (scripts/torch_onoff_control.py --int8);
+   and bound, a line per C3 block with the times of c3_block, of the bf16
+   library chain ops/c3.c3_chain and of c3_block_reference, and the time
+   of the 4 fused blocks below c3_profitable, which run c3_chain (held
+   to c3_block's bf16 limit of the plain version); forward times kernels
+   on, off, on; profiles (the kernels-off one must run no float64
+   kernel: its s8 products are torch._int_mm's); kernels on vs off, box
+   and scores each against its own scale, within limits set between the
+   sound reading and a fault's (scripts/torch_onoff_control.py --int8);
 5. llama kernels vs plain: matmul_int4w, flash_attention and
    decode_attention at ragged shapes, f32 and bf16 (int4w: the down
    projection's K 5456 and the MLP's N 5456 at M 17; decode: lengths 0,
@@ -68,18 +72,21 @@ Phases, each printing JSON lines:
    64) folded stem weights on a seeded image; each against its plain
    version there and (conv3x3) at ragged shapes, x bf16 and f32, every
    activation, with and without bias; times beside plain, library
-   (F.conv2d, channels-last bf16, + bias + activation) and bound;
+   (F.conv2d, channels-last bf16, + bias + activation) and bound, a line
+   per main shape;
 10. `resnet_int8`, this slice's main path: ResNet-50-224-b128 (torchvision
    widths and depths, 25.6 M parameters) bf16 static int8 per-tensor,
    calibrated by Engine.calibrate on 2 seeded batches (wall time
    printed); launches of matmul_int8w (33 pointwise s1 convs) and
    matmul_s8s8 (13 3x3 convs with ic >= 128 and the fc) per forward
    with the counts set to 0 just before; both kernels against their
-   plain versions at every call of a forward; their times; forwards on,
-   off, on; a profile; logits on vs off within limits set between the
-   sound reading and a fault's (scripts/torch_onoff_control.py
-   --resnet), top-1 agreement reported; classify_images top-5 of 8
-   seeded 256x320 images; fp32 ResNet-18 on the card vs the CPU port.
+   plain versions at every call of a forward; their times (a line per
+   pointwise conv: kernel / torch.addmm / bound); forwards on, off, on;
+   profiles (no float64 kernel with kernels off); logits on vs off
+   within limits set between the sound reading and a fault's
+   (scripts/torch_onoff_control.py --resnet), top-1 agreement reported;
+   classify_images top-5 of 8 seeded 256x320 images; fp32 ResNet-18 on
+   the card vs the CPU port.
 
 The line before the last two is the card's nvidia-smi name and power
 limit, then {"kernels": [...]}, then {"ok": true, "device": {...}}. Any
@@ -159,13 +166,22 @@ def device_and_build(device) -> dict:
     t0 = time.perf_counter()
     built = build.build(SOURCES, rebuild=True)
     for source, b in built.items():
-        # one line per template instance; keep the distinct ones
+        # one line per template instance; keep the distinct ones, and
+        # name the functions that spill
         ptxas = sorted({ln.split(":", 1)[-1].strip()
                         for ln in b["ptxas"].splitlines()
                         if "registers" in ln or "spill" in ln})
+        spills, fn = {}, None
+        for ln in b["ptxas"].splitlines():
+            if "Function properties for" in ln:
+                fn = ln.rsplit(" ", 1)[-1].strip()
+            elif fn and "spill stores" in ln and not ln.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores"):
+                spills[fn] = ln.strip()
         emit({"phase": "build", "source": f"simpleinfer_tpu_torch/csrc/"
               f"{source}", "seconds": round(b["seconds"], 3),
-              "ptxas": ptxas})
+              "ptxas": ptxas, "spills": dict(zip(
+                  _demangle(list(spills)), spills.values()))})
     emit({"phase": "build_all", "seconds": round(time.perf_counter() - t0,
                                                  3)})
     return info
@@ -173,7 +189,9 @@ def device_and_build(device) -> dict:
 
 # tensor-core kernels of the bf16 routes: (source, function name part)
 MMA_KERNELS = (("matmul_int4w.cu", "si_int4w_mma_kernel"),
-               ("flash_attention.cu", "si_flash_mma_kernel"))
+               ("flash_attention.cu", "si_flash_mma_kernel"),
+               ("matmul.cu", "si_matmul_mma_kernel"),
+               ("conv3x3.cu", "si_conv3x3_mma_kernel"))
 
 
 def _tool(name) -> str:
@@ -183,6 +201,18 @@ def _tool(name) -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(f"{name} not found")
+
+
+def _demangle(names) -> list:
+    """C++ names as cu++filt prints them (as given where it is missing)."""
+    if not names:
+        return []
+    try:
+        return subprocess.run([_tool("cu++filt")], input="\n".join(names),
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+    except (RuntimeError, subprocess.CalledProcessError):
+        return list(names)
 
 
 def sass_mma_counts() -> dict:
@@ -210,13 +240,7 @@ def sass_mma_counts() -> dict:
                 elif op.startswith("HMMA"):
                     counts[fn]["HMMA"] += 1
     names = sorted(counts)
-    try:
-        plain = subprocess.run([_tool("cu++filt")], input="\n".join(names),
-                               capture_output=True, text=True,
-                               check=True).stdout.splitlines()
-    except (RuntimeError, subprocess.CalledProcessError):
-        plain = names
-    rows = {p: counts[n] for n, p in zip(names, plain)}
+    rows = {p: counts[n] for n, p in zip(names, _demangle(names))}
     emit({"phase": "sass_tensor_core", "functions": rows})
     for source, part in MMA_KERNELS:
         mine = [r for n, r in counts.items() if part in n]
@@ -519,18 +543,30 @@ def profile_forward(engine, feeds: dict, forward_ms: float, iters=3,
         kernels.append((us / 1e3 / iters, e.count / iters, e.key[:90]))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
+    f64 = [k for k in kernels if "f64" in k[2] or "dgemm" in k[2]]
     return {"profiled_wall_ms_per_forward": wall_ms,
             "device_ms_per_forward": busy,
             "forward_ms": forward_ms,
             "busy_share": busy / forward_ms,
             "si_matmul_ms_per_forward": sum(
                 k[0] for k in kernels if "si_matmul" in k[2]),
+            "f64_kernels_per_forward": sum(k[1] for k in f64),
+            "f64_ms_per_forward": sum(k[0] for k in f64),
             "hand_kernels_ms_per_forward": {
                 name: sum(k[0] for k in kernels if name in k[2])
                 for name in ("si_s8s8_kernel", "c3_fp_kernel",
                              "c3_s8_tap_kernel")},
             "top_kernels": [[round(ms, 4), cnt, name]
                             for ms, cnt, name in kernels[:top]]}
+
+
+def check_no_f64(prof, what) -> None:
+    """Static int8 with kernels off takes torch._int_mm's s32 product
+    (ops/conv.matmul_s8s8_library): its profile has no float64 kernel."""
+    if prof["f64_kernels_per_forward"]:
+        n = prof["f64_kernels_per_forward"]
+        raise AssertionError(f"{what} kernels off: {n} float64 kernels per "
+                             f"forward")
 
 
 def main_path(device, batch=8, image=640, n_batches=4, engines=None,
@@ -697,14 +733,16 @@ def int8_engine(device, use_kernels, variant=INT8["variant"],
 def int8_recorder() -> Recorder:
     """A Recorder of every call the int8 path makes to its kernels:
     matmul_s8s8, c3_block and matmul_int8w (the pointwise convs outside
-    the int8 gate run weight-only), and of c3_block_reference, which
-    ops/c3.py runs for the fused blocks below c3_profitable (on a CPU
-    tensor c3_block runs it too)."""
+    the int8 gate run weight-only), and of the chains ops/c3.py runs for
+    the fused blocks below c3_profitable: c3_chain (bf16 on the card) or
+    c3_block_reference (on a CPU tensor c3_block runs it too)."""
     from simpleinfer_tpu_torch.kernels import c3block as kc3
     from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.ops import c3 as oc3
 
     return Recorder({"matmul_s8s8": kmm, "matmul_int8w": kmm,
-                     "c3_block": kc3, "c3_block_reference": kc3})
+                     "c3_block": kc3, "c3_block_reference": kc3,
+                     "c3_chain": oc3})
 
 
 def _c3_args(gen, device, n, h, w, c, hid, oc, t, s8, dtype, grid=False):
@@ -753,12 +791,15 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
     dyadic-grid block with one bottleneck and no activation whose result
     must agree to f32 rounding), then every call the main path recorded
     (`rec`) to matmul_s8s8, matmul_int8w and c3_block, with its own
-    inputs. Returns the largest max-abs error of each kernel at the main
-    path's calls. ragged=False checks the recorded calls only."""
+    inputs; and the recorded c3_chain calls (the library route below the
+    gate) against c3_block_reference within c3_block's bf16 limit.
+    Returns the largest max-abs error of each kernel at the main path's
+    calls. ragged=False checks the recorded calls only."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import c3block as kc3
     from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.ops import c3 as oc3
 
     gen = torch.Generator(device=device).manual_seed(seed)
     sync = (lambda: torch.cuda.synchronize(device)) \
@@ -770,6 +811,7 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
     mms = {"matmul_s8s8": (kmm.matmul_s8s8, kmm.matmul_s8s8_ref),
            "matmul_int8w": (kmm.matmul_int8w, kmm.matmul_int8w_ref)}
     c3, c3_ref = kc3.c3_block, kc3.c3_block_reference
+    chain = oc3.c3_chain
 
     def check_mm(name, args, kw, case, main):
         nonlocal n_checks
@@ -834,6 +876,17 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
         if name == "c3_block_reference":
             continue            # the plain version itself
         for args, kw in calls:
+            if name == "c3_chain":
+                with fp32_parity(True):
+                    got = chain(*args, **kw)
+                    ref = c3_ref(*args, **kw)
+                err, mean, scl, ok = c3_close(got, ref, False)
+                n_checks += 1
+                if not ok:
+                    failures.append(dict(route="c3_chain", case=[
+                        *args[0].shape], max_abs_err=err, mean_abs_err=mean,
+                        scale=scl))
+                continue
             if name in mms:
                 check_mm(name, args, kw,
                          [*args[0].shape, args[1].shape[1]], True)
@@ -890,10 +943,13 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
     run the plain version: their count and ms per forward.
     `s8s8_in_bytes`, one per recorded matmul_s8s8 call, replaces the
     3x3-stride-2 estimate of the conv's own input bytes; `tag` prefixes
-    the phase names; the C3 parts run where the recorder has them."""
+    the phase names; the C3 parts run where the recorder has them. One
+    line per matmul_int8w call (kernel / addmm / bound) and per C3 block
+    (kernel / c3_chain / c3_block_reference)."""
     import torch
     from simpleinfer_tpu_torch.kernels import c3block as kc3
     from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.ops import c3 as oc3
 
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     out = {}
@@ -971,6 +1027,8 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
              "library_ms": _time_ms(device, lib, iters, flush),
              "bound_ms": bd}
         rows.append({"shape": [m, k, n], **t, "bound_by": by})
+        emit({"phase": f"{tag}int8w_call_time", "shape": [m, k, n],
+              "out": str(od)[6:], **t, "bound_by": by})
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] += t[key]
         tot["bytes_ms" if by == "bytes" else "ops_ms"] += bd
@@ -985,8 +1043,8 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
     if "c3_block" not in rec.calls:
         return out
 
-    c3 = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
-              bytes_ms=0.0, ops_ms=0.0, launches=0)
+    c3 = dict(ms=0.0, plain_ms=0.0, chain_ms=0.0, library_ms=None,
+              bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, launches=0)
     rows = []
     for args, kw in rec.calls["c3_block"]:
         x = args[0]
@@ -1003,12 +1061,14 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
                             iters, flush),
              "plain_ms": _time_ms(device, lambda: kc3.c3_block_reference(
                  *args, **kw), 2, flush),
+             "chain_ms": _time_ms(device, lambda: oc3.c3_chain(*args, **kw),
+                                  iters, flush),
              "bound_ms": max(t_b, t_o)}
         rows.append({"x": [n, h, w, c], "hid": hid, "oc": oc, "T": t_,
                      "s8": s8, "shortcut": kw.get("shortcut", True), **t,
                      "gflop": (f1 + f3) / 1e9,
                      "bound_by": "bytes" if t_b >= t_o else "operations"})
-        for key in ("ms", "plain_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "chain_ms", "bound_ms"):
             c3[key] += t[key]
         c3["bytes_ms"] += t_b
         c3["ops_ms"] += t_o
@@ -1017,22 +1077,37 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
         else "operations"
     out["c3_block"] = c3
     emit({"phase": "kernel_time_c3", "unit": "one forward", **c3,
-          "library": "none: no single PyTorch call computes a C3 block",
+          "library": "none: no single PyTorch call computes a C3 block; "
+          "chain_ms: ops/c3.c3_chain, the bf16 library chain",
           "calls": rows})
+    for r in rows:      # one line per block: kernel beside the chains
+        emit({"phase": "c3_block_time", **{k: r[k] for k in (
+            "x", "hid", "oc", "T", "s8", "ms", "chain_ms", "plain_ms",
+            "bound_ms")}})
 
     # the fused blocks below c3_profitable: ops/c3.py runs them through
-    # c3_block_reference, the kernel's plain version, on the card
+    # c3_chain on the card (bf16), c3_block_reference elsewhere; both
+    # timed, the recorded route first
     below = []
-    for args, kw in rec.calls["c3_block_reference"]:
-        n, h, w, c = args[0].shape
-        below.append({"x": [n, h, w, c], "hid": args[1].shape[1],
-                      "T": args[8].shape[0],
-                      "ms": _time_ms(device, lambda: kc3.c3_block_reference(
-                          *args, **kw), 2, flush)})
+    for name in ("c3_chain", "c3_block_reference"):
+        for args, kw in rec.calls[name]:
+            n, h, w, c = args[0].shape
+            row = {"x": [n, h, w, c], "hid": args[1].shape[1],
+                   "T": args[8].shape[0], "route": name,
+                   "ms": _time_ms(device, lambda: getattr(
+                       oc3 if name == "c3_chain" else kc3, name)(
+                           *args, **kw), iters, flush),
+                   "chain_ms": _time_ms(device, lambda: oc3.c3_chain(
+                       *args, **kw), iters, flush),
+                   "plain_ms": _time_ms(device, lambda: kc3.c3_block_reference(
+                       *args, **kw), 2, flush)}
+            below.append(row)
+            emit({"phase": "c3_below_gate_block", **row})
     out["c3_below_gate"] = {"blocks": len(below),
-                            "ms": sum(b["ms"] for b in below)}
+                            "ms": sum(b["ms"] for b in below),
+                            "plain_ms": sum(b["plain_ms"] for b in below)}
     emit({"phase": "c3_below_gate", "unit": "one forward",
-          **out["c3_below_gate"], "calls": below})
+          **out["c3_below_gate"]})
     return out
 
 
@@ -1094,7 +1169,8 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
            "c3_s8_blocks_per_forward": sum(
                kw.get("btl_b_scale") is not None for _, kw in c3_calls),
            "c3_plain_blocks_per_forward": len(
-               rec.calls["c3_block_reference"]),
+               rec.calls["c3_block_reference"]) + len(rec.calls["c3_chain"]),
+           "c3_chain_blocks_per_forward": len(rec.calls["c3_chain"]),
            "fused_c3_ops": sum(i.type == "si.FusedC3"
                                for i in on.program.impls),
            "output_shape": list(outs[0].shape),
@@ -1176,8 +1252,10 @@ def yolo_int8_phase(device, kernels: dict) -> dict:
           "img_per_s_kernels_off": batch * 1e3 / t_off["median_ms"]})
     emit({"phase": "int8_profile_kernels_on", **profile_forward(
         on[0], feeds, ms_on, iters=1, top=15)})
-    emit({"phase": "int8_profile_kernels_off", **profile_forward(
-        off[0], feeds, t_off["median_ms"], iters=1, top=10)})
+    prof_off = profile_forward(off[0], feeds, t_off["median_ms"], iters=1,
+                               top=10)
+    emit({"phase": "int8_profile_kernels_off", **prof_off})
+    check_no_f64(prof_off, "yolov5l int8")
     launches = run["res"]["launches"]
     entries = {}
     for name, src, repl in (
@@ -1458,6 +1536,8 @@ def conv_kernels_phase(device, convs=None, stem_cases=STEM_CASES,
                  padding=pad)), flush=flush),
              "bound_ms": bd}
         rows.append({"kernel": name, "case": case, **t, "bound_by": by})
+        emit({"phase": f"{name}_shape_time", "case": case, **t,
+              "bound_by": by})
         for k, v in t.items():
             tot[name][k] += v
         tot[name]["bytes_ms" if by == "bytes" else "ops_ms"] += bd
@@ -1706,8 +1786,10 @@ def resnet_int8_phase(device, kernels: dict) -> dict:
           "img_per_s_kernels_off": batch * 1e3 / t_off["median_ms"]})
     emit({"phase": "resnet_profile_kernels_on", **profile_forward(
         on[0], feeds, ms_on, iters=1, top=15)})
-    emit({"phase": "resnet_profile_kernels_off", **profile_forward(
-        off[0], feeds, t_off["median_ms"], iters=1, top=10)})
+    prof_off = profile_forward(off[0], feeds, t_off["median_ms"], iters=1,
+                               top=10)
+    emit({"phase": "resnet_profile_kernels_off", **prof_off})
+    check_no_f64(prof_off, "resnet-50 int8")
     resnet_classify(on[0])
     del on, off
     torch.cuda.empty_cache()
@@ -2708,7 +2790,11 @@ def main(argv=None) -> int:
             "launches": main["launches"], "max_abs_err": max_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"],
+            # the dense entry `matmul` (bf16 w, the same kernel), timed at
+            # the same shapes; no op dispatches it
+            "matmul_dense": {k: totals["matmul"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
         torch.cuda.empty_cache()
 
     if "yolo_int8" in phases:

@@ -4,7 +4,9 @@ Pallas `_kernel` behind `conv3x3_s1_same`
 
 `conv3x3_s1_same(x, w_hwio, bias, activation)` computes an NHWC conv
 with stride 1 and zero padding 1 as an implicit GEMM (csrc/conv3x3.cu):
-f32 sums, bias and activation in f32, one rounding to x's dtype. As in
+f32 sums, bias and activation in f32, one rounding to x's dtype. bf16 x
+runs on the bf16 tensor cores (mma.sync, K walked tap-major), f32 x on
+the exact f32-FMA tile. As in
 the JAX package the weights are cast to x's dtype first, and a missing
 bias is zeros. The TPU wrapper's VMEM budget (`conv3x3_vmem_ok` and its
 ValueError) has no counterpart: the kernel takes any H, W, C and OC.
@@ -28,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .matmul import _act_code, _DTYPE_CODES, resolve_activation
+from .matmul import (MMA_BLOCK_M, _act_code, _DTYPE_CODES, mma_block_n,
+                     resolve_activation)
 
 # kernel launches since import (or since a caller reset them to 0)
 launches = 0
@@ -52,7 +55,7 @@ def conv3x3_s1_same_ref(x, w_hwio, bias=None,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.si_conv3x3.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                               ctypes.c_float, vp]
+                               ctypes.c_float, ci, vp]
     lib.si_conv3x3.restype = ci
 
 
@@ -88,7 +91,10 @@ def conv3x3_s1_same(x, w_hwio, bias=None, activation: Optional[str] = None):
     for name, t in (("w_hwio", w_hwio), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if n * h * w * max(c, oc) >= 2 ** 31:
+    # the tensor-core tile's M tiles ride gridDim.y (<= 65535)
+    if (n * h * w * max(c, oc) >= 2 ** 31
+            or (x.dtype == torch.bfloat16
+                and -(-n * h * w // MMA_BLOCK_M) > 65535)):
         raise ValueError(f"conv3x3 too large for the kernel: "
                          f"{tuple(x.shape)} -> {oc}")
     code, arg = _act_code(activation)
@@ -101,7 +107,7 @@ def conv3x3_s1_same(x, w_hwio, bias=None, activation: Optional[str] = None):
     with torch.cuda.device(x.device):
         err = lib.si_conv3x3(
             x.data_ptr(), _DTYPE_CODES[x.dtype], wt.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, h, w, c, oc, code, arg,
+            out.data_ptr(), n, h, w, c, oc, code, arg, mma_block_n(oc),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_conv3x3 launch failed with CUDA error {err} "

@@ -15,8 +15,11 @@ Entry points with the JAX signatures:
 
 The first three compute ``act(x @ w (dequantized) + bias?)`` with f32
 accumulation for any M, N and K. `matmul` and `matmul_int8w` share ONE
-CUDA kernel (csrc/matmul.cu), templated on the input, weight and output
-dtypes; `matmul_int4w` (csrc/matmul_int4w.cu) and `matmul_s8s8`
+CUDA source (csrc/matmul.cu), templated on the input, weight and output
+dtypes: bf16 x with bf16 or int8 w runs on the bf16 tensor cores
+(mma.sync, the int8 weight converted to bf16 in shared memory, the scale
+applied to the f32 sum), any f32 operand on the exact f32-FMA tile;
+`matmul_int4w` (csrc/matmul_int4w.cu) and `matmul_s8s8`
 (csrc/matmul_s8s8.cu) are their own. The kernels are built
 with nvcc for sm_90a at first use, into `_build/` beside this package,
 and bound with ctypes (kernels/build.py).
@@ -143,7 +146,7 @@ def matmul_s8s8_ref(x_q, w_q, scale, bias=None,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.si_matmul.argtypes = [vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci,
-                              ci, ci, ctypes.c_float, vp]
+                              ci, ci, ctypes.c_float, ci, vp]
     lib.si_matmul.restype = ci
 
 
@@ -189,6 +192,16 @@ def _check_vec(name, v, n, dtypes, device):
                          f"{tuple(v.shape)}")
 
 
+# output rows of a tensor-core block, and its two widths (csrc/mma.cuh)
+MMA_BLOCK_M = 128
+
+
+def mma_block_n(n: int) -> int:
+    """Width of the tensor-core output tile for N columns: 64 up to N 64
+    (YOLOv5s's narrow pointwise convs), else 128."""
+    return 64 if n <= 64 else 128
+
+
 def _launch(x, w, scale, bias, activation, out_dtype):
     """Check what the kernel takes, allocate the output, launch on the
     current stream, count the launch."""
@@ -209,8 +222,11 @@ def _launch(x, w, scale, bias, activation, out_dtype):
         raise ValueError("x and w must be contiguous (row-major)")
     m, k = x.shape
     n = w.shape[1]
-    # the C interface takes int sizes; N tiles ride gridDim.y (<= 65535)
-    if m >= 2 ** 31 or k >= 2 ** 31 or n > 65535 * 64:
+    # the C interface takes int sizes; the f32 tile's N tiles and the
+    # tensor-core tile's M tiles ride gridDim.y (<= 65535)
+    mma = x.dtype == torch.bfloat16 and w.dtype != torch.float32
+    if (m >= 2 ** 31 or k >= 2 ** 31 or n > 65535 * 64
+            or (mma and -(-m // MMA_BLOCK_M) > 65535)):
         raise ValueError(f"matmul too large for the kernel: M={m}, "
                          f"K={k}, N={n}")
     _check_vec("scale", scale, n, (torch.float32,), x.device)
@@ -228,7 +244,7 @@ def _launch(x, w, scale, bias, activation, out_dtype):
             bias.data_ptr() if bias is not None else None,
             _DTYPE_CODES[bias.dtype] if bias is not None else 0,
             out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, code, arg,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            mma_block_n(n), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_matmul launch failed with CUDA error {err}"
                            f" (M={m}, N={n}, K={k})")

@@ -6,22 +6,108 @@ Created by ir/passes.fuse_c3_blocks from the YOLOv5 C3 pattern
 
 Dispatch, as in the JAX package: kernels/c3block.c3_block where
 `kernel_ok` (kernels on, and the block passes c3_supported and
-c3_profitable at its actual input), else the reference chain
-(`c3_block_reference`: torch ops, cuDNN convs on the card), the
-counterpart of the JAX package's lax chain. Static-int8 engines give
-the kernel int8 3x3 taps where the JAX package does (kernel_ok and
-c3_taps_s8_profitable); the reference chain always runs the fp taps,
-its conv chain being the unfused engine's math. Weights stay float
+c3_profitable at its actual input), else the chain of the unfused convs,
+the counterpart of the JAX package's lax chain: on the card in bf16
+`c3_chain` (bf16 operands on the library, as the JAX chain runs bf16
+operands on the MXU with f32 sums), otherwise `c3_block_reference` (f32
+sums of the operands at x's dtype: the CPU path, fp32 on the card, and
+the oracle the kernel and `c3_chain` are held to). Static-int8 engines
+give the kernel int8 3x3 taps where the JAX package does (kernel_ok and
+c3_taps_s8_profitable); the chain always runs the fp taps, its conv
+chain being the unfused engine's math. Weights stay float
 (quantizable={}): the s8 taps are quantized here at load.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ir.graph import PARAM_BOOL, PARAM_INT
 from ..kernels import c3block as kc3
+from ..kernels.matmul import resolve_activation
+from .conv import s8_product
 from .registry import OpImpl, register_op, require_attr, require_param
+
+
+def _mm_f32(t, w):
+    """t [..., K] @ w [K, N] with the operands at t's dtype and an f32
+    result: on the card one library GEMM (bf16 operands, f32 sums and
+    out: torch.mm's out_dtype), on the CPU the same sums in f32."""
+    t2 = t.reshape(-1, t.shape[-1])
+    w = w.to(t.dtype)
+    if t.device.type == "cuda":
+        y = torch.mm(t2, w, out_dtype=torch.float32)
+    else:
+        y = t2.float() @ w.float()
+    return y.reshape(*t.shape[:-1], w.shape[1])
+
+
+def _im2col3x3(t):
+    """The 3x3 "same" im2col of NHWC t [N, H, W, C]: [N*H*W, 9*C], tap-
+    major (dy, dx, c) as the [9, C, OC] taps flatten, zeros off the
+    image; one concatenation of the 9 shifted views of the padded map,
+    moved as 8-byte words where C allows (the strided copy's cost is per
+    element, so 2- and 1-byte elements made it 4-8x slower)."""
+    n, h, w, c = t.shape
+    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+    if (c * t.element_size()) % 8 == 0:
+        tp = tp.view(torch.int64)
+    cols = torch.cat([tp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], dim=-1)
+    return cols.view(t.dtype).reshape(n * h * w, 9 * c)
+
+
+def c3_chain(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
+             btl_a_w, btl_a_b, btl_b_w, btl_b_b, btl_b_scale=None,
+             activation: str | None = "silu", shortcut: bool = True):
+    """The C3 block as a chain of library GEMMs with bf16 operands, with
+    the arguments of kernels/c3block.c3_block: each 1x1 one GEMM of the
+    operands at x's dtype with an f32 result (torch.mm's out_dtype on the
+    card), then f32 bias and activation and one rounding to x's dtype;
+    each fp 3x3 the same GEMM over the activation's im2col (`_im2col3x3`)
+    and the taps [9*hid, hid]; s8 taps quantize the bottleneck's f32
+    activation per image and take the exact s32 product of its int8
+    im2col (ops/conv.s8_product: torch._int_mm on the card). The route
+    ops/c3.py takes on the card in bf16 below the kernel's gate or with
+    kernels off: c3_block_reference's sums in another order, one
+    rounding per conv as there (cuDNN's bf16 conv rounds its sums to bf16
+    before the bias, which took the chain past c3_block's bf16 limit of
+    the reference at the tests' widths)."""
+    act = resolve_activation(activation) if activation else (lambda v: v)
+    dt = x.dtype
+
+    def conv1x1(t, wm, bias, keep_f32=False):
+        y = act(_mm_f32(t, wm) + bias.float())
+        return y if keep_f32 else y.to(dt)
+
+    def conv3x3(t, w9, bias):
+        y = _mm_f32(_im2col3x3(t), w9.reshape(-1, w9.shape[2]))
+        y = y.reshape(*t.shape[:3], -1)
+        return act(y + bias.float()).to(dt)
+
+    def conv3x3_s8(t_f32, wq9, wscale, bias):
+        # per-IMAGE dynamic activation quant, as c3_block_reference
+        amax = t_f32.abs().amax(dim=(1, 2, 3), keepdim=True)
+        ascale = torch.clamp(amax, min=1e-8) / 127.0
+        q = torch.clamp(torch.round(t_f32 / ascale), -127.0, 127.0)
+        zi = s8_product(_im2col3x3(q.to(torch.int8)),
+                        wq9.reshape(-1, wq9.shape[2]))
+        y = zi.reshape(*q.shape[:3], -1).float() * (ascale * wscale.float())
+        return act(y + bias.float()).to(dt)
+
+    y1 = conv1x1(x, cv1_w, cv1_b)
+    for t in range(btl_a_w.shape[0]):
+        if btl_b_scale is not None:
+            af = conv1x1(y1, btl_a_w[t], btl_a_b[t], keep_f32=True)
+            z = conv3x3_s8(af, btl_b_w[t], btl_b_scale[t], btl_b_b[t])
+        else:
+            a = conv1x1(y1, btl_a_w[t], btl_a_b[t])
+            z = conv3x3(a, btl_b_w[t], btl_b_b[t])
+        y1 = z + y1 if shortcut else z
+    y2 = conv1x1(x, cv2_w, cv2_b)
+    cat = torch.cat([y1, y2], dim=-1)
+    return conv1x1(cat, torch.cat([cv3_w1.to(dt), cv3_w2.to(dt)], 0), cv3_b)
 
 
 @register_op("si.FusedC3")
@@ -69,7 +155,12 @@ def lower_fused_c3(op, cfg):
                 w["cv3_b"], w["btl_a_w"].to(dt), w["btl_a_b"],
                 w["btl_b_wq"] if s8 else w["btl_b_w"].to(dt), w["btl_b_b"])
         scale = w["btl_b_wsc"] if s8 else None
-        fn = kc3.c3_block if kernel_ok else kc3.c3_block_reference
+        if kernel_ok:
+            fn = kc3.c3_block
+        elif x.device.type == "cuda" and dt == torch.bfloat16:
+            fn = c3_chain
+        else:
+            fn = kc3.c3_block_reference
         return fn(*args, btl_b_scale=scale, activation=act,
                   shortcut=shortcut)
 

@@ -12,8 +12,9 @@ stem/`PackedW` chain):
   input from a chained producer): `conv2d_int8_static` quantizes the
   activation, pads the int8 tensor, lays it out as an int8 im2col in
   HWIO order and runs kernels/matmul.matmul_s8s8, an exact s8 x s8 -> s32
-  product with the dequant / bias / activation epilogue. PyTorch has no
-  int8 convolution on CUDA; the JAX package takes XLA's s8 conv;
+  product with the dequant / bias / activation epilogue (with kernels
+  off, torch._int_mm's s32 product: `matmul_s8s8_library`). PyTorch has
+  no int8 convolution on CUDA; the JAX package takes XLA's s8 conv;
 - pointwise (1x1 s1 p0 d1 g1) int8w convs ARE matmuls: with kernels on
   they run as one launch of kernels/matmul.matmul_int8w on the [N*H*W, C]
   view, dequant + bias + activation in its epilogue;
@@ -112,22 +113,54 @@ def int8_conv_eligible(kernel_area: int, in_channels: int,
             and (kernel_area > 1 or pointwise_ok))
 
 
+def int_mm_ok(q, w_q) -> bool:
+    """Whether torch._int_mm takes q [M, K] @ w_q [K, N] (int8, on the
+    card): its shape rules, M > 16 and K, N positive multiples of 8."""
+    m, k = q.shape
+    n = w_q.shape[1]
+    return (q.device.type == "cuda" and m > 16 and k > 0 and k % 8 == 0
+            and n > 0 and n % 8 == 0)
+
+
+def s8_product(q, w_q):
+    """The exact s8 x s8 sum of q [M, K] @ w_q [K, N]: torch._int_mm's
+    s32 on the card where its shape rules allow (the library route, as
+    XLA's s32 conv is the JAX package's), else float64 (|acc| <= K *
+    127^2, far below 2^53, so every sum is exact; the CPU, and the shapes
+    _int_mm refuses). The two are the same integers."""
+    if int_mm_ok(q, w_q):
+        return torch._int_mm(q.contiguous(), w_q.contiguous())
+    return q.double() @ w_q.double()
+
+
+def matmul_s8s8_library(x_q, w_q, scale, bias=None, activation=None,
+                        out_dtype=torch.bfloat16):
+    """The static-int8 product with kernels off: `s8_product`, then the
+    f32 epilogue of kernels/matmul.matmul_s8s8_ref (which stays the
+    float64 oracle of the kernel). Bit-equal to matmul_s8s8_ref: both
+    sums are the exact integers, rounded once to f32."""
+    out = s8_product(x_q, w_q).float() * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return kmm.resolve_activation(activation)(out).to(out_dtype)
+
+
 def int8_epilogue(q, w_q, act_scale, w_scale, bias, activation, out_dtype,
                   out_quant_scale=None, *, use_kernels: bool = True):
     """The s8 x s8 -> s32 product of every static-int8 site (conv,
     cat-split conv, linear) and its dequant + bias + activation
     epilogue, in one place: q [M, K] int8 @ w_q [K, N] int8 through
-    kernels/matmul.matmul_s8s8 (its plain version with kernels off).
-    Where the JAX package's int8_epilogue takes XLA's s32 accumulator,
-    the port's accumulator stays inside the kernel, so this takes the
-    operands.
+    kernels/matmul.matmul_s8s8, or with kernels off through
+    `matmul_s8s8_library` (torch._int_mm on the card). Where the JAX
+    package's int8_epilogue takes XLA's s32 accumulator, the port's
+    accumulator stays inside the kernel, so this takes the operands.
 
     A rank-1 `act_scale` means per-CHANNEL activation scales, which were
     FOLDED into the quantized weight at install time
     (engine._install_act_scales, see OpImpl.act_fold): the dequant is
     then `w_scale` alone."""
     scale = w_scale if act_scale.ndim else act_scale * w_scale
-    mm = kmm.matmul_s8s8 if use_kernels else kmm.matmul_s8s8_ref
+    mm = kmm.matmul_s8s8 if use_kernels else matmul_s8s8_library
     if out_quant_scale is not None:
         out = mm(q, w_q, scale, bias, activation, out_dtype=torch.float32)
         return _finish(out, None, out_quant_scale)

@@ -19,7 +19,8 @@ activation epilogue (ops/conv.int8_epilogue). The JAX package chooses
 between two exact paths there, its Pallas kernel for
 min(M, K, N) >= 256 with use_pallas and XLA's s32 einsum below; the
 port has one exact path on the card: every static-int8 product goes to
-matmul_s8s8 with kernels on, to its plain version with kernels off.
+matmul_s8s8 with kernels on, with kernels off to torch._int_mm's s32
+product on the card (ops/conv.matmul_s8s8_library; float64 on the CPU).
 """
 from __future__ import annotations
 

@@ -17,7 +17,11 @@ Tolerances:
   per-band abs-max is the image's: with several bands it quantizes per
   band, the oracle and the port per image (ROADMAP.md §3);
 - yolov5l with c3_fusion, port vs JAX, fp32: the golden tolerance
-  (5e-4 x scale atol, 5e-4 rtol).
+  (5e-4 x scale atol, 5e-4 rtol);
+- ops/c3.c3_chain (the bf16 library chain of the card) against
+  c3_block_reference and the JAX oracle in bf16: c3_block's bf16 limit,
+  max 0.05 x scale and mean 5e-4 x scale (chip_smoke.C3_MAX_TOL /
+  C3_MEAN_TOL): its 3x3 rounds to bf16 before the bias.
 """
 import jax  # noqa: F401  (both frameworks in one process, JAX on CPU)
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from simpleinfer_tpu.zoo import build_yolov5 as jbuild
 from simpleinfer_tpu_torch import Engine, EngineConfig
 from simpleinfer_tpu_torch.convert import program_weights_from_numpy
 from simpleinfer_tpu_torch.kernels import c3block as tc3
+from simpleinfer_tpu_torch.ops import c3 as oc3
 from simpleinfer_tpu_torch.zoo import build_yolov5
 
 # (n, h, w, c, hid, oc, n_btl): tests/test_kernels.py's C3_CASES
@@ -163,6 +168,58 @@ def test_c3_block_on_cpu_is_the_plain_version():
     want = tc3.c3_block_reference(torch.from_numpy(x), *args,
                                   shortcut=False)
     assert torch.equal(got, want) and tc3.launches == before
+
+
+@pytest.mark.parametrize("n,h,w,c,hid,oc,t", C3_CASES)
+@pytest.mark.parametrize("s8", [False, True], ids=["fp", "s8"])
+@pytest.mark.parametrize("activation,shortcut", [("silu", True),
+                                                 (None, False)])
+def test_c3_chain_within_c3_limit(n, h, w, c, hid, oc, t, s8, activation,
+                                  shortcut):
+    """c3_chain in bf16 on the CPU (the same bf16 operands, f32 sums and
+    one rounding per conv as the card's library GEMMs; s8 taps an exact
+    product) against c3_block_reference and, with fp taps, the JAX
+    oracle on the same inputs (with s8 taps the port's reference and the
+    JAX oracle differ by an int8 step here and there:
+    test_c3_reference_matches_jax_oracle holds them to the JAX package's
+    s8 tolerance)."""
+    ws = _weights(n + h + c + 1, c, hid, oc, t)
+    x = _x(h * w + 1, n, h, w, c)
+    args = [torch.from_numpy(a) for a in ws]
+    scale = None
+    if s8:
+        wq, wsc = tc3.quantize_taps(ws[9])
+        args[9], scale = torch.from_numpy(wq), torch.from_numpy(wsc)
+    xt = torch.from_numpy(x).bfloat16()
+    kw = dict(btl_b_scale=scale, activation=activation, shortcut=shortcut)
+    got = oc3.c3_chain(xt, *args, **kw)
+    assert got.dtype == torch.bfloat16
+    ref = tc3.c3_block_reference(xt, *args, **kw)
+    wants = [ref.float().numpy()]
+    if not s8:
+        jargs, _ = _jax_args(ws)
+        wants.append(np.asarray(jc3.c3_block_reference(
+            jnp.asarray(x).astype(jnp.bfloat16), *jargs,
+            activation=activation, shortcut=shortcut).astype(jnp.float32)))
+    for want in wants:
+        d = np.abs(got.float().numpy() - want)
+        scl = max(1.0, float(np.abs(want).max()))
+        assert d.max() <= 0.05 * scl and d.mean() <= 5e-4 * scl, \
+            (d.max() / scl, d.mean() / scl)
+
+
+def test_fused_c3_dispatch_takes_the_chain_on_the_card_only(monkeypatch):
+    """Below the gate (or with kernels off) ops/c3.py runs c3_chain for
+    bf16 on the card; on the CPU it stays c3_block_reference."""
+    called = []
+    monkeypatch.setattr(oc3, "c3_chain",
+                        lambda *a, **kw: called.append(1))
+    g, in_name, out_name = build_yolov5("l", batch=1, image_size=64)
+    eng = Engine(EngineConfig(device="cpu", compute_dtype="bfloat16",
+                              c3_fusion=True, use_kernels=False))
+    eng.load_model(None, graph=g)
+    out = eng.run({in_name: _x(37, 1, 64, 64, 3)})[out_name]
+    assert np.isfinite(out).all() and not called
 
 
 def test_fused_c3_dispatch_follows_the_jax_gates(monkeypatch):

@@ -8,6 +8,9 @@ Tolerances, with scale = max(1, max|ref|):
 - conv3x3 in f32: 1e-4 x scale (f32 sums in another order); in bf16 one
   bf16 ulp (2^-7 x |ref|) on top (the result rounds once to bf16 on
   each side, from sums that differ in the last f32 bits);
+- the bf16 tensor-core route's order of sums (tap-major K, f32 sums of
+  k16 chunks) against the plain version: one bf16 ulp plus 1e-4 x scale,
+  chip_smoke's kernel-vs-plain limit;
 - stem_s2d (bf16 out): one bf16 ulp plus 1e-4 x scale, against the
   Pallas kernel and against stem_s2d_reference on the same bf16 inputs;
 - pack_stem_input / pack_stem_weights: bytes equal.
@@ -17,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from simpleinfer_tpu.kernels import conv3x3 as jconv
 from simpleinfer_tpu.kernels import stem as jstem
@@ -82,6 +86,63 @@ def test_conv3x3_wrapper_on_cpu_is_the_plain_version():
         tconv.conv3x3_s1_same(x, w, torch.zeros(3))
     with pytest.raises(ValueError, match="CUDA"):
         tconv.conv3x3_s1_same(x.to("meta"), w.to("meta"))
+
+
+def _conv3x3_mma_order(x, w_hwio, bias, act):
+    """csrc/conv3x3.cu's bf16 route in its arithmetic order: K walked
+    tap-major, (dy, dx) then 16-channel chunks of C, each chunk's products
+    of the shifted bf16 pixels (zero off the image) and the tap's bf16
+    weight rows summed in f32 and added into an f32 accumulator; then
+    bias, the activation and one rounding to bf16."""
+    n, h, w, c = x.shape
+    oc = w_hwio.shape[3]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = w_hwio.to(x.dtype).float()
+    acc = torch.zeros(n * h * w, oc)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        xs = xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, c)
+        for c0 in range(0, c, 16):
+            acc = acc + xs[:, c0:c0 + 16] @ wf[dy, dx, c0:c0 + 16]
+    acc = acc.reshape(n, h, w, oc)
+    if bias is not None:
+        acc = acc + bias.float()
+    return tconv.resolve_activation(act)(acc).to(x.dtype)
+
+
+# the ResNet-50 (relu) and YOLOv5s (silu) 3x3 widths at small H x W, and
+# chip_smoke's CONV_RAGGED (C and OC off 8 and 64, H x W down to 1 x 1)
+CONV_MMA_CASES = [(1, 8, 8, 64, 64, "relu"), (1, 6, 6, 128, 128, "relu"),
+                  (1, 5, 5, 256, 256, "relu"), (1, 4, 4, 512, 512, "relu"),
+                  (2, 10, 10, 32, 32, "silu"), (1, 8, 8, 64, 64, "silu"),
+                  (1, 6, 6, 128, 128, "silu"), (1, 4, 4, 256, 256, "silu"),
+                  (2, 1, 1, 3, 5, "silu"), (2, 5, 7, 13, 17, "silu"),
+                  (1, 3, 33, 70, 131, "silu"), (3, 5, 7, 129, 66, "silu")]
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("n,h,w,c,oc,act", CONV_MMA_CASES)
+def test_conv3x3_mma_order_within_card_tolerance(n, h, w, c, oc, act, bias):
+    """The tensor-core route's order of sums against conv3x3_s1_same_ref
+    on the same bf16 inputs, within the kernel-vs-plain limit."""
+    rng = np.random.default_rng(n * h + w + c + oc)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(
+        np.float32)).bfloat16()
+    wt = torch.from_numpy((rng.standard_normal((3, 3, c, oc))
+                           / np.sqrt(9 * c)).astype(np.float32))
+    b = (torch.from_numpy(0.1 * rng.standard_normal(oc).astype(np.float32))
+         if bias else None)
+    got = _conv3x3_mma_order(x, wt, b, act)
+    ref = tconv.conv3x3_s1_same_ref(x, wt, b, act)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    within(got.float().numpy(), ref.float().numpy(), True)
+
+
+def test_conv3x3_block_n():
+    """The tile width conv3x3_s1_same passes: 64 up to OC 64, else 128
+    (kernels/matmul.mma_block_n)."""
+    assert [tconv.mma_block_n(oc) for oc in (5, 32, 64, 66, 512)] == \
+        [64, 64, 64, 128, 128]
 
 
 # ---- stem_s2d ------------------------------------------------------------------

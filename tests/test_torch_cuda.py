@@ -13,7 +13,10 @@ the CPU within 1e-4 x scale + 1e-4 x |ref|. c3_block: 1e-5 x max(1,
 |ref|) elementwise in f32 with fp taps; with bf16 or s8 taps max 0.05 x
 scale and mean 5e-4 x scale (an intermediate within rounding of a bf16
 or int8 step takes the next step on one side: chip_smoke.C3_MAX_TOL).
-conv3x3_s1_same and stem_s2d as the matmul kernels.
+conv3x3_s1_same and stem_s2d as the matmul kernels. The kernels-off
+routes: static int8's torch._int_mm product bit-equal to the float64
+one; the bf16 C3 chain (ops/c3.c3_chain) within c3_block's bf16 limit
+of c3_block_reference.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from simpleinfer_tpu_torch.kernels import conv3x3 as kconv
 from simpleinfer_tpu_torch.kernels import decode_attn as kdec
 from simpleinfer_tpu_torch.kernels import matmul as tmm
 from simpleinfer_tpu_torch.kernels import stem as kstem
+from simpleinfer_tpu_torch.ops import c3 as oc3
+from simpleinfer_tpu_torch.ops import conv as oconv
 from simpleinfer_tpu_torch.quant.tensor import (quantize_int4_grouped,
                                                 quantize_per_channel)
 from simpleinfer_tpu_torch.zoo import build_llama, build_yolov5
@@ -81,6 +86,74 @@ def test_kernel_matches_plain_on_card(cuda, m, k, n):
                 torch.cuda.synchronize()
                 _assert_close(got, tmm.matmul_ref(xt, wt, bt, act))
     assert tmm.launches - before == 2 * 2 * len(ACTIVATIONS)
+
+
+# the tensor-core route at the main paths' widths: ResNet-50-b128's
+# pointwise convs (M 401,408 .. 6,272, K / N 64 .. 2,048), YOLOv5s-b8's
+# narrow ones (N 32, 64) and its Detect head (N 255: w and out by
+# element), and ragged K (element-staged x) / N
+MMA_SHAPES = [(401408, 64, 256), (100352, 512, 128), (25088, 1024, 256),
+              (6272, 2048, 512), (6272, 512, 2048), (204800, 32, 32),
+              (51200, 128, 64), (51200, 128, 255), (777, 130, 70),
+              (300, 200, 40), (129, 72, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MMA_SHAPES)
+@pytest.mark.parametrize("w_kind", ["int8", "bfloat16"])
+def test_mma_route_matches_plain_on_card(cuda, m, k, n, w_kind):
+    """bf16 x with int8 or bf16 w (the tensor cores): f32 and bf16 out,
+    with and without bias, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5
+    b = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    q = quantize_per_channel(w.cpu().numpy(), axis=1)
+    wq, scale = q.data.to(cuda), q.scale.to(cuda)
+    wb = w.bfloat16()
+    before = tmm.launches
+    for out in (torch.float32, torch.bfloat16):
+        for bias, act in ((b, "silu"), (None, None)):
+            if w_kind == "int8":
+                got = tmm.matmul_int8w(x, wq, scale, bias, act,
+                                       out_dtype=out)
+                torch.cuda.synchronize()
+                ref = tmm.matmul_int8w_ref(x, wq, scale, bias, act,
+                                           out_dtype=out)
+            else:
+                got = tmm.matmul(x, wb, bias, act, out_dtype=out)
+                torch.cuda.synchronize()
+                ref = tmm.matmul_ref(x, wb, bias, act, out_dtype=out)
+            _assert_close(got, ref)
+            del got, ref
+    assert tmm.launches - before == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 4])
+def test_mma_route_misaligned_views_on_card(cuda, offset):
+    """x, w and out at element offsets off 16 bytes (contiguous views into
+    a larger buffer): the element-staged loads and stores."""
+    m, k, n = 300, 256, 128
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    xs = torch.randn(m * k + offset, generator=gen, device=cuda).bfloat16()
+    x = xs[offset:].view(m, k)
+    w = torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5
+    q = quantize_per_channel(w.cpu().numpy(), axis=1)
+    wbuf = torch.empty(k * n + offset, dtype=torch.int8, device=cuda)
+    wq = wbuf[offset:].view(k, n)
+    wq.copy_(q.data.to(cuda))
+    scale = q.scale.to(cuda)
+    wb = torch.empty(k * n + offset, dtype=torch.bfloat16, device=cuda)
+    wbv = wb[offset:].view(k, n)
+    wbv.copy_(w)
+    got = tmm.matmul_int8w(x, wq, scale, None, "relu")
+    torch.cuda.synchronize()
+    _assert_close(got, tmm.matmul_int8w_ref(x, wq, scale, None, "relu"))
+    got = tmm.matmul(x, wbv, None, "relu", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, tmm.matmul_ref(x, wbv, None, "relu",
+                                      out_dtype=torch.float32))
 
 
 @pytest.mark.cuda
@@ -334,11 +407,15 @@ def test_c3_kernel_matches_plain_on_card(cuda, n, h, w, c, hid, oc, t,
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,c,oc", [
     (2, 1, 1, 3, 5), (2, 5, 7, 13, 17), (1, 3, 33, 70, 131),
-    (2, 14, 14, 256, 256), (3, 9, 11, 64, 64)])
+    (2, 14, 14, 256, 256), (3, 9, 11, 64, 64), (3, 5, 7, 129, 66),
+    (16, 56, 56, 64, 64), (16, 28, 28, 128, 128), (32, 7, 7, 512, 512),
+    (4, 160, 160, 32, 32), (8, 20, 20, 256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_kernel_matches_plain_on_card(cuda, n, h, w, c, oc, dtype):
-    """conv3x3_s1_same: H x W down to 1 x 1, C and OC off the tiles,
-    images across a tile, with and without bias, three activations."""
+    """conv3x3_s1_same: H x W down to 1 x 1, C and OC off the tiles
+    (element-staged x, w and out on the bf16 route), images across a
+    tile, the ResNet-50 and YOLOv5s widths, with and without bias,
+    three activations."""
     gen = torch.Generator(device=cuda).manual_seed(n * h + w + c + oc)
     x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
     wt = torch.randn(3, 3, c, oc, generator=gen, device=cuda) / (3 * c ** 0.5)
@@ -352,6 +429,71 @@ def test_conv3x3_kernel_matches_plain_on_card(cuda, n, h, w, c, oc, dtype):
                 _assert_close(got, kconv.conv3x3_s1_same_ref(x, wt, bias,
                                                              act))
     assert kconv.launches - before == 6
+
+
+@pytest.mark.cuda
+def test_conv3x3_misaligned_view_on_card(cuda):
+    """bf16 x at an element offset off 16 bytes: element-staged rows."""
+    n, h, w, c, oc = 2, 9, 11, 64, 96
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(n * h * w * c + 3, generator=gen,
+                      device=cuda).bfloat16()
+    x = buf[3:].view(n, h, w, c)
+    wt = torch.randn(3, 3, c, oc, generator=gen, device=cuda) / (3 * c ** 0.5)
+    b = 0.1 * torch.randn(oc, generator=gen, device=cuda)
+    got = kconv.conv3x3_s1_same(x, wt, b, "silu")
+    torch.cuda.synchronize()
+    _assert_close(got, kconv.conv3x3_s1_same_ref(x, wt, b, "silu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 1152, 200), (100352, 1152, 128),
+                                   (25088, 2304, 256), (128, 2048, 1000),
+                                   (17, 64, 8)])
+def test_int_mm_route_bit_equal_on_card(cuda, m, k, n):
+    """Static int8 with kernels off: torch._int_mm's s32 product with
+    matmul_s8s8_ref's epilogue is bit-equal to the float64 one (both are
+    the exact sums, rounded once to f32), vector and scalar scales."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    assert oconv.int_mm_ok(xq, wq)
+    assert torch.equal(oconv.s8_product(xq, wq).double(),
+                       xq.double() @ wq.double())
+    b = torch.randn(n, generator=gen, device=cuda)
+    for scale, bias, act, od in (
+            (torch.rand(n, generator=gen, device=cuda) * 1e-3, b, "silu",
+             torch.bfloat16),
+            (torch.tensor(1e-3, device=cuda), None, None, torch.float32)):
+        got = oconv.matmul_s8s8_library(xq, wq, scale, bias, act, od)
+        assert torch.equal(got, tmm.matmul_s8s8_ref(xq, wq, scale, bias,
+                                                    act, od))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,hid,oc,t,shortcut", [
+    (2, 9, 7, 16, 8, 16, 2, True), (3, 20, 20, 64, 72, 48, 1, False),
+    (1, 16, 16, 128, 64, 128, 3, True), (16, 80, 80, 256, 128, 256, 3,
+                                         False)])
+@pytest.mark.parametrize("s8", [False, True], ids=["fp", "s8"])
+def test_c3_chain_within_c3_limit_on_card(cuda, n, h, w, c, hid, oc, t,
+                                          shortcut, s8):
+    """The bf16 C3 chain of the card (bf16 operands on the library, the
+    s8 taps through torch._int_mm) against c3_block_reference: within
+    c3_block's bf16 limit, max 0.05 x scale, mean 5e-4 x scale."""
+    x, ws, scale = _c3_case(cuda, n, h, w, c, hid, oc, t, s8,
+                            torch.bfloat16)
+    got = oc3.c3_chain(x, *ws, btl_b_scale=scale, shortcut=shortcut)
+    ref = kc3.c3_block_reference(x, *ws, btl_b_scale=scale,
+                                 shortcut=shortcut)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    d = (got.float() - ref.float()).abs()
+    scale_ = max(1.0, float(ref.float().abs().max()))
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(d.max()) <= 0.05 * scale_, float(d.max())
+    assert float(d.mean()) <= 5e-4 * scale_, float(d.mean())
 
 
 @pytest.mark.cuda

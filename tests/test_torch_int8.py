@@ -161,6 +161,34 @@ def test_matmul_s8s8_on_cpu_is_the_plain_version():
     assert tmm.launches_s8s8 == before
 
 
+def test_kernels_off_s8_product_on_cpu_is_the_float64_one():
+    """int8_epilogue with kernels off: matmul_s8s8_library, whose exact sum
+    is torch._int_mm's s32 on the card (tests/test_torch_cuda.py holds it
+    bit-equal there) and float64 on the CPU, bit-equal to
+    matmul_s8s8_ref; with kernels on int8_epilogue takes the kernel's
+    wrapper (its plain version on the CPU)."""
+    from simpleinfer_tpu_torch.ops import conv as tconv
+
+    rng = np.random.default_rng(9)
+    xq, wq = (torch.from_numpy(_s8(rng, 40, 72)),
+              torch.from_numpy(_s8(rng, 72, 24)))
+    assert not tconv.int_mm_ok(xq, wq)           # the CPU: float64
+    assert torch.equal(tconv.s8_product(xq, wq), xq.double() @ wq.double())
+    b = torch.from_numpy(rng.standard_normal(24).astype(np.float32))
+    for scale, bias, act, od in (
+            (torch.full((24,), 2e-3), b, "silu", torch.bfloat16),
+            (torch.tensor(1e-3), None, None, torch.float32)):
+        assert torch.equal(
+            tconv.matmul_s8s8_library(xq, wq, scale, bias, act, od),
+            tmm.matmul_s8s8_ref(xq, wq, scale, bias, act, od))
+    act_scale, w_scale = torch.tensor(0.02), torch.full((24,), 0.01)
+    for use_kernels in (True, False):
+        got = tconv.int8_epilogue(xq, wq, act_scale, w_scale, b, "relu",
+                                  torch.float32, use_kernels=use_kernels)
+        assert torch.equal(got, tmm.matmul_s8s8_ref(
+            xq, wq, act_scale * w_scale, b, "relu", torch.float32))
+
+
 # ---- conv2d_int8_static ---------------------------------------------------
 CONV8_CASES = [
     # (mode, stride, groups, dilation, kernel, padding)

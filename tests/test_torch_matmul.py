@@ -12,7 +12,11 @@ tests/test_kernels.py runs it. Tolerances:
 - f32 vs the jnp oracle (`matmul_ref`, HIGHEST precision): 1e-5, the
   same sums in another order;
 - bf16 out: one bf16 ulp of the output (2^-7 relative) on top, as the
-  two sides may round an f32 value on either side of a bf16 boundary.
+  two sides may round an f32 value on either side of a bf16 boundary;
+- the tensor-core routes' order of sums (bf16 operands, f32 sums of k16
+  chunks, int8 w and int4 nibbles exact in bf16) against the plain
+  versions: chip_smoke's kernel-vs-plain limit, 1e-4 x max(1, |ref|)
+  plus one bf16 ulp for a bf16 output.
 """
 import importlib
 import os
@@ -327,3 +331,67 @@ def test_int4w_decode_splits(n, k, splits):
     assert got == splits
     per = -(-groups // got)
     assert -(-groups // per) == got and 1 <= got <= min(groups, 8)
+
+
+# ---- the bf16 tensor-core route of csrc/matmul.cu, emulated ---------------
+def _mma_order(x, w, scale, bias, act, out_dtype):
+    """The bf16 route of csrc/matmul.cu in its arithmetic order: bf16 x
+    times w as bf16 (an int8 weight is exact in bf16), each k16 chunk's
+    products summed in f32 (one mma.sync) and added into an f32
+    accumulator chunk after chunk; then * scale[n] (the int8 dequant,
+    after the product), + bias, the activation and one cast."""
+    xf, wf = x.float(), w.to(torch.bfloat16).float()
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for k0 in range(0, x.shape[1], 16):
+        acc = acc + xf[:, k0:k0 + 16] @ wf[k0:k0 + 16]
+    if scale is not None:
+        acc = acc * scale.float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return tmm.resolve_activation(act)(acc).to(out_dtype)
+
+
+# the main paths' widths with M cut to keep the CPU quick: ResNet-50's
+# pointwise convs (K / N 64 .. 2048), YOLOv5s's (N 32, 64, its Detect
+# head's 255), and chip_smoke's ragged shapes (RAGGED_SHAPES)
+MMA_CASES = [(64, 64, 256), (64, 256, 64), (48, 1024, 256), (32, 2048, 512),
+             (32, 512, 2048), (96, 128, 512), (100, 32, 32), (100, 64, 64),
+             (64, 512, 256), (64, 128, 255), (100, 60, 50), (1, 256, 255),
+             (37, 129, 131), (8, 16, 8)]
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w_kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", MMA_CASES)
+def test_mma_order_within_card_tolerance(m, k, n, w_kind, out, bias):
+    """csrc/matmul.cu's tensor-core route (bf16 x, int8 or bf16 w) in its
+    order of sums against the plain version (matmul_int8w_ref /
+    matmul_ref: one f32 product), bias + silu or neither, within
+    chip_smoke's kernel-vs-plain limit."""
+    cs = _chip_smoke()
+    x, w, b = _case(m, k, n, seed=5)
+    xt = torch.from_numpy(x).bfloat16()
+    bt = torch.from_numpy(b) if bias else None
+    act = "silu" if bias else None
+    od = getattr(torch, out)
+    if w_kind == "int8":
+        q = tquant(w, axis=1)
+        got = _mma_order(xt, q.data, q.scale, bt, act, od)
+        ref = tmm.matmul_int8w_ref(xt, q.data, q.scale, bt, act, od)
+    else:
+        wt = torch.from_numpy(w).bfloat16()
+        got = _mma_order(xt, wt, None, bt, act, od)
+        ref = tmm.matmul_ref(xt, wt, bt, act, od)
+    lim = cs.KERNEL_ATOL * max(1.0, float(ref.float().abs().max()))
+    _, ok, share = cs._close_tol(got, ref, lim, cs.KERNEL_BF16_RTOL
+                                 if od == torch.bfloat16 else 0.0)
+    assert ok, share
+
+
+@pytest.mark.parametrize("n,width", [(8, 64), (32, 64), (64, 64), (65, 128),
+                                     (255, 128), (2048, 128)])
+def test_mma_block_n(n, width):
+    """The tensor-core tile's width the wrapper passes: 64 up to N 64
+    (YOLOv5s's narrow convs), else 128."""
+    assert tmm.mma_block_n(n) == width
