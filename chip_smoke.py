@@ -7,9 +7,10 @@ Phases, each printing JSON lines:
 1. device and build: the card (torch and nvidia-smi), the nvcc build of
    every kernel source (one nvcc each, started together) with
    `-Xptxas -v` registers and spills; then the tensor-core instructions
-   (HMMA / HGMMA) of each function of matmul_int4w.cu,
-   flash_attention.cu, matmul.cu and conv3x3.cu in the built SASS
-   (cuobjdump -sass), which fails if a bf16 route has none;
+   (HMMA / HGMMA / IMMA / IGMMA) of each function of matmul_int4w.cu,
+   flash_attention.cu, matmul.cu, conv3x3.cu and matmul_s8s8.cu in the
+   built SASS (cuobjdump -sass), which fails if a bf16 route has no
+   HMMA / HGMMA or the s8 route no IMMA / IGMMA;
 2. kernel vs plain version on the card: `matmul` and `matmul_int8w` at
    the YOLOv5s-640-b8 pointwise-conv shapes (taken from the main path)
    and at ragged shapes, x in bf16 and f32, every activation; then the
@@ -25,8 +26,11 @@ Phases, each printing JSON lines:
    seeded batches (wall time printed); the launches of `matmul_s8s8` (5
    per forward), `c3_block` (4, one with s8 taps) and `matmul_int8w`
    (3: the pointwise convs outside the int8 gate) with the counts set
-   to 0 just before the forwards; matmul_s8s8 and c3_block against
-   their plain versions at ragged shapes (fp and s8 taps, both shortcut
+   to 0 just before the forwards, and no matmul_s8s8 call that had to
+   lay its weight out K-major (Engine.place_weights did, once);
+   matmul_s8s8 and c3_block against their plain versions at ragged
+   shapes (w row-major, K-major and both operands misaligned; fp and s8
+   taps, both shortcut
    forms, tiles across images, a dyadic-grid block that must agree to
    f32 rounding), and all three at every call a forward made, on its
    own inputs; their times beside plain, library (`torch._int_mm` for
@@ -42,8 +46,11 @@ Phases, each printing JSON lines:
 5. llama kernels vs plain: matmul_int4w, flash_attention and
    decode_attention at ragged shapes, f32 and bf16 (int4w: the down
    projection's K 5456 and the MLP's N 5456 at M 17; decode: lengths 0,
-   1, straddling a tile and full; bf16, f32 and int8 leaves; flash:
-   causal, non-causal, banded, head_dim 128 at L 2048); then the flash
+   1, straddling a tile and full, at the edges of the split's shares,
+   with a max_len under L, and at the service's decode shape; bf16, f32
+   and int8 leaves; each decode case run twice and required bit-equal;
+   flash: causal, non-causal, banded, head_dim 128 at L 2048); then the
+   flash
    gate: flash_attention against the unblocked path at [12, 32, L, 64]
    bf16 for L from 256 to 2048;
 6. the llama main path: llama "base" (16 layers, width 2048, vocab
@@ -54,7 +61,9 @@ Phases, each printing JSON lines:
    against its plain version at the shapes the run recorded, and its
    time beside its plain version's, a torch library call's and the
    bound (matmul_int4w per decode step and per admission wave, with a
-   line per projection shape of the wave);
+   line per projection shape of the wave); a decode step's profile, and
+   the KERNEL_MIN_SLOTS sweep: the frozen-cache attention with the
+   decode kernel against the torch route at 1 to 16 slots;
 7. kernels on vs off: the llama engine against one of the same graph
    with use_kernels=False; prefill logits at width 2048 and one
    decode-block step's logits, each side also against an fp32 engine of
@@ -79,7 +88,8 @@ Phases, each printing JSON lines:
    calibrated by Engine.calibrate on 2 seeded batches (wall time
    printed); launches of matmul_int8w (33 pointwise s1 convs) and
    matmul_s8s8 (13 3x3 convs with ic >= 128 and the fc) per forward
-   with the counts set to 0 just before; both kernels against their
+   with the counts set to 0 just before, no weight laid out K-major per
+   call; both kernels against their
    plain versions at every call of a forward; their times (a line per
    pointwise conv: kernel / torch.addmm / bound); forwards on, off, on;
    profiles (no float64 kernel with kernels off); logits on vs off
@@ -187,11 +197,15 @@ def device_and_build(device) -> dict:
     return info
 
 
-# tensor-core kernels of the bf16 routes: (source, function name part)
-MMA_KERNELS = (("matmul_int4w.cu", "si_int4w_mma_kernel"),
-               ("flash_attention.cu", "si_flash_mma_kernel"),
-               ("matmul.cu", "si_matmul_mma_kernel"),
-               ("conv3x3.cu", "si_conv3x3_mma_kernel"))
+# tensor-core kernels: (source, function name part, the instructions
+# one of which each instance must hold: HMMA / HGMMA for the bf16
+# routes, IMMA / IGMMA for the s8 one)
+BF16_MMA, S8_MMA = ("HMMA", "HGMMA"), ("IMMA", "IGMMA")
+MMA_KERNELS = (("matmul_int4w.cu", "si_int4w_mma_kernel", BF16_MMA),
+               ("flash_attention.cu", "si_flash_mma_kernel", BF16_MMA),
+               ("matmul.cu", "si_matmul_mma_kernel", BF16_MMA),
+               ("conv3x3.cu", "si_conv3x3_mma_kernel", BF16_MMA),
+               ("matmul_s8s8.cu", "si_s8s8_wgmma_kernel", S8_MMA))
 
 
 def _tool(name) -> str:
@@ -216,14 +230,15 @@ def _demangle(names) -> list:
 
 
 def sass_mma_counts() -> dict:
-    """The tensor-core instructions (HMMA / HGMMA) of every kernel
-    function in the built libraries of MMA_KERNELS, read from their SASS
-    (cuobjdump -sass). Fails if a bf16 route's function is missing or
-    has none."""
+    """The tensor-core instructions (HMMA / HGMMA / IMMA / IGMMA) of
+    every kernel function in the built libraries of MMA_KERNELS, read
+    from their SASS (cuobjdump -sass). Fails if a tensor-core route's
+    function is missing or an instance has none of its kind."""
     from simpleinfer_tpu_torch.kernels import build
 
+    ops = BF16_MMA + S8_MMA
     counts = {}
-    for source, part in MMA_KERNELS:
+    for source, part, _ in MMA_KERNELS:
         sass = subprocess.run(
             [_tool("cuobjdump"), "-sass", str(build.library_path(source))],
             capture_output=True, text=True, check=True).stdout
@@ -232,20 +247,21 @@ def sass_mma_counts() -> dict:
             ln = ln.strip()
             if ln.startswith("Function :"):
                 fn = ln.split(":", 1)[1].strip()
-                counts[fn] = {"source": source, "HMMA": 0, "HGMMA": 0}
+                counts[fn] = {"source": source, **dict.fromkeys(ops, 0)}
             elif fn is not None:
                 op = ln.split("*/", 1)[-1].strip().split(" ")[0]
-                if op.startswith("HGMMA"):
-                    counts[fn]["HGMMA"] += 1
-                elif op.startswith("HMMA"):
-                    counts[fn]["HMMA"] += 1
+                # the longer names first: HGMMA also starts with H
+                for name in ("HGMMA", "IGMMA", "HMMA", "IMMA"):
+                    if op.startswith(name):
+                        counts[fn][name] += 1
+                        break
     names = sorted(counts)
     rows = {p: counts[n] for n, p in zip(names, _demangle(names))}
     emit({"phase": "sass_tensor_core", "functions": rows})
-    for source, part in MMA_KERNELS:
+    for source, part, kinds in MMA_KERNELS:
         mine = [r for n, r in counts.items() if part in n]
-        if not mine or not all(r["HMMA"] + r["HGMMA"] for r in mine):
-            raise AssertionError(f"{part} ({source}): no tensor-core "
+        if not mine or not all(sum(r[k] for k in kinds) for r in mine):
+            raise AssertionError(f"{part} ({source}): no {'/'.join(kinds)} "
                                  f"instruction in its SASS")
     return rows
 
@@ -331,12 +347,13 @@ def kernel_vs_plain(device, shapes, seed=0) -> float:
     return worst_main
 
 
-def _time_ms(device, fn, iters=10, flush=None) -> float:
+def _time_ms(device, fn, iters=10, flush=None, spin=SPIN_CYCLES) -> float:
     """Mean device time of fn() over `iters` launches (CUDA events), the
     L2 cache flushed before each launch (the caller would find x cold).
-    A spin kernel holds the card between the flush and the start event,
-    so the launch is queued before the card reaches it and the events
-    time the kernel, not the host's launch overhead."""
+    A spin kernel of `spin` cycles holds the card between the flush and
+    the start event, so the launch is queued before the card reaches it
+    and the events time the kernel, not the host's launch overhead (a fn
+    of many torch calls needs a longer spin)."""
     import torch
 
     for _ in range(2):
@@ -345,7 +362,7 @@ def _time_ms(device, fn, iters=10, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -786,7 +803,8 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
                        phase="int8_kernel_vs_plain") -> dict:
     """The int8 path's kernels against their plain versions on `device`:
     matmul_s8s8 and c3_block at ragged shapes (matmul: every dim off the
-    tiles, f32 and bf16 out, scalar and vector scales; c3: fp and s8
+    tiles, f32 and bf16 out, scalar and vector scales, w row-major,
+    K-major and both operands misaligned; c3: fp and s8
     taps, f32 and bf16, both shortcut forms, tiles across images, and a
     dyadic-grid block with one bottleneck and no activation whose result
     must agree to f32 rounding), then every call the main path recorded
@@ -827,6 +845,15 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
         if main:
             worst[name] = max(worst[name], err)
 
+    def offset_view(t, rows, cols):
+        """t's values in a [rows, cols] view one byte past a 16-byte
+        boundary (t row-major, or K-major when rows, cols = N, K and the
+        caller transposes)."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=device)
+        v = buf[1:1 + t.numel()].view(rows, cols)
+        v.copy_(t)
+        return v
+
     for (m, k, n) in (RAGGED_SHAPES + [(300, 1152, 200)]) * ragged:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=device,
                            dtype=torch.int8)
@@ -834,12 +861,18 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
                            dtype=torch.int8)
         sc = torch.rand(n, generator=gen, device=device) * 1e-3
         b = torch.randn(n, generator=gen, device=device)
-        for od in (torch.bfloat16, torch.float32):
-            for act, bias, scale in (("silu", b, sc), (None, None,
-                                                       torch.tensor(1e-3))):
-                check_mm("matmul_s8s8", (xq, wq, scale, bias, act),
-                         {"out_dtype": od}, [m, k, n, str(od)[6:], act],
-                         False)
+        # w row-major (the wrapper lays it out K-major first), K-major,
+        # and both operands at misaligned addresses (element staging)
+        layouts = {"row": (xq, wq), "k_major": (xq, kmm.to_k_major(wq)),
+                   "offset": (offset_view(xq, m, k),
+                              offset_view(wq.t(), n, k).t())}
+        for lay, (x_, w_) in layouts.items():
+            for od in (torch.bfloat16, torch.float32):
+                for act, bias, scale in (("silu", b, sc),
+                                         (None, None, torch.tensor(1e-3))):
+                    check_mm("matmul_s8s8", (x_, w_, scale, bias, act),
+                             {"out_dtype": od},
+                             [m, k, n, lay, str(od)[6:], act], False)
     for (n, h, w, c, hid, oc, t, sc_) in C3_RAGGED * ragged:
         for dt in (torch.float32, torch.bfloat16):
             for s8 in (False, True):
@@ -1148,9 +1181,11 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
     with int8_recorder() as rec:
         on.run(feeds[0])
     kmm.launches = kmm.launches_s8s8 = kc3.launches = 0
+    kmm.transposes_s8s8 = 0
     outs = [on.run(f)[out_name] for f in feeds]
     launches = {"matmul_s8s8": kmm.launches_s8s8,
                 "c3_block": kc3.launches, "matmul_int8w": kmm.launches}
+    transposes = kmm.transposes_s8s8
     if any(o.shape != (batch, 3 * sum((image // s) ** 2
                                       for s in (8, 16, 32)), 85)
            or not np.isfinite(o).all() for o in outs):
@@ -1163,6 +1198,7 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
            "c3_fusion": True, "calibration_batches": len(calib),
            "calibration_s": calib_s, "scales": len(scales),
            "forwards": n_forwards, "launches": launches,
+           "s8s8_weight_transposes": transposes,
            "s8s8_convs_per_forward": len(rec.calls["matmul_s8s8"]),
            "int8w_convs_per_forward": len(rec.calls["matmul_int8w"]),
            "c3_kernel_blocks_per_forward": len(c3_calls),
@@ -1177,6 +1213,7 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
            "vs_kernels_off": onoff_}
     emit(res)
     if device.type == "cuda":
+        check_no_transposes(transposes, "yolov5l int8")
         for name, per in (("matmul_s8s8", INT8_S8S8_CONVS),
                           ("matmul_int8w", INT8_INT8W_CONVS),
                           ("c3_block", INT8_C3_BLOCKS)):
@@ -1190,6 +1227,14 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
             if res[key] != want:
                 raise AssertionError(f"{key}: {res[key]}, expected {want}")
     return {"res": res, "recorder": rec, "feeds": feeds}
+
+
+def check_no_transposes(n, what) -> None:
+    """Every static-int8 weight of a path reaches matmul_s8s8 K-major
+    (Engine.place_weights): the wrapper copied none."""
+    if n:
+        raise AssertionError(f"{what}: {n} matmul_s8s8 calls had to lay "
+                             f"their weight out K-major")
 
 
 def int8_onoff(off, out_name, feeds, outs) -> dict:
@@ -1672,10 +1717,11 @@ def resnet_main_path(device, engines, n_forwards=2, calib_batches=None,
             Recorder({"conv2d_int8_static": tconv},
                      keep={"conv2d_int8_static": conv_in_bytes}) as crec:
         on.run(feeds[0])
-    kmm.launches = kmm.launches_s8s8 = 0
+    kmm.launches = kmm.launches_s8s8 = kmm.transposes_s8s8 = 0
     outs = [on.run(f)[out_name] for f in feeds]
     launches = {"matmul_int8w": kmm.launches,
                 "matmul_s8s8": kmm.launches_s8s8}
+    transposes = kmm.transposes_s8s8
     if any(o.shape != (batch, RESNET["num_classes"])
            or not np.isfinite(o).all() for o in outs):
         raise AssertionError(f"resnet outputs {[o.shape for o in outs]}")
@@ -1687,6 +1733,7 @@ def resnet_main_path(device, engines, n_forwards=2, calib_batches=None,
            "act_per_channel": False, "calibration_batches": len(calib),
            "calibration_s": calib_s, "scales": len(scales),
            "forwards": n_forwards, "launches": launches,
+           "s8s8_weight_transposes": transposes,
            "predicted_per_forward": {"matmul_int8w": RESNET_INT8W_CONVS,
                                      "matmul_s8s8": RESNET_S8S8_CALLS},
            "int8w_calls_per_forward": len(rec.calls["matmul_int8w"]),
@@ -1695,6 +1742,8 @@ def resnet_main_path(device, engines, n_forwards=2, calib_batches=None,
            "output_shape": list(outs[0].shape),
            "vs_kernels_off": resnet_onoff(off, out_name, feeds, outs)}
     emit(res)
+    if device.type == "cuda":
+        check_no_transposes(transposes, "ResNet-50 int8")
     for name, per in (("matmul_int8w", RESNET_INT8W_CONVS),
                       ("matmul_s8s8", RESNET_S8S8_CALLS)):
         calls = len(rec.calls[name])
@@ -1910,10 +1959,12 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
     """matmul_int4w, flash_attention and decode_attention against their
     plain versions on `device`: at the main path's shapes (recorded from
     the service run, when given) and at ragged ones; f32 and bf16;
-    decode lengths 0, 1, straddling a 64-position tile and full, bf16,
-    f32 and int8 leaves; flash causal, non-causal and banded. Returns
-    the largest max-abs error of each kernel at the main path's
-    configuration."""
+    decode lengths 0, 1, straddling a 64-position tile and full, at the
+    edges of the split's shares, with a max_len under L, bf16, f32 and
+    int8 leaves, and at the service's decode shape (16 rows, L 2048),
+    every decode case run twice on the card and required bit-equal;
+    flash causal, non-causal and banded. Returns the largest max-abs
+    error of each kernel at the main path's configuration."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import attention as kattn
@@ -2000,34 +2051,59 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
               [b, h, lq, lk, d, dt, causal, sw], main)
         del q, k, v, got, ref
 
-    # decode_attention: (N, KV, G, L, D, q dtype, cache, lengths, main?)
-    dcases = [(n, kv, g, l, d, qd, c, lens, True)
+    # decode_attention: (N, KV, G, L, D, q dtype, cache, lengths,
+    # max_len, main?)
+    dcases = [(n, kv, g, l, d, qd, c, lens, None, True)
               for (n, kv, g, l, d, qd, c, lens) in main_shapes.get(
                   "decode_attention", [])]
     for c in ("bfloat16", "float32", "int8"):
         for qd in ("bfloat16", "float32"):
             dcases.append((6, 8, 4, 2048, 64, qd, c,
-                           [0, 1, 63, 64, 65, 2048], False))
-        dcases.append((3, 2, 3, 100, 24, "float32", c, [0, 37, 100], False))
-    for (n, kvh, g, length, d, qd, cache, lens, main) in dcases:
+                           [0, 1, 63, 64, 65, 2048], None, False))
+        # the split's edges at L 2048 (4 blocks a row): shares of one and
+        # two positions, one short of and one past a 512-position share;
+        # then a bound under L (max_len 1000: 2 blocks a row)
+        dcases.append((6, 8, 4, 2048, 64, "bfloat16", c,
+                       [4, 5, 511, 513, 1000, 2047], None, False))
+        dcases.append((4, 8, 4, 2048, 64, "bfloat16", c,
+                       [0, 999, 1000, 517], 1000, False))
+        dcases.append((3, 2, 3, 100, 24, "float32", c, [0, 37, 100], None,
+                       False))
+    if device.type == "cuda":   # the llama service's decode shape
+        dcases.append((16, 8, 4, 2048, 64, "bfloat16", "bfloat16",
+                       np.random.default_rng(seed).integers(
+                           1, 2049, 16).tolist(), None, False))
+    reruns = 0
+    for (n, kvh, g, length, d, qd, cache, lens, max_len, main) in dcases:
         q, k_leaf, v_leaf = _decode_case(gen, device, n, kvh, g, length, d,
                                          getattr(torch, qd), cache)
         lens_t = torch.as_tensor(lens, dtype=torch.int32, device=device)
         scale = 1.0 / math.sqrt(d)
         with fp32_parity(True):
             got = kdec.decode_attention(q, k_leaf, v_leaf, lens_t,
-                                        scale=scale)
-            ref = kdec.decode_attention_ref(q, k_leaf, v_leaf, lens_t,
-                                            scale=scale)
+                                        scale=scale, max_len=max_len)
+            ref = kdec.decode_attention_ref(
+                q, k_leaf, v_leaf, lens_t if max_len is None else
+                torch.clamp(lens_t, max=max_len), scale=scale)
+        case = [n, kvh, g, length, d, qd, cache,
+                lens if len(lens) < 8 else "main", max_len]
         for part, gt, rf in zip("oml", got, ref):
             live = rf[rf > -1e29] if part == "m" else rf
             lim = KERNEL_ATOL * max(
                 1.0, float(live.abs().max()) if live.numel() else 0.0)
-            check("decode_attention", gt, rf, lim, 0.0,
-                  [n, kvh, g, length, d, qd, cache, part,
-                   lens if len(lens) < 8 else "main"], main)
+            check("decode_attention", gt, rf, lim, 0.0, [*case, part], main)
+        if device.type == "cuda":   # the fixed merge order: bit-equal
+            again = kdec.decode_attention(q, k_leaf, v_leaf, lens_t,
+                                          scale=scale, max_len=max_len)
+            torch.cuda.synchronize(device)
+            reruns += 1
+            n_checks += 1
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                failures.append(dict(kernel="decode_attention", case=case,
+                                     rerun="not bit-equal"))
         del q, k_leaf, v_leaf
     emit({"phase": "llama_kernel_vs_plain", "checks": n_checks,
+          "decode_reruns_bit_equal": reruns,
           "failures": failures[:10], "n_failures": len(failures),
           "atol": f"{KERNEL_ATOL}*max(1,|ref|)",
           "bf16_out_rtol": KERNEL_BF16_RTOL,
@@ -2303,6 +2379,73 @@ def decode_step_profile(engine, device, lengths, k_steps=1, blocks=8,
            "decode_tok_s": n * 1e3 / wall_ms,
            "top_kernels": [[round(ms, 4), cnt, name]
                            for ms, cnt, name in kernels[:10]]}
+    emit(res)
+    return res
+
+
+DECODE_SWEEP_SLOTS = (1, 2, 4, 8, 16)
+
+
+def decode_slots_sweep(engine, device, lengths, slots=DECODE_SWEEP_SLOTS,
+                       seed=13) -> dict:
+    """The KERNEL_MIN_SLOTS gate on the card: a decode step's attention
+    over the frozen cache and one scratch slot
+    (CachedDecoder._attend_frozen_scratch) with the decode kernel against
+    the port's torch route (f32 matmuls over the whole window), at each
+    pool size; the rows at the recorded lengths (cycled), seeded bf16
+    cache contents; device time per step, one call per layer (CUDA
+    events, the L2 flushed, a spin long enough to cover the host's
+    enqueue of the route's ~20 calls). The crossover is the least pool
+    size from which the kernel is faster at every larger size measured
+    (serving/llm.GenerationService.KERNEL_MIN_SLOTS takes it)."""
+    import torch
+    from simpleinfer_tpu_torch.serving import GenerationService
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True, decode_attn="kernel")
+    _name, info = dec._mha_ops[0]
+    heads, kvh, d = dec._geometry(info)
+    layers = len(dec._mha_ops)
+    scale = dec._scale(info, d)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    lengths = np.asarray(lengths)
+    sweep = []
+    for n in slots:
+        k, v = (torch.randn(n, kvh, dec._window, d, generator=gen,
+                            device=device).to(dec._kv_store)
+                for _ in range(2))
+        scr = tuple(torch.randn(n, kvh, 1, d, generator=gen, device=device)
+                    .to(dec._kv_store) for _ in range(2))
+        qh = torch.randn(n, heads, 1, d, generator=gen,
+                         device=device).bfloat16()
+        pos0 = torch.as_tensor(lengths[np.arange(n) % len(lengths)],
+                               dtype=torch.long, device=device)
+
+        def route(kernel):
+            return lambda: dec._attend_frozen_scratch(
+                qh, (k, v), scr, 0, pos0, heads // kvh, scale,
+                torch.bfloat16, kernel)
+        with torch.inference_mode():    # ~20 torch calls a route
+            t = {"slots": n,
+                 "kernel_ms": layers * _time_ms(device, route(True), 10,
+                                                flush, 20 * SPIN_CYCLES),
+                 "torch_ms": layers * _time_ms(device, route(False), 10,
+                                               flush, 20 * SPIN_CYCLES)}
+        t["speedup"] = t["torch_ms"] / t["kernel_ms"]
+        sweep.append(t)
+        del k, v, scr, qh
+    cross = None
+    for t in reversed(sweep):
+        if t["speedup"] <= 1.0:
+            break
+        cross = t["slots"]
+    res = {"phase": "decode_slots_sweep", "unit": "one decode step",
+           "layers": layers, "window": dec._window,
+           "mean_length": float(lengths.mean()), "sweep": sweep,
+           "crossover_slots": cross,
+           "gate_min_slots": GenerationService.KERNEL_MIN_SLOTS}
     emit(res)
     return res
 
@@ -2825,6 +2968,7 @@ def main(argv=None) -> int:
             worst = llama_kernel_checks(device, main_shapes_of(rec))
             times = time_llama_kernels(device, rec, layers)
             decode_step_profile(eng, device, median_lengths(rec))
+            decode_slots_sweep(eng, device, median_lengths(rec))
             launches = run["res"]["launches"]
             for name, src, repl in (
                     ("matmul_int4w", "matmul_int4w.cu",

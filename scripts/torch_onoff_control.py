@@ -131,9 +131,12 @@ def s8s8_bf16_product(orig):
 
 
 def s8s8_drop_k_tile(orig):
+    from simpleinfer_tpu_torch.kernels.matmul import to_k_major
+
     def fn(x_q, w_q, scale, bias=None, activation=None, **kw):
         k = max(x_q.shape[1] - 64, 1)
-        return orig(x_q[:, :k].contiguous(), w_q[:k].contiguous(), scale,
+        # w keeps the K-major layout the engine placed it in
+        return orig(x_q[:, :k].contiguous(), to_k_major(w_q[:k]), scale,
                     bias, activation, **kw)
     return fn
 

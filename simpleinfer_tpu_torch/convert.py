@@ -21,8 +21,9 @@ scales; the exceptions:
 - the block-Toeplitz stem packs `bt_in{g}` of the JAX package's W-packed
   chain (a TPU layout means the port does not carry), which are dropped.
 
-Tensors are placed on `device` as they are; casting to a compute dtype
-is the caller's (Engine.place_weights).
+Tensors are placed on `device` as they are, the card unless the caller
+asks for the CPU (as `EngineConfig.device` defaults to it); casting to
+a compute dtype is the caller's (Engine.place_weights).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def program_weights_from_numpy(weights: dict, device="cpu") -> dict:
+def program_weights_from_numpy(weights: dict, device="cuda") -> dict:
     out = {}
     for opname, wdict in weights.items():
         port = {}

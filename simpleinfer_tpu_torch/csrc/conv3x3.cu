@@ -177,21 +177,9 @@ si_conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-#pragma unroll
-  for (int s = 0; s < tc::STAGES - 1; ++s) {
-    if (s < n_stages) load(s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < n_stages; ++c) {
-    uint8_t* st = smem + (c % tc::STAGES) * T::STAGE;
-    cp_async_wait<tc::STAGES - 2>();
-    __syncthreads();   // stage c is in for all; stage c-1 is free
-    if (c + tc::STAGES - 1 < n_stages) load(c + tc::STAGES - 1);
-    cp_async_commit();
-    tc::mma_stage<T>(st, acc, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-  __syncthreads();     // every warp is done with the ring
+  tc::ring(n_stages, load, [](int) {}, [&](int c) {
+    tc::mma_stage<T>(smem + (c % tc::STAGES) * T::STAGE, acc, wm, wn, lane);
+  });
   tc::epilogue_to_smem<T, __nv_bfloat16>(smem, acc, nullptr, bias, DT_F32,
                                          n0, OC, act, act_arg, wm, wn, lane);
   __syncthreads();

@@ -1,12 +1,14 @@
-// Tensor-core building blocks shared by the bf16 routes of
-// matmul_int4w.cu, flash_attention.cu, matmul.cu and conv3x3.cu: 16-byte
-// cp.async staging with zero fill, ldmatrix fragment loads, mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) and bf16 pair packing; and (namespace
-// si::tc, at the end) the bf16 GEMM tile of matmul.cu and conv3x3.cu: a
-// cp.async ring of x / w stages, int8 w converted to bf16 once per block,
-// the k16 MMA loop and the shared-memory epilogue. Fragment layouts follow
-// the PTX ISA
-// (m16n8k16 .bf16): with g = lane / 4 and t = lane % 4,
+// Tensor-core building blocks shared by matmul_int4w.cu,
+// flash_attention.cu, matmul.cu, conv3x3.cu, matmul_s8s8.cu and
+// decode_attention.cu: 16-byte cp.async staging with zero fill, bulk
+// (TMA) copies on mbarriers, ldmatrix fragment loads, mma.sync m16n8k16
+// (bf16 in, f32 accumulate) and bf16 pair packing; and (namespace si::tc,
+// at the end) the cp.async ring (`ring`) and the bf16 GEMM tile of
+// matmul.cu and conv3x3.cu: x / w stages, int8 w converted to bf16 once
+// per block, the k16 MMA loop and the shared-memory epilogue, whose
+// activation dispatch and tile store matmul_s8s8.cu shares. Fragment
+// layouts follow the PTX ISA (m16n8k16 .bf16): with g = lane / 4 and
+// t = lane % 4,
 //   A (16x16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                   a3 (g+8, 2t+8..);
 //   B (16x8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
@@ -33,6 +35,56 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 or 8 bytes global -> shared through L1 (.cg takes 16 only); the same
+// zero fill when not `valid`
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca takes 4, 8 or 16");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
+}
+
+// mbarriers and the bulk copy engine (TMA): one thread starts a copy of
+// contiguous bytes, which counts itself in on an mbarrier as it lands
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// the inits seen by the async proxy (and the other threads, after a
+// barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// until the phase of `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@P bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16; both ends 16-byte aligned) global -> shared
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -144,6 +196,32 @@ struct Tile {
   }
   __device__ static int x_vec(int tid) { return tid % (BK / 8); }
 };
+
+// The ring of NS stages: stages 0 .. NS-2 in flight ahead; for each stage
+// c, wait for this thread's cp.async copies of it, `land(c)` (work on what
+// this thread copied, or wait for a TMA copy's mbarrier, before the
+// barrier), one barrier (stage c is in for all, stage c-1 is free), issue
+// stage c + NS - 1, `compute(c)`. Ends with every copy landed and every
+// warp done with the ring.
+template <int NS = STAGES, class Load, class Land, class Compute>
+__device__ __forceinline__ void ring(int n_stages, Load&& load, Land&& land,
+                                     Compute&& compute) {
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_stages) load(s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_stages; ++c) {
+    cp_async_wait<NS - 2>();   // this thread's copies of stage c
+    land(c);
+    __syncthreads();
+    if (c + NS - 1 < n_stages) load(c + NS - 1);
+    cp_async_commit();
+    compute(c);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
 
 __device__ __forceinline__ __nv_bfloat16* x_area(uint8_t* st) {
   return reinterpret_cast<__nv_bfloat16*>(st);

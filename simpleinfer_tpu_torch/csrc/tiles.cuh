@@ -1,5 +1,5 @@
 // The 64x64 output tile shared by the port's GEMM-shaped kernels
-// (csrc/matmul.cu, csrc/matmul_s8s8.cu, csrc/c3block.cu): 256 threads of
+// (csrc/matmul.cu's f32 route, csrc/c3block.cu): 256 threads of
 // 4x4 outputs each, K walked in steps staged through shared memory, the
 // accumulator in registers. Two forms:
 //   - f32 FMA: a and w converted to f32 as they are staged, a K-major so

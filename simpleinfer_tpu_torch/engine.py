@@ -400,16 +400,24 @@ class Engine:
         weight tree of `program` to the engine's device, float weights at
         the compute dtype; each op's fp32_keys (e.g. YOLO grids, qk-norm
         weights) stay f32 and quantized tensors keep their int8 data /
-        packed nibbles and f32 scales."""
+        packed nibbles and f32 scales. The weight of a static-int8 op
+        (OpImpl.s8_weight, with its `act_scale` installed) is laid out
+        K-major here, once, as the s8 GEMM reads it."""
         fp32_keys = {impl.name: impl.fp32_keys for impl in program.impls}
+        s8 = {impl.name for impl in program.impls if impl.s8_weight}
         dtype = self.config.compute_torch_dtype
         placed = {}
         for opname, wdict in weights.items():
             keep = fp32_keys.get(opname, ())
+            k_major = opname in s8 and "act_scale" in wdict
             placed[opname] = {}
             for k, w in wdict.items():
                 if isinstance(w, (QuantizedTensor, Quantized4Tensor)):
-                    placed[opname][k] = w.to(self.device)
+                    w = w.to(self.device)
+                    if k_major and k == "weight" and isinstance(
+                            w, QuantizedTensor):
+                        w = w.k_major()
+                    placed[opname][k] = w
                 elif w.is_floating_point() and k not in keep:
                     placed[opname][k] = w.to(self.device, dtype)
                 else:

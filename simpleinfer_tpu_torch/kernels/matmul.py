@@ -20,9 +20,9 @@ dtypes: bf16 x with bf16 or int8 w runs on the bf16 tensor cores
 (mma.sync, the int8 weight converted to bf16 in shared memory, the scale
 applied to the f32 sum), any f32 operand on the exact f32-FMA tile;
 `matmul_int4w` (csrc/matmul_int4w.cu) and `matmul_s8s8`
-(csrc/matmul_s8s8.cu) are their own. The kernels are built
-with nvcc for sm_90a at first use, into `_build/` beside this package,
-and bound with ctypes (kernels/build.py).
+(csrc/matmul_s8s8.cu, wgmma on the s8 tensor cores) are their own. The
+kernels are built with nvcc for sm_90a at first use, into `_build/`
+beside this package, and bound with ctypes (kernels/build.py).
 
 A wrapper runs its plain PyTorch version (`matmul_ref`,
 `matmul_int8w_ref`, `matmul_int4w_ref`, `matmul_s8s8_ref`) only for
@@ -31,7 +31,9 @@ For CUDA tensors it launches the kernel or raises; there is no
 fallback. `launches` counts the launches of csrc/matmul.cu,
 `launches_int4w` those of csrc/matmul_int4w.cu and `launches_s8s8`
 those of csrc/matmul_s8s8.cu, so a run can show that its path went
-through each kernel.
+through each kernel; `transposes_s8s8` counts the row-major weights
+`matmul_s8s8` had to lay out K-major before its launch (none on a path
+whose engine placed its weights, Engine.place_weights).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from . import build
 launches = 0
 launches_int4w = 0
 launches_s8s8 = 0
+transposes_s8s8 = 0
 
 SOURCE = "matmul.cu"
 SOURCE_INT4W = "matmul_int4w.cu"
@@ -378,15 +381,33 @@ def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
     return out
 
 
+def k_major(w) -> bool:
+    """Whether a [K, N] matrix is the view of a contiguous [N, K] tensor
+    (strides (1, K)): each column's K values side by side, the layout the
+    s8 tensor cores read w in (size-1 dimensions take any stride)."""
+    k, n = w.shape
+    return (w.stride(0) == 1 or k <= 1) and (w.stride(1) == k or n <= 1)
+
+
+def to_k_major(w):
+    """The same [K, N] matrix laid out K-major (`k_major`), copied only
+    when it is not."""
+    return w if k_major(w) else w.t().contiguous().t()
+
+
 def matmul_s8s8(x_q, w_q, scale, bias=None, activation: Optional[str] = None,
                 *, out_dtype=torch.bfloat16):
     """out = act(float(x_q[M,K] s8 @ w_q[K,N] s8, summed exactly in s32)
     * scale[N] + bias[N]) — the static-int8 GEMM, with the quant
     semantics of ops/conv.int8_epilogue (scale = act_scale * w_scale per
     output channel, or w_scale alone for folded per-channel activation
-    scales; a scalar scale applies to every column). The TPU wrapper's
-    block sizes are its VMEM tiles and have no counterpart here."""
-    global launches_s8s8
+    scales; a scalar scale applies to every column). x_q is row-major;
+    w_q either layout: the kernel reads it K-major (`k_major`), as
+    Engine.place_weights lays out every static-int8 weight, and a
+    row-major w_q is copied so first (counted in `transposes_s8s8`). The
+    TPU wrapper's block sizes are its VMEM tiles and have no counterpart
+    here."""
+    global launches_s8s8, transposes_s8s8
     if not isinstance(scale, torch.Tensor):
         scale = torch.tensor(scale, dtype=torch.float32)
     if x_q.device.type == "cpu":
@@ -404,13 +425,17 @@ def matmul_s8s8(x_q, w_q, scale, bias=None, activation: Optional[str] = None,
         raise ValueError(f"w_q is on {w_q.device}, x_q on {x_q.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype {out_dtype} is not float32/bfloat16")
-    if not (x_q.is_contiguous() and w_q.is_contiguous()):
-        raise ValueError("x_q and w_q must be contiguous (row-major)")
+    if not x_q.is_contiguous():
+        raise ValueError("x_q must be contiguous (row-major)")
     m, k = x_q.shape
     n = w_q.shape[1]
-    if m >= 2 ** 31 or k >= 2 ** 31 or n > 65535 * 64:
+    if (m >= 2 ** 31 or k >= 2 ** 31 or n > 65535 * 64
+            or -(-m // MMA_BLOCK_M) > 65535):
         raise ValueError(f"matmul_s8s8 too large for the kernel: M={m}, "
                          f"K={k}, N={n}")
+    if not k_major(w_q):
+        w_q = to_k_major(w_q)
+        transposes_s8s8 += 1
     scale = scale.to(x_q.device, torch.float32)
     if scale.ndim == 0:
         scale = scale.expand(n)

@@ -127,9 +127,12 @@ def s8_product(q, w_q):
     s32 on the card where its shape rules allow (the library route, as
     XLA's s32 conv is the JAX package's), else float64 (|acc| <= K *
     127^2, far below 2^53, so every sum is exact; the CPU, and the shapes
-    _int_mm refuses). The two are the same integers."""
+    _int_mm refuses). The two are the same integers. A K-major w_q (the
+    layout Engine.place_weights gives static-int8 weights) goes to
+    _int_mm as it is, any other as a row-major copy."""
     if int_mm_ok(q, w_q):
-        return torch._int_mm(q.contiguous(), w_q.contiguous())
+        w = w_q if kmm.k_major(w_q) else w_q.contiguous()
+        return torch._int_mm(q.contiguous(), w)
     return q.double() @ w_q.double()
 
 
@@ -238,7 +241,7 @@ def conv2d_int8_static(x, wq: QuantizedTensor, act_scale, bias=None, *,
         sl = slice(g * ocg, (g + 1) * ocg)
         parts.append(int8_epilogue(
             cols[..., g * icg:(g + 1) * icg].reshape(m, kh * kw * icg),
-            wq.data[..., sl].reshape(-1, ocg).contiguous(), act_scale,
+            wq.data[..., sl].reshape(-1, ocg), act_scale,
             wq.scale[sl].contiguous(),
             None if bias is None else bias[sl].contiguous(), activation,
             torch.float32, use_kernels=use_kernels))
@@ -391,4 +394,5 @@ def lower_conv2d(op, cfg):
                               and not s2d_eligible and int8_profitable)
                   else None),
         q_out_consumer=q_consumer,
+        s8_weight=int8_profitable,
     )

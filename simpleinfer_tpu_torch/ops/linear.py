@@ -118,4 +118,5 @@ def lower_linear(op, cfg):
         fp32_keys=("act_scale",),
         act_quant=True,
         act_fold=_linear_act_fold(op),
+        s8_weight=True,
     )

@@ -50,6 +50,11 @@ class OpImpl:
     # s8 epilogue dequant stays one per-OUT-channel vector. None =
     # per-tensor scales only.
     act_fold: Optional[tuple] = None
+    # the static-int8 route (an `act_scale` installed) reads the op's
+    # quantized `weight` as the [K, N] operand of kernels/matmul.
+    # matmul_s8s8: Engine.place_weights then lays it out K-major once
+    # (QuantizedTensor.k_major), as the s8 tensor cores read it
+    s8_weight: bool = False
     # head geometry of attention ops, read by zoo/generate.CachedDecoder
     decode_info: Optional[dict] = None
 

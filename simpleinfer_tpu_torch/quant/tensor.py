@@ -50,6 +50,23 @@ class QuantizedTensor:
         return QuantizedTensor(data=self.data.to(device),
                                scale=self.scale.to(device), axis=self.axis)
 
+    def k_major(self) -> "QuantizedTensor":
+        """The same tensor with its data laid out K-major, the layout of
+        the s8 GEMM's weight operand (kernels/matmul.matmul_s8s8): the
+        output channels on the last axis, the other axes flattened into
+        K, stored as a contiguous [N, K] and viewed in this shape, so
+        that `data.reshape(-1, N)` is the [K, N] view with strides
+        (1, K). Values, shape and scales are unchanged."""
+        nd = self.data.ndim
+        if self.axis % nd != nd - 1:
+            raise ValueError(f"k_major needs the output channels on the "
+                             f"last axis, not axis {self.axis}")
+        n = self.data.shape[-1]
+        flat = self.data.reshape(-1, n)
+        return QuantizedTensor(
+            data=flat.t().contiguous().t().reshape(self.data.shape),
+            scale=self.scale, axis=self.axis)
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         bshape = [1] * self.data.ndim
         bshape[self.axis] = self.data.shape[self.axis]

@@ -102,9 +102,11 @@ class GenerationService:
     """
 
     #: smallest pool where decode_attn="auto" dispatches the per-row
-    #: decode kernel (the JAX package's crossover, measured on a TPU;
-    #: to be re-measured on the H100)
-    KERNEL_MIN_SLOTS = 16
+    #: decode kernel: on an H100 a decode step's frozen-cache attention
+    #: through the kernel beats the torch route at every pool size from
+    #: 1 slot (1.05x) to 16 (7.7x) (chip_smoke.decode_slots_sweep,
+    #: PERF.md); the JAX package's TPU crossover was 16
+    KERNEL_MIN_SLOTS = 1
 
     def __init__(self, engine, slots: int = 8, tick_timeout_s: float = 0.01,
                  seed: int = 0, decode_horizon: int = 1,

@@ -271,23 +271,35 @@ class CachedDecoder:
         """One decode step against the FROZEN cache (positions < pos0,
         never rewritten inside a block) plus the block's scratch (slot j
         holds block step j <= step_i): together exactly the per-step
-        path's key set 0..pos. With `kernel_attn` the frozen part runs
-        kernels/decode_attn.decode_attention and merges with the scratch
-        part by online-softmax combination."""
+        path's key set 0..pos (`_attend_frozen_scratch`)."""
         heads, kvh, d = self._geometry(info)
-        group = heads // kvh
         dt = x.dtype
-        n = x.shape[0]
         qh, kh, vh = self._proj_qkv_rope(w, x, info, pos)
         k_scr, v_scr = scratch                   # [N, KV, K, D]
         k_scr[:, :, step_i] = kh[:, :, 0, :].to(k_scr.dtype)
         v_scr[:, :, step_i] = vh[:, :, 0, :].to(v_scr.dtype)
+        ctx = self._attend_frozen_scratch(qh, frozen, scratch, step_i, pos0,
+                                          heads // kvh, self._scale(info, d),
+                                          dt, kernel_attn)
+        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+
+    def _attend_frozen_scratch(self, qh, frozen, scratch, step_i, pos0,
+                               group, scale, dt, kernel_attn):
+        """Context [N, H, 1, D] (at dt) of the queries qh [N, H, 1, D]
+        over the frozen cache positions < pos0 and the scratch slots
+        <= step_i. With `kernel_attn` the frozen part runs
+        kernels/decode_attn.decode_attention and merges with the scratch
+        part by online-softmax combination; else the f32 torch matmuls
+        over the whole window (`_attn_scores` / `_attn_ctx`) and one
+        softmax over both parts."""
+        n, heads, _, d = qh.shape
+        kvh = heads // group
+        k_scr, v_scr = scratch
         k_leaf, v_leaf = self._leaves(frozen)
-        scale = self._scale(info, d)
         neg = torch.finfo(torch.float32).min
         s_new = torch.matmul(qh.float(), repeat_kv(
             k_scr.to(dt), group).float().transpose(-1, -2)) * scale
-        keep_new = torch.arange(s_new.shape[-1], device=x.device) <= step_i
+        keep_new = torch.arange(s_new.shape[-1], device=qh.device) <= step_i
         s_new = s_new.masked_fill(~keep_new, neg)
 
         if kernel_attn:
@@ -302,18 +314,15 @@ class CachedDecoder:
             ctx_new = torch.matmul(p_new, repeat_kv(v_scr, group).float())
             carry = torch.exp(mf - m_tot)          # 0 when frozen empty
             l_tot = lf * carry + p_new.sum(dim=-1, keepdim=True)
-            ctx = ((of * carry + ctx_new) / l_tot).to(dt)
-        else:
-            s_old = self._attn_scores(qh, k_leaf, group, dt) * scale
-            idx = torch.arange(s_old.shape[-1], device=x.device)
-            keep_old = idx < pos0[:, None, None, None]
-            s_old = s_old.masked_fill(~keep_old, neg)
-            p = torch.softmax(torch.cat([s_old, s_new], dim=-1),
-                              dim=-1).to(dt)
-            p_old, p_new = p[..., :s_old.shape[-1]], p[..., s_old.shape[-1]:]
-            ctx = self._attn_ctx(p_old, v_leaf, group, dt) + torch.matmul(
-                p_new, repeat_kv(v_scr.to(dt), group))
-        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+            return ((of * carry + ctx_new) / l_tot).to(dt)
+        s_old = self._attn_scores(qh, k_leaf, group, dt) * scale
+        idx = torch.arange(s_old.shape[-1], device=qh.device)
+        keep_old = idx < pos0[:, None, None, None]
+        s_old = s_old.masked_fill(~keep_old, neg)
+        p = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1).to(dt)
+        p_old, p_new = p[..., :s_old.shape[-1]], p[..., s_old.shape[-1]:]
+        return self._attn_ctx(p_old, v_leaf, group, dt) + torch.matmul(
+            p_new, repeat_kv(v_scr.to(dt), group))
 
     def _walk(self, token, attend):
         """Run the plan on one token per row ([N, 1] float ids); `attend

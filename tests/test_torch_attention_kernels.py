@@ -233,6 +233,88 @@ def test_decode_ref_vs_pallas_interpret(n, kvh, g, length, d, int8, lens):
     _close(l, want[2])
 
 
+def _close_scores(got, want):
+    """m against the JAX side where a row's m may be one raw score near
+    0 (a row of length 1): f32 rounding of the dot product (~1e-8) held
+    to TOL x max(1, |m|), as o and l are; the -1e30 sentinel exactly."""
+    want = np.asarray(want)
+    np.testing.assert_array_equal(got == np.float32(-1e30),
+                                  want == np.float32(-1e30))
+    live = want > np.float32(-1e29)
+    _close(got[live], want[live])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_split_edges_vs_jax(int8):
+    """The lengths a split over positions makes hard (the card's kernel
+    shares each row's live positions among its blocks, 32 positions a
+    block here at L 96): 0, 1, one share minus and plus one, and L;
+    against the JAX oracle and the Pallas kernel in interpret mode."""
+    n, kvh, g, length, d = 5, 2, 4, 96, 16
+    lens = [0, 1, 31, 33, 96]
+    q, k, v = _decode_inputs(n, kvh, g, length, d, int8, seed=11)
+    scale = 1.0 / np.sqrt(d)
+    assert tdec.decode_splits(length, 32) == 3
+    got = tdec.decode_attention(
+        torch.from_numpy(q), _to(k, torch.from_numpy),
+        _to(v, torch.from_numpy), torch.tensor(lens), scale=scale,
+        block_k=32)
+    o, m, l = (t.numpy() for t in got)
+    oracle = jdec.decode_attention_ref(jnp.asarray(q), _to(k, jnp.asarray),
+                                       _to(v, jnp.asarray), jnp.asarray(lens),
+                                       scale=scale)
+    pallas = jdec.decode_attention(jnp.asarray(q), _to(k, jnp.asarray),
+                                   _to(v, jnp.asarray), jnp.asarray(lens),
+                                   scale=scale, block_k=8, interpret=True)
+    for want in (oracle, pallas):
+        _close_scores(m, want[1])
+        _close(o, want[0])
+        _close(l, want[2])
+    assert np.all(o[0] == 0) and np.all(l[0] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_max_len_under_l_vs_jax(int8):
+    """max_len under L (each live row's length fits, as the caller
+    guarantees): the port's read bound against the JAX oracle on the
+    same lengths and the Pallas kernel in interpret mode with the same
+    max_len."""
+    n, kvh, g, length, d, max_len = 4, 2, 4, 96, 16, 48
+    lens = [0, 1, 47, 48]
+    q, k, v = _decode_inputs(n, kvh, g, length, d, int8, seed=7)
+    scale = 1.0 / np.sqrt(d)
+    got = tdec.decode_attention(
+        torch.from_numpy(q), _to(k, torch.from_numpy),
+        _to(v, torch.from_numpy), torch.tensor(lens), scale=scale,
+        max_len=max_len)
+    o, m, l = (t.numpy() for t in got)
+    oracle = jdec.decode_attention_ref(jnp.asarray(q), _to(k, jnp.asarray),
+                                       _to(v, jnp.asarray), jnp.asarray(lens),
+                                       scale=scale)
+    pallas = jdec.decode_attention(jnp.asarray(q), _to(k, jnp.asarray),
+                                   _to(v, jnp.asarray), jnp.asarray(lens),
+                                   scale=scale, block_k=8, max_len=max_len,
+                                   interpret=True)
+    for want in (oracle, pallas):
+        _close_scores(m, want[1])
+        _close(o, want[0])
+        _close(l, want[2])
+    assert np.all(o[0] == 0) and np.all(l[0] == 0)
+    assert np.all(m[0] == np.float32(-1e30))
+
+
+def test_decode_splits_from_the_bound():
+    """The blocks sharing a (row, kv head) on the card: one per
+    SPLIT_POSITIONS of the bound (L or max_len), at least 1, at most
+    MAX_SPLITS; 4 at the llama service's window of 2048."""
+    assert tdec.decode_splits(2048) == 4
+    assert tdec.decode_splits(0) == tdec.decode_splits(1) == 1
+    assert tdec.decode_splits(513) == 2
+    assert tdec.decode_splits(10 ** 6) == tdec.MAX_SPLITS
+    assert tdec.decode_splits(2048, 32) == tdec.MAX_SPLITS
+    assert tdec.decode_splits(96, 32) == 3
+
+
 def test_decode_bf16_cache_and_max_len():
     """A bf16 cache reads as its f32 values; max_len truncates each
     row's read to the prefix (the JAX kernel's occupied-prefix bound)."""

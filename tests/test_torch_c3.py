@@ -287,7 +287,8 @@ def test_yolov5l_c3_fusion_matches_jax(quant):
     carried = program_weights_from_numpy(
         {op: {k: ((np.asarray(v.data), np.asarray(v.scale), v.axis)
                   if isinstance(v, JQ) else np.asarray(v))
-              for k, v in d.items()} for op, d in je.program.weights.items()})
+              for k, v in d.items()} for op, d in je.program.weights.items()},
+        device="cpu")
     assert {k for d in carried.values() for k in d} >= {
         "act_scale", "btl_b_wq", "btl_b_wsc"}
     with torch.inference_mode():

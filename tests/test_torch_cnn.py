@@ -663,7 +663,7 @@ def test_jax_program_weights_run_in_port(name, quant):
                      if isinstance(v, JQ) else np.asarray(v))
                  for k, v in d.items()}
             for op, d in je.program.weights.items()}
-    carried = program_weights_from_numpy(tree)
+    carried = program_weights_from_numpy(tree, device="cpu")
     assert carried.keys() == te.program.weights.keys()
     for op in carried:
         assert carried[op].keys() == te.program.weights[op].keys(), op

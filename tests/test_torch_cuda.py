@@ -16,7 +16,9 @@ or int8 step takes the next step on one side: chip_smoke.C3_MAX_TOL).
 conv3x3_s1_same and stem_s2d as the matmul kernels. The kernels-off
 routes: static int8's torch._int_mm product bit-equal to the float64
 one; the bf16 C3 chain (ops/c3.c3_chain) within c3_block's bf16 limit
-of c3_block_reference.
+of c3_block_reference. decode_attention's split route and matmul_s8s8's
+weight layouts are held to the same limits, with bit-equal reruns and
+exact s32 sums.
 """
 import numpy as np
 import pytest
@@ -310,6 +312,86 @@ def test_decode_kernel_matches_plain_on_card(cuda, cache):
     assert bool((m[0] == -1e30).all())
     _assert_close(m[1:], ref[1][1:])
     assert kdec.launches - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("block_k", [32, None])
+def test_decode_split_route_matches_plain_on_card(cuda, cache, block_k):
+    """The split over positions (block_k 32: 7 blocks a row at L 200, the
+    most the bound gives; None: the default) at the lengths its shares
+    make hard, and with a max_len under L; the empty row gives o = 0,
+    l = 0, m = -1e30; two runs bit-equal (the splits merge in a fixed
+    order); one launch counted per call."""
+    from simpleinfer_tpu_torch.zoo.generate import _kv_quantize
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, kvh, g, length, d = 8, 2, 4, 200, 64
+    q = torch.randn(n, kvh, g, d, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(n, kvh, length, d, generator=gen, device=cuda)
+            for _ in range(2))
+    if cache == "int8":
+        k, v = _kv_quantize(k), _kv_quantize(v)
+    else:
+        k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
+    lens = torch.tensor([0, 1, 29, 31, 33, 64, 199, 200], dtype=torch.int32,
+                        device=cuda)
+    for max_len in (None, 100):
+        want_lens = lens if max_len is None else torch.clamp(lens,
+                                                             max=max_len)
+        before = kdec.launches
+        got = kdec.decode_attention(q, k, v, lens, scale=0.125,
+                                    block_k=block_k, max_len=max_len)
+        again = kdec.decode_attention(q, k, v, lens, scale=0.125,
+                                      block_k=block_k, max_len=max_len)
+        torch.cuda.synchronize()
+        assert kdec.launches - before == 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = kdec.decode_attention_ref(q, k, v, want_lens, scale=0.125)
+        for a, r in zip(got[::2], ref[::2]):        # o and l
+            _assert_close(a, r)
+        o, m, l = got
+        assert bool((o[0] == 0).all()) and bool((l[0] == 0).all())
+        assert bool((m[0] == -1e30).all())
+        _assert_close(m[1:], ref[1][1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(100, 60, 50), (37, 129, 131),
+                                   (300, 1152, 200), (129, 4608, 130),
+                                   (1, 256, 255)])
+def test_s8s8_layouts_and_views_on_card(cuda, m, k, n):
+    """matmul_s8s8 with w row-major (copied K-major by the wrapper, and
+    counted), K-major (no copy), and both operands at misaligned
+    addresses (the element-staged route): the exact s32 sums (unit
+    scale, f32 out) and the silu / bf16 epilogue against the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                       dtype=torch.int8)
+
+    def offset(t, rows, cols):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=cuda)
+        view = buf[1:1 + t.numel()].view(rows, cols)
+        view.copy_(t)
+        return view
+
+    exact = (xq.double() @ wq.double()).float()
+    sc = torch.rand(n, generator=gen, device=cuda) * 1e-3
+    b = torch.randn(n, generator=gen, device=cuda)
+    for x, w, copies in ((xq, wq, 1), (xq, tmm.to_k_major(wq), 0),
+                         (offset(xq, m, k), offset(wq.t(), n, k).t(), 0)):
+        before = tmm.transposes_s8s8
+        got = tmm.matmul_s8s8(x, w, torch.ones(n, device=cuda),
+                              out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact)
+        assert tmm.transposes_s8s8 - before == copies
+        got = tmm.matmul_s8s8(x, w, sc, b, "silu")
+        torch.cuda.synchronize()
+        _assert_close(got, tmm.matmul_s8s8_ref(xq, wq, sc, b, "silu"))
 
 
 @pytest.mark.cuda

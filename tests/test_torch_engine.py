@@ -117,7 +117,7 @@ def test_int8w_matches_jax_same_bytes(dtype):
                           if i.type == "nn.Conv2d")
     own = pe.run({in_name: x})[out_name]
     carried = program_weights_from_numpy(
-        jax_weights_numpy(je.program.weights))
+        jax_weights_numpy(je.program.weights), device="cpu")
     assert carried.keys() == pe.program.weights.keys()
     for op in carried:
         assert carried[op].keys() == pe.program.weights[op].keys()
@@ -134,6 +134,29 @@ def test_int8w_matches_jax_same_bytes(dtype):
         d = np.abs(got - want)
         assert d.max() <= 2 ** -5 * scale, d.max() / scale
         assert d.mean() <= 1e-4 * scale, d.mean() / scale
+
+
+def test_convert_places_on_the_card_by_default():
+    """program_weights_from_numpy places on the card unless the caller
+    asks for the CPU, as EngineConfig.device does: without a card, a
+    call that names no device raises instead of landing on the CPU."""
+    import inspect
+
+    default = inspect.signature(program_weights_from_numpy).parameters[
+        "device"].default
+    assert default == "cuda" == EngineConfig().device
+    tree = {"op": {"w": np.ones(3, np.float32),
+                   "q": (np.ones((2, 3), np.int8),
+                         np.ones(3, np.float32), 1)}}
+    if torch.cuda.is_available():
+        placed = program_weights_from_numpy(tree)["op"]
+        assert placed["w"].device.type == placed["q"].data.device.type \
+            == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            program_weights_from_numpy(tree)
+    cpu = program_weights_from_numpy(tree, device="cpu")["op"]
+    assert cpu["w"].device.type == cpu["q"].data.device.type == "cpu"
 
 
 def test_every_pointwise_conv_reaches_matmul_int8w(monkeypatch):

@@ -189,6 +189,60 @@ def test_kernels_off_s8_product_on_cpu_is_the_float64_one():
             xq, wq, act_scale * w_scale, b, "relu", torch.float32))
 
 
+@pytest.mark.parametrize("m,k,n", [(37, 129, 131), (64, 1152, 256),
+                                   (1, 16, 8)])
+def test_s8s8_k_major_weight_gives_the_same_integers(m, k, n):
+    """matmul_s8s8 and the kernels-off matmul_s8s8_library take w_q
+    row-major or K-major (the [K, N] view of a contiguous [N, K], as
+    Engine.place_weights lays out static-int8 weights): the same
+    integers and outputs either way, and the JAX package's
+    matmul_s8s8_ref on the same bytes."""
+    from simpleinfer_tpu_torch.ops import conv as tconv
+
+    rng = _rng("kmajor", m, k, n)
+    xq, wq = _s8(rng, m, k), _s8(rng, k, n)
+    scale = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    tx, tw = torch.from_numpy(xq), torch.from_numpy(wq)
+    wk = tmm.to_k_major(tw)
+    assert tmm.k_major(wk) and wk.stride() == (1, k)
+    assert torch.equal(wk, tw) and tmm.to_k_major(wk) is wk
+    assert tmm.k_major(tw) == (n == 1 or k == 1)
+    sc, b = torch.from_numpy(scale), torch.from_numpy(bias)
+    want = np.asarray(jmm.matmul_s8s8_ref(
+        jnp.asarray(xq), jnp.asarray(wq), scale, jnp.asarray(bias), "silu",
+        out_dtype=jnp.float32))
+    lim = 1e-6 * np.abs(want) + 1e-6 * max(1.0, np.abs(want).max())
+    outs = []
+    for w in (tw, wk):
+        assert torch.equal(tconv.s8_product(tx, w), tx.double() @ tw.double())
+        got = tmm.matmul_s8s8(tx, w, sc, b, "silu", out_dtype=torch.float32)
+        lib = tconv.matmul_s8s8_library(tx, w, sc, b, "silu", torch.float32)
+        assert torch.equal(got, lib)
+        assert (np.abs(got.numpy() - want) <= lim).all()
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_quantized_tensor_k_major_keeps_values():
+    """QuantizedTensor.k_major: the same values, shape and scales, laid
+    out so that data.reshape(-1, N) is a K-major view (HWIO conv and
+    [in, out] linear weights); a tensor whose scales are not on the last
+    axis is refused."""
+    rng = np.random.default_rng(4)
+    for shape in ((3, 3, 16, 24), (40, 12)):
+        q = tquant(rng.standard_normal(shape).astype(np.float32),
+                   axis=len(shape) - 1)
+        km = q.k_major()
+        assert torch.equal(km.data, q.data) and km.scale is q.scale
+        view = km.data.reshape(-1, shape[-1])
+        assert view.data_ptr() == km.data.data_ptr() and tmm.k_major(view)
+        assert torch.equal(km.dequantize(), q.dequantize())
+    with pytest.raises(ValueError, match="last axis"):
+        tquant(rng.standard_normal((4, 6)).astype(np.float32),
+               axis=0).k_major()
+
+
 # ---- conv2d_int8_static ---------------------------------------------------
 CONV8_CASES = [
     # (mode, stride, groups, dilation, kernel, padding)
@@ -479,7 +533,8 @@ def test_int8_engine_matches_jax_on_same_scales():
     own._install_act_scales({k: np.asarray(w["act_scale"])
                              for k, w in je.program.weights.items()
                              if "act_scale" in w})
-    carried = program_weights_from_numpy(numpy_tree(je.program.weights))
+    carried = program_weights_from_numpy(numpy_tree(je.program.weights),
+                                         device="cpu")
     with torch.inference_mode():
         again = own.program.fn(own.place_weights(carried, own.program),
                                {in_name: torch.from_numpy(x)})[out_name]
@@ -534,6 +589,50 @@ def test_int8_engine_kernels_on_reach_matmul_s8s8(monkeypatch):
                 and op.params["in_channels"].value >= 128]
     assert len(calls) == len(eligible) > 0
     assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("variant", ["yolov5n", "resnet18"])
+def test_engine_places_static_int8_weights_k_major(variant):
+    """After calibration every static-int8 weight is placed K-major once
+    (OpImpl.s8_weight), every other weight keeps its layout, and the
+    forward is bit-equal to one over the same weights placed row-major
+    (the CPU's float64 sums do not see the layout)."""
+    from simpleinfer_tpu_torch.zoo import build_resnet18
+
+    if variant == "yolov5n":
+        g, in_name, out_name = build_yolov5("n", batch=1, image_size=64)
+        x = _images(1)
+    else:
+        g, in_name, out_name = build_resnet18(batch=1, image_size=64,
+                                              width=16)
+        x = _images(1, seed=2)
+    eng = Engine(EngineConfig(device="cpu", quant="int8", use_kernels=True))
+    eng.load_model(None, graph=g)
+    eng.calibrate([{in_name: x}])
+    s8_ops = {i.name for i in eng.program.impls if i.s8_weight}
+    placed = eng._device_weights
+    n_kmajor = 0
+    for op, wd in placed.items():
+        for key, w in wd.items():
+            if not isinstance(w, QuantizedTensor):
+                continue
+            view = w.data.reshape(-1, w.data.shape[-1])
+            if op in s8_ops and "act_scale" in wd and key == "weight":
+                assert tmm.k_major(view) and not w.data.is_contiguous()
+                n_kmajor += 1
+            else:
+                assert w.data.is_contiguous()
+    assert n_kmajor > 0
+    row_major = {op: {key: (QuantizedTensor(data=w.data.contiguous(),
+                                            scale=w.scale, axis=w.axis)
+                            if isinstance(w, QuantizedTensor) else w)
+                      for key, w in wd.items()}
+                 for op, wd in placed.items()}
+    feed = {in_name: torch.from_numpy(x)}
+    with torch.inference_mode():
+        got = eng.program.fn(placed, feed)[out_name]
+        want = eng.program.fn(row_major, feed)[out_name]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("per_channel", [False, True],
