@@ -8,9 +8,10 @@ Phases, each printing JSON lines:
    every kernel source (one nvcc each, started together) with
    `-Xptxas -v` registers and spills; then the tensor-core instructions
    (HMMA / HGMMA / IMMA / IGMMA) of each function of matmul_int4w.cu,
-   flash_attention.cu, matmul.cu, conv3x3.cu and matmul_s8s8.cu in the
+   flash_attention.cu, matmul.cu, conv3x3.cu, matmul_s8s8.cu,
+   c3block.cu (its bf16 stages and its s8-tap 3x3) and stem.cu in the
    built SASS (cuobjdump -sass), which fails if a bf16 route has no
-   HMMA / HGMMA or the s8 route no IMMA / IGMMA;
+   HMMA / HGMMA or an s8 route no IMMA / IGMMA;
 2. kernel vs plain version on the card: `matmul` and `matmul_int8w` at
    the YOLOv5s-640-b8 pointwise-conv shapes (taken from the main path)
    and at ragged shapes, x in bf16 and f32, every activation; then the
@@ -24,10 +25,12 @@ Phases, each printing JSON lines:
 4b. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
    bf16, quant="int8", c3_fusion, calibrated by Engine.calibrate on 2
    seeded batches (wall time printed); the launches of `matmul_s8s8` (5
-   per forward), `c3_block` (4, one with s8 taps) and `matmul_int8w`
-   (3: the pointwise convs outside the int8 gate) with the counts set
-   to 0 just before the forwards, and no matmul_s8s8 call that had to
-   lay its weight out K-major (Engine.place_weights did, once);
+   per forward), `c3_block` (INT8_C3_BLOCKS at the H100's C3_MIN_WORK,
+   one with s8 taps, every one on the tensor-core route) and
+   `matmul_int8w` (3: the pointwise convs outside the int8 gate) with
+   the counts set to 0 just before the forwards, no matmul_s8s8 call
+   that had to lay its weight out K-major (Engine.place_weights did,
+   once) and no C3 weight converted or copied per call;
    matmul_s8s8 and c3_block against their plain versions at ragged
    shapes (w row-major, K-major and both operands misaligned; fp and s8
    taps, both shortcut
@@ -37,8 +40,12 @@ Phases, each printing JSON lines:
    matmul_s8s8, `torch.addmm` for matmul_int8w, none for a C3 block)
    and bound, a line per C3 block with the times of c3_block, of the bf16
    library chain ops/c3.c3_chain and of c3_block_reference, and the time
-   of the 4 fused blocks below c3_profitable, which run c3_chain (held
-   to c3_block's bf16 limit of the plain version); forward times kernels
+   of the fused blocks below c3_profitable, which run c3_chain (held
+   to c3_block's bf16 limit of the plain version); the C3 gate sweep:
+   all 8 fused blocks through c3_block (C3_MIN_WORK 0 for one recorded
+   forward, the taps still the JAX package's choice), a line per block
+   with c3_block, c3_chain, plain and bound by its work h*w*hid*T, and
+   the gate the readings give beside the committed one; forward times kernels
    on, off, on; profiles (the kernels-off one must run no float64
    kernel: its s8 products are torch._int_mm's); kernels on vs off, box
    and scores each against its own scale, within limits set between the
@@ -205,7 +212,10 @@ MMA_KERNELS = (("matmul_int4w.cu", "si_int4w_mma_kernel", BF16_MMA),
                ("flash_attention.cu", "si_flash_mma_kernel", BF16_MMA),
                ("matmul.cu", "si_matmul_mma_kernel", BF16_MMA),
                ("conv3x3.cu", "si_conv3x3_mma_kernel", BF16_MMA),
-               ("matmul_s8s8.cu", "si_s8s8_wgmma_kernel", S8_MMA))
+               ("matmul_s8s8.cu", "si_s8s8_wgmma_kernel", S8_MMA),
+               ("c3block.cu", "c3_tc_kernel", BF16_MMA),
+               ("c3block.cu", "c3_s8_tap_kernel", S8_MMA),
+               ("stem.cu", "si_stem_kernel", BF16_MMA))
 
 
 def _tool(name) -> str:
@@ -238,7 +248,7 @@ def sass_mma_counts() -> dict:
 
     ops = BF16_MMA + S8_MMA
     counts = {}
-    for source, part, _ in MMA_KERNELS:
+    for source in dict.fromkeys(src for src, _, _ in MMA_KERNELS):
         sass = subprocess.run(
             [_tool("cuobjdump"), "-sass", str(build.library_path(source))],
             capture_output=True, text=True, check=True).stdout
@@ -571,8 +581,8 @@ def profile_forward(engine, feeds: dict, forward_ms: float, iters=3,
             "f64_ms_per_forward": sum(k[0] for k in f64),
             "hand_kernels_ms_per_forward": {
                 name: sum(k[0] for k in kernels if name in k[2])
-                for name in ("si_s8s8_kernel", "c3_fp_kernel",
-                             "c3_s8_tap_kernel")},
+                for name in ("si_s8s8", "c3_tc_kernel", "c3_s8_tap_kernel",
+                             "c3_quantize_kernel", "c3_fp_kernel")},
             "top_kernels": [[round(ms, 4), cnt, name]
                             for ms, cnt, name in kernels[:top]]}
 
@@ -686,16 +696,18 @@ def fp32_card_vs_cpu(device, batch=2, image=64, seed=0) -> dict:
 # ---- yolov5l static int8 with the C3 collapse -------------------------
 # yolov5l-640-b16 (ultralytics v6.0 widths and depths), bf16, quant="int8",
 # c3_fusion: per forward, the five 3x3 s2 convs with ic >= 128
-# (int8_min_channels) reach matmul_s8s8, and the four C3 blocks that
-# pass c3_profitable at 640 reach c3_block, C3_1 (hid 64) with s8 taps
+# (int8_min_channels) reach matmul_s8s8, and the six fused C3 blocks that
+# pass c3_profitable at the H100's C3_MIN_WORK reach c3_block, C3_1 (hid
+# 64) with s8 taps (the JAX package's choice: the only block with hid <
+# 128 at or above its threshold)
 INT8 = dict(variant="l", batch=16, image=640, seed=0)
 INT8_S8S8_CONVS = 5
-INT8_C3_BLOCKS = 4
+INT8_C3_BLOCKS = 6
 INT8_C3_S8_BLOCKS = 1
-# the fused C3 blocks below c3_profitable (they run the plain version on
-# the card) and the pointwise convs outside the int8 gate and the C3
-# blocks, which run weight-only through matmul_int8w
-INT8_C3_PLAIN_BLOCKS = 4
+# the fused C3 blocks below c3_profitable (the two 20x20 ones: they run
+# c3_chain on the card) and the pointwise convs outside the int8 gate and
+# the C3 blocks, which run weight-only through matmul_int8w
+INT8_C3_PLAIN_BLOCKS = 2
 INT8_INT8W_CONVS = 3
 INT8_CALIB_BATCHES = 2
 # c3_block vs its plain version: f32 with fp taps elementwise within
@@ -710,10 +722,12 @@ C3_MAX_TOL = 0.05
 C3_MEAN_TOL = 5e-4
 # (n, h, w, c, hid, oc, T, shortcut): ragged tile edges (M and the
 # channel widths not multiples of 64), several images per tile and
-# tiles straddling images, both shortcut forms
+# tiles straddling images, both shortcut forms; hid off 16 (the s8
+# taps' element staging) and widths off 8 (bf16 on the f32-FMA tile)
 C3_RAGGED = [(2, 9, 7, 16, 8, 16, 2, True), (2, 32, 24, 16, 8, 16, 2, False),
              (3, 20, 20, 64, 72, 48, 1, False), (1, 16, 16, 128, 64, 128, 3,
-                                                  True)]
+                                                  True),
+             (3, 11, 13, 40, 40, 24, 3, False), (2, 7, 5, 12, 20, 12, 2, True)]
 # kernels on vs off over the whole int8 forward (bf16; off runs C3_1 on
 # fp taps), each part of a detection row against its own scale: the box
 # (x, y, w, h, in pixels) and the scores (objectness and classes, in
@@ -824,6 +838,9 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
         if device.type == "cuda" else (lambda: None)
     worst = {"matmul_s8s8": 0.0, "matmul_int8w": 0.0, "c3_block": 0.0}
     failures, n_checks = [], 0
+    # each main-path C3 call's distance from the plain version, over its
+    # scale: the margin to the bf16 limit, per block
+    c3_main = []
     # kernel wrappers and plain versions by the recorder's names (the
     # module attributes, looked up after the recorder has restored them)
     mms = {"matmul_s8s8": (kmm.matmul_s8s8, kmm.matmul_s8s8_ref),
@@ -915,6 +932,10 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
                     ref = c3_ref(*args, **kw)
                 err, mean, scl, ok = c3_close(got, ref, False)
                 n_checks += 1
+                c3_main.append({"route": "c3_chain",
+                                "x": list(args[0].shape),
+                                "max_over_scale": err / scl,
+                                "mean_over_scale": mean / scl})
                 if not ok:
                     failures.append(dict(route="c3_chain", case=[
                         *args[0].shape], max_abs_err=err, mean_abs_err=mean,
@@ -933,6 +954,10 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
                 and kw.get("btl_b_scale") is None)
             n_checks += 1
             worst["c3_block"] = max(worst["c3_block"], err)
+            c3_main.append({"route": "c3_block", "x": list(args[0].shape),
+                            "s8": kw.get("btl_b_scale") is not None,
+                            "max_over_scale": err / scl,
+                            "mean_over_scale": mean / scl})
             if not ok:
                 failures.append(dict(kernel="c3_block", case=[
                     *args[0].shape, kw.get("btl_b_scale") is not None],
@@ -946,7 +971,7 @@ def int8_kernel_checks(device, rec=None, seed=11, ragged=True,
           "c3_tol": {"f32_fp_taps": f"{C3_F32_ATOL}*max(1,|ref|)",
                      "bf16_or_s8": [C3_MAX_TOL, C3_MEAN_TOL],
                      "grid": "1e-6*max(1,|ref|)"},
-          "max_abs_err_main": worst})
+          "c3_main_calls": c3_main, "max_abs_err_main": worst})
     if failures:
         raise AssertionError(f"{len(failures)} int8 kernel-vs-plain "
                              f"mismatches")
@@ -958,6 +983,85 @@ def c3_flops(n, h, w, c, hid, oc, t) -> tuple:
     px = n * h * w
     return (2 * px * (2 * c * hid + t * hid * hid + 2 * hid * oc),
             2 * px * 9 * t * hid * hid)
+
+
+def c3_block_times(device, args, kw, iters, flush) -> dict:
+    """One C3 block on its recorded inputs: c3_block, the bf16 library
+    chain ops/c3.c3_chain and c3_block_reference (ms, CUDA events, L2
+    flushed before each launch) beside the bound: x, its weights and the
+    output moved once against the 1x1 FLOPs at the bf16 (or f32) peak
+    plus the 3x3 ops at the int8 peak with s8 taps."""
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+    from simpleinfer_tpu_torch.ops import c3 as oc3
+
+    x = args[0]
+    n, h, w, c = x.shape
+    hid, oc, t_ = args[1].shape[1], args[5].shape[1], args[8].shape[0]
+    s8 = kw.get("btl_b_scale") is not None
+    f1, f3 = c3_flops(n, h, w, c, hid, oc, t_)
+    peak = PEAK_FLOPS[str(x.dtype)[6:]]
+    t_o = (f1 / peak + f3 / (INT8_PEAK_OPS if s8 else peak)) * 1e3
+    wbytes = sum(a.numel() * a.element_size() for a in args[1:])
+    nbytes = x.numel() * x.element_size() * (1 + oc / c) + wbytes
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"x": [n, h, w, c], "hid": hid, "oc": oc, "T": t_, "s8": s8,
+            "shortcut": kw.get("shortcut", True), "work": h * w * hid * t_,
+            "ms": _time_ms(device, lambda: kc3.c3_block(*args, **kw), iters,
+                           flush),
+            "plain_ms": _time_ms(device, lambda: kc3.c3_block_reference(
+                *args, **kw), 2, flush),
+            "chain_ms": _time_ms(device, lambda: oc3.c3_chain(*args, **kw),
+                                 iters, flush),
+            "bound_ms": max(t_b, t_o), "bytes_ms": t_b, "ops_ms": t_o,
+            "gflop": (f1 + f3) / 1e9,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def c3_gate_sweep(device, engine, feeds, iters=5) -> dict:
+    """The C3 dispatch gate measured on the card: one forward of the
+    kernels-on `engine` with C3_MIN_WORK set to 0, so every fused block
+    that c3_supported takes reaches c3_block (its taps still the JAX
+    package's choice), each recorded block timed on its own inputs
+    (`c3_block_times`), a line per block by its work h*w*hid*T. The gate
+    the readings give is the least work from which c3_block beats
+    c3_chain at every block at or above it; it is printed beside the
+    committed C3_MIN_WORK and the blocks per forward that takes."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import c3block as kc3
+
+    prev = kc3.C3_MIN_WORK
+    kc3.C3_MIN_WORK = 0
+    try:
+        with Recorder({"c3_block": kc3}) as rec:
+            engine.run(feeds)
+    finally:
+        kc3.C3_MIN_WORK = prev
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    rows = sorted((c3_block_times(device, args, kw, iters, flush)
+                   for args, kw in rec.calls["c3_block"]),
+                  key=lambda r: r["work"])
+    del rec
+    for r in rows:
+        r["kernel_wins"] = r["ms"] < r["chain_ms"]
+        emit({"phase": "c3_gate_sweep_block", **{k: r[k] for k in (
+            "work", "x", "hid", "oc", "T", "s8", "ms", "chain_ms",
+            "plain_ms", "bound_ms", "bound_by", "kernel_wins")}})
+    implied = None
+    for r in reversed(rows):
+        if not r["kernel_wins"]:
+            break
+        implied = r["work"]
+    res = {"phase": "c3_gate_sweep", "blocks": len(rows),
+           "kernel_wins": sum(r["kernel_wins"] for r in rows),
+           "implied_min_work": implied, "C3_MIN_WORK": kc3.C3_MIN_WORK,
+           "JAX_C3_MIN_WORK": kc3.JAX_C3_MIN_WORK,
+           "kernel_blocks_at_gate": sum(r["work"] >= kc3.C3_MIN_WORK
+                                        for r in rows),
+           "ms_kernel_at_gate": sum(r["ms"] if r["work"] >= kc3.C3_MIN_WORK
+                                    else r["chain_ms"] for r in rows),
+           "ms_chain_all": sum(r["chain_ms"] for r in rows)}
+    emit(res)
+    return res
 
 
 def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
@@ -1080,31 +1184,11 @@ def time_int8_kernels(device, rec, iters=5, s8s8_in_bytes=None,
               bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, launches=0)
     rows = []
     for args, kw in rec.calls["c3_block"]:
-        x = args[0]
-        n, h, w, c = x.shape
-        hid, oc, t_ = args[1].shape[1], args[5].shape[1], args[8].shape[0]
-        s8 = kw.get("btl_b_scale") is not None
-        f1, f3 = c3_flops(n, h, w, c, hid, oc, t_)
-        peak = PEAK_FLOPS[str(x.dtype)[6:]]
-        t_o = (f1 / peak + f3 / (INT8_PEAK_OPS if s8 else peak)) * 1e3
-        wbytes = sum(a.numel() * a.element_size() for a in args[1:])
-        nbytes = x.numel() * x.element_size() * (1 + oc / c) + wbytes
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t = {"ms": _time_ms(device, lambda: kc3.c3_block(*args, **kw),
-                            iters, flush),
-             "plain_ms": _time_ms(device, lambda: kc3.c3_block_reference(
-                 *args, **kw), 2, flush),
-             "chain_ms": _time_ms(device, lambda: oc3.c3_chain(*args, **kw),
-                                  iters, flush),
-             "bound_ms": max(t_b, t_o)}
-        rows.append({"x": [n, h, w, c], "hid": hid, "oc": oc, "T": t_,
-                     "s8": s8, "shortcut": kw.get("shortcut", True), **t,
-                     "gflop": (f1 + f3) / 1e9,
-                     "bound_by": "bytes" if t_b >= t_o else "operations"})
-        for key in ("ms", "plain_ms", "chain_ms", "bound_ms"):
+        t = c3_block_times(device, args, kw, iters, flush)
+        rows.append(t)
+        for key in ("ms", "plain_ms", "chain_ms", "bound_ms", "bytes_ms",
+                    "ops_ms"):
             c3[key] += t[key]
-        c3["bytes_ms"] += t_b
-        c3["ops_ms"] += t_o
         c3["launches"] += 1
     c3["bound_by"] = "bytes" if c3["bytes_ms"] >= c3["ops_ms"] \
         else "operations"
@@ -1181,11 +1265,12 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
     with int8_recorder() as rec:
         on.run(feeds[0])
     kmm.launches = kmm.launches_s8s8 = kc3.launches = 0
-    kmm.transposes_s8s8 = 0
+    kmm.transposes_s8s8 = kc3.tc_launches = kc3.weight_copies = 0
     outs = [on.run(f)[out_name] for f in feeds]
     launches = {"matmul_s8s8": kmm.launches_s8s8,
                 "c3_block": kc3.launches, "matmul_int8w": kmm.launches}
     transposes = kmm.transposes_s8s8
+    c3_tc, c3_copies = kc3.tc_launches, kc3.weight_copies
     if any(o.shape != (batch, 3 * sum((image // s) ** 2
                                       for s in (8, 16, 32)), 85)
            or not np.isfinite(o).all() for o in outs):
@@ -1199,6 +1284,8 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
            "calibration_s": calib_s, "scales": len(scales),
            "forwards": n_forwards, "launches": launches,
            "s8s8_weight_transposes": transposes,
+           "c3_tensor_core_launches": c3_tc,
+           "c3_weight_copies": c3_copies,
            "s8s8_convs_per_forward": len(rec.calls["matmul_s8s8"]),
            "int8w_convs_per_forward": len(rec.calls["matmul_int8w"]),
            "c3_kernel_blocks_per_forward": len(c3_calls),
@@ -1214,6 +1301,11 @@ def int8_main_path(device, engines, n_forwards=2, calib_batches=None,
     emit(res)
     if device.type == "cuda":
         check_no_transposes(transposes, "yolov5l int8")
+        if c3_copies or c3_tc != launches["c3_block"]:
+            raise AssertionError(
+                f"c3_block: {c3_copies} weight operands converted or "
+                f"copied per call, {c3_tc} of {launches['c3_block']} "
+                f"launches on the tensor-core route")
         for name, per in (("matmul_s8s8", INT8_S8S8_CONVS),
                           ("matmul_int8w", INT8_INT8W_CONVS),
                           ("c3_block", INT8_C3_BLOCKS)):
@@ -1268,9 +1360,9 @@ def check_int8_onoff(res) -> None:
 def yolo_int8_phase(device, kernels: dict) -> dict:
     """yolov5l-640-b16 bf16 int8 with the C3 collapse on the card: build
     and calibrate, kernel vs plain (ragged and the recorded main-path
-    calls), launches per forward, forward times (on, off, on), a profile,
-    kernels on vs off, and the two kernels' entries of the kernels
-    line."""
+    calls), launches per forward, the C3 gate sweep, forward times (on,
+    off, on), a profile, kernels on vs off, and the two kernels' entries
+    of the kernels line."""
     import torch
 
     t0 = time.perf_counter()
@@ -1286,6 +1378,7 @@ def yolo_int8_phase(device, kernels: dict) -> dict:
     worst = int8_kernel_checks(device, rec)
     times = time_int8_kernels(device, rec)
     feeds = {on[1]: run["feeds"][0][on[1]]}
+    sweep = c3_gate_sweep(device, on[0], feeds)
     t_on = forward_times(on[0], feeds)
     t_off = forward_times(off[0], feeds)
     t_on2 = forward_times(on[0], feeds)
@@ -1320,6 +1413,10 @@ def yolo_int8_phase(device, kernels: dict) -> dict:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
     # matmul_int8w's entry is phase 3's (YOLOv5s) when that ran; this
     # path's own readings go beside it
+    entries["c3_block"]["gate_sweep"] = {
+        k: sweep[k] for k in ("implied_min_work", "C3_MIN_WORK",
+                              "kernel_blocks_at_gate", "ms_kernel_at_gate",
+                              "ms_chain_all")}
     int8w = entries.pop("matmul_int8w")
     kernels.setdefault("matmul_int8w", int8w)["yolo_int8"] = {
         k: v for k, v in int8w.items()
@@ -1332,12 +1429,14 @@ def yolo_int8_phase(device, kernels: dict) -> dict:
 def yolo_int8_rehearsal(device, image=64, batch=2) -> dict:
     """The int8 phase's main path and kernel checks at a tiny size (the
     CPU tests run it with the plain versions): yolov5l at `image`, with
-    the c3_profitable threshold scaled by (image / 640)^2 so the same
-    four blocks take the kernel."""
+    both c3_profitable thresholds (the H100's and the JAX package's)
+    scaled by (image / 640)^2 so the same blocks take the kernel and the
+    same one its s8 taps."""
     from simpleinfer_tpu_torch.kernels import c3block as kc3
 
-    prev = kc3.C3_MIN_WORK
-    kc3.C3_MIN_WORK = int(prev * (image / 640) ** 2)
+    prev = kc3.C3_MIN_WORK, kc3.JAX_C3_MIN_WORK
+    kc3.C3_MIN_WORK = int(prev[0] * (image / 640) ** 2)
+    kc3.JAX_C3_MIN_WORK = int(prev[1] * (image / 640) ** 2)
     try:
         on = int8_engine(device, True, batch=batch, image=image)
         off = int8_engine(device, False, batch=batch, image=image)
@@ -1346,7 +1445,7 @@ def yolo_int8_rehearsal(device, image=64, batch=2) -> dict:
         check_int8_onoff(run["res"])
         int8_kernel_checks(device, run["recorder"])
     finally:
-        kc3.C3_MIN_WORK = prev
+        kc3.C3_MIN_WORK, kc3.JAX_C3_MIN_WORK = prev
     return run["res"]
 
 

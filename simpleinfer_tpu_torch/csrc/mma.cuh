@@ -1,12 +1,13 @@
 // Tensor-core building blocks shared by matmul_int4w.cu,
-// flash_attention.cu, matmul.cu, conv3x3.cu, matmul_s8s8.cu and
-// decode_attention.cu: 16-byte cp.async staging with zero fill, bulk
-// (TMA) copies on mbarriers, ldmatrix fragment loads, mma.sync m16n8k16
-// (bf16 in, f32 accumulate) and bf16 pair packing; and (namespace si::tc,
-// at the end) the cp.async ring (`ring`) and the bf16 GEMM tile of
-// matmul.cu and conv3x3.cu: x / w stages, int8 w converted to bf16 once
-// per block, the k16 MMA loop and the shared-memory epilogue, whose
-// activation dispatch and tile store matmul_s8s8.cu shares. Fragment
+// flash_attention.cu, matmul.cu, conv3x3.cu, matmul_s8s8.cu,
+// decode_attention.cu, c3block.cu and stem.cu: 16-byte cp.async staging
+// with zero fill, bulk (TMA) copies on mbarriers, ldmatrix fragment
+// loads, mma.sync m16n8k16 (bf16 in, f32 accumulate) and bf16 pair
+// packing; and (namespace si::tc, at the end) the cp.async ring (`ring`)
+// and the bf16 GEMM tile of matmul.cu, conv3x3.cu and c3block.cu: x / w
+// stages, int8 w converted to bf16 once per block, the k16 MMA loop and
+// the shared-memory epilogue, whose activation dispatch and tile store
+// matmul_s8s8.cu shares. Fragment
 // layouts follow the PTX ISA (m16n8k16 .bf16): with g = lane / 4 and
 // t = lane % 4,
 //   A (16x16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),

@@ -1,17 +1,13 @@
-// The 64x64 output tile shared by the port's GEMM-shaped kernels
-// (csrc/matmul.cu's f32 route, csrc/c3block.cu): 256 threads of
-// 4x4 outputs each, K walked in steps staged through shared memory, the
-// accumulator in registers. Two forms:
-//   - f32 FMA: a and w converted to f32 as they are staged, a K-major so
-//     that a thread reads its 4 rows and 4 columns as float4s;
-//   - int8 __dp4a: a and w staged as 32-bit words of 4 consecutive k,
-//     w transposed to [n][k / 4] so both operands of a __dp4a are one
-//     aligned word; rows padded to 17 words so a warp's reads hit 16
-//     banks. The sum is exact in int32.
-// A kernel stages its a tile its own way (masked rows, shifted 3x3 taps,
-// quantized on the fly) and takes the w staging and the inner loop from
-// here; the epilogues stay in the kernels. `tap_row` is the 3x3 "same"
-// tap addressing that csrc/c3block.cu and csrc/conv3x3.cu share.
+// The 64x64 f32-FMA output tile of the port's f32 routes (csrc/matmul.cu,
+// csrc/conv3x3.cu and csrc/c3block.cu: the exact fp32 parity mode, and
+// c3block.cu's bf16 blocks with channel widths off 8): 256 threads of
+// 4x4 outputs each, K walked in steps staged through shared memory, a
+// and w converted to f32 as they are staged, a K-major so that a thread
+// reads its 4 rows and 4 columns as float4s, the accumulator in
+// registers. A kernel stages its a tile its own way (masked rows, shifted
+// 3x3 taps) and takes the w staging and the inner loop from here; the
+// epilogues stay in the kernels. `tap_row` is the 3x3 "same" tap
+// addressing that csrc/c3block.cu and csrc/conv3x3.cu share.
 #pragma once
 
 #include "epilogue.cuh"
@@ -24,18 +20,11 @@ constexpr int BN = 64;        // output columns per block
 constexpr int TM = 4;         // rows per thread
 constexpr int TN = 4;         // columns per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-// f32-FMA tiles
 constexpr int BK = 32;        // K depth staged per step
 constexpr int PAD = 4;        // keeps float4 rows 16-byte aligned
-// int8 tiles
-constexpr int BK8 = 64;       // K bytes staged per step
-constexpr int KW8 = BK8 / 4;  // 32-bit words per staged row
-constexpr int LD8 = KW8 + 1;  // padded row stride in words
 
 using FTileA = float[BK][BM + PAD];  // a tile, K-major
 using FTileB = float[BK][BN + PAD];  // w tile
-using WTile = int[BM][LD8];          // int8 tile, [row][k / 4]
-static_assert(BM == BN, "WTile holds both int8 operands");
 
 // the source pixel of output row gm for the 3x3 tap (dy, dx) of an
 // [N, H, W, K] map: its row in that map, or -1 off the image ("same"
@@ -100,52 +89,6 @@ __device__ __forceinline__ void fma_step(const FTileA& As, const FTileB& Bs,
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// int8 w[k0:k0+BK8, n0:n0+BN] of a row-major [K, N] matrix into
-// [n][k / 4] words (byte b = k + b), zero outside it. Neighbouring
-// threads read neighbouring n of one k row (coalesced bytes).
-__device__ __forceinline__ void stage_w_s8(WTile& Bs,
-                                           const int8_t* __restrict__ w,
-                                           int k0, int n0, int K, int N,
-                                           int tid) {
-#pragma unroll
-  for (int i = 0; i < (BN * KW8) / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int n = e % BN, c = e / BN;
-    const int gn = n0 + n;
-    int v = 0;
-    if (gn < N) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int gk = k0 + 4 * c + b;
-        if (gk < K)
-          v |= static_cast<int>(static_cast<uint8_t>(
-                   w[static_cast<int64_t>(gk) * N + gn])) << (8 * b);
-      }
-    }
-    Bs[n][c] = v;
-  }
-}
-
-// acc[i][j] += exact int32 sum over the staged K of a[ty + 16 i] *
-// w[tx + 16 j] (rows and columns strided by 16, so the epilogue's stores
-// are coalesced along n)
-__device__ __forceinline__ void dp4a_step(const WTile& As, const WTile& Bs,
-                                          int (&acc)[TM][TN], int tx,
-                                          int ty) {
-#pragma unroll
-  for (int c = 0; c < KW8; ++c) {
-    int av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = As[ty + 16 * i][c];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = Bs[tx + 16 * j][c];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
   }
 }
 

@@ -3,27 +3,34 @@
 
 `c3_block` computes a whole YOLOv5 C3 block (cv1 / cv2 1x1, T
 bottlenecks of a 1x1 then a 3x3 "same" with an optional residual, cv3
-over the never materialized concat) in one call of csrc/c3block.cu,
-which enqueues one kernel per stage over a workspace allocated here
-(the source's header says why the stages are split). With
-`btl_b_scale` the 3x3 taps are int8: each bottleneck's activation is
-quantized per IMAGE (its abs-max over the whole image) and multiplied
-exactly in int32. That is the semantics of the JAX package's docstring
-and of its oracle `c3_block_reference`; its TPU kernel takes the abs-max
-per row band instead (ROADMAP.md §3).
+over the never copied concat) in one call of csrc/c3block.cu, which
+enqueues one kernel per stage over a workspace allocated here (the
+source's header says why the stages are split). bf16 blocks whose
+channel widths are multiples of 8 run on the bf16 tensor cores (cv1 and
+cv2 one GEMM into [y1 | y2], cv3 one GEMM over it); f32 blocks run the
+exact f32-FMA tile. With `btl_b_scale` the 3x3 taps are int8: each
+bottleneck's activation is quantized once per IMAGE (its abs-max over
+the whole image) and multiplied exactly on the int8 tensor cores. That
+is the semantics of the JAX package's docstring and of its oracle
+`c3_block_reference`; its TPU kernel takes the abs-max per row band
+instead (ROADMAP.md §3).
 
 `c3_block_reference` is the plain version: the same block as a chain of
 torch ops (f32 sums; the s8 taps exact through float64), the CPU path
 and the on-card oracle. The wrapper runs it only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. `launches` counts the
-calls that launched csrc/c3block.cu (one per block, each 2T + 3
-kernels).
+calls that launched csrc/c3block.cu (one per block), `tc_launches` those
+of them that took the tensor-core route, and `weight_copies` the weight
+operands the wrapper had to convert or copy before a launch (none on a
+path whose weights were placed at x's dtype).
 
-The gates are the JAX package's, so both packages fuse and dispatch the
-same blocks: `c3_supported` (channel widths and its TPU VMEM fit),
-`c3_profitable` (work per image, `C3_MIN_WORK`) and
-`c3_taps_s8_profitable` (hid < 128); all were measured on a TPU v5e and
-are to be re-measured on the H100.
+The gates: `c3_supported` (channel widths and the JAX package's TPU
+VMEM fit) and `c3_taps_s8_profitable` (hid < 128) are the JAX
+package's; `c3_profitable` compares the work per image with
+`C3_MIN_WORK`, measured on the H100 (chip_smoke.py's C3 gate sweep),
+and with `min_work=JAX_C3_MIN_WORK` gives the JAX package's decision,
+which alone decides where the taps are int8 (ops/c3.py): the s8 taps
+are the reference's numerics, not a speed gate.
 """
 from __future__ import annotations
 
@@ -36,16 +43,27 @@ import torch.nn.functional as F
 from . import build
 from .matmul import _act_code, _DTYPE_CODES, resolve_activation
 
-# calls that launched csrc/c3block.cu since import (or since a reset)
+# calls that launched csrc/c3block.cu since import (or since a reset),
+# those of them on the tensor-core route, and weight operands converted
+# or copied per call
 launches = 0
+tc_launches = 0
+weight_copies = 0
 
 SOURCE = "c3block.cu"
 
 # the JAX package's VMEM cap of its TPU kernel, kept in c3_supported so
 # both packages take the same blocks
 _VMEM_CAP = 100 * 1024 * 1024
-# c3_profitable's threshold on h*w*hid*T (the JAX package's default)
-C3_MIN_WORK = 2_000_000
+# c3_profitable's threshold on h*w*hid*T: the JAX package's default
+# (TPU v5e), which decides the s8 taps, and the H100's, which decides
+# kernel or chain. chip_smoke.py's C3 gate sweep over yolov5l-640-b16's 8
+# fused blocks (bf16, NVIDIA H100 80GB HBM3 at 700 W; PERF.md): c3_block
+# beats ops/c3.c3_chain by 1.2x and more from 1.23 M of work up; at the
+# two 20x20 blocks (0.61 M) each was faster in some runs (chain 0.70-1.57
+# ms, kernel 0.78-0.95 over four runs), so the gate lies between
+JAX_C3_MIN_WORK = 2_000_000
+C3_MIN_WORK = 1_000_000
 
 
 def c3_vmem_bytes(h: int, w: int, c: int, hid: int, oc: int) -> int:
@@ -58,12 +76,15 @@ def c3_vmem_bytes(h: int, w: int, c: int, hid: int, oc: int) -> int:
             + (1 << 20))
 
 
-def c3_profitable(h: int, w: int, hid: int, n_btl: int) -> bool:
-    """Work-size dispatch gate of the JAX package (TPU v5e measurement:
-    the fused kernel won at h*w*hid*T >= ~2M, yolov5l's large blocks, and
-    lost at yolov5s's). Reads C3_MIN_WORK at call time, so a caller that
-    runs a model at a smaller image can scale it."""
-    return h * w * hid * n_btl >= C3_MIN_WORK
+def c3_profitable(h: int, w: int, hid: int, n_btl: int,
+                  min_work: int | None = None) -> bool:
+    """Work-size dispatch gate: h*w*hid*T >= `min_work`, by default
+    C3_MIN_WORK (the H100's measurement); JAX_C3_MIN_WORK gives the JAX
+    package's (TPU v5e: the fused kernel won at >= ~2M, yolov5l's large
+    blocks, and lost at yolov5s's). Reads the constants at call time, so
+    a caller that runs a model at a smaller image can scale them."""
+    return h * w * hid * n_btl >= (C3_MIN_WORK if min_work is None
+                                   else min_work)
 
 
 def c3_taps_s8_profitable(hid: int) -> bool:
@@ -142,8 +163,8 @@ def c3_block_reference(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2,
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.si_c3_block.argtypes = ([vp, ci] + [vp] * 16 + [ci] * 9
-                                + [ctypes.c_float, vp])
+    lib.si_c3_block.argtypes = ([vp, ci, ci] + [vp] * 17 + [ci] * 9
+                                + [ctypes.c_float, ctypes.POINTER(ci), vp])
     lib.si_c3_block.restype = ci
 
 
@@ -174,8 +195,12 @@ def c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
     `quantize_taps`), and each bottleneck's activation is quantized per
     image in the kernel. The TPU wrapper's `band_rows` and `interpret`
     are its VMEM banding and its CPU mode and have no counterpart here.
-    Returns [N, H, W, OC] in x.dtype."""
-    global launches
+    Weights are taken as given where they are contiguous and at x's
+    dtype (btl_b_w int8 with btl_b_scale), the five biases where all are
+    f32 or all bf16 (an engine places them at its compute dtype),
+    btl_b_scale in f32; anything else is converted (counted in
+    `weight_copies`). Returns [N, H, W, OC] in x.dtype."""
+    global launches, tc_launches, weight_copies
     if x.device.type == "cpu":
         return c3_block_reference(
             x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b, btl_a_w,
@@ -217,32 +242,45 @@ def c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
     code, arg = _act_code(activation)
     x = x.contiguous()
 
-    def wt(t):                      # weights at x's dtype
-        return t.to(dt).contiguous()
+    copies = 0
 
-    def f32(t):                     # biases and scales
-        return t.float().contiguous()
+    def as_(t, dtype):
+        nonlocal copies
+        u = t.to(dtype).contiguous()
+        copies += u.data_ptr() != t.data_ptr() or u.dtype != t.dtype
+        return u
 
-    args = [wt(cv1_w), f32(cv1_b), wt(cv2_w), f32(cv2_b), wt(cv3_w1),
-            wt(cv3_w2), f32(cv3_b), wt(btl_a_w), f32(btl_a_b),
-            btl_b_w.contiguous() if s8 else wt(btl_b_w), f32(btl_b_b),
-            f32(btl_b_scale) if s8 else None]
+    biases = (cv1_b, cv2_b, cv3_b, btl_a_b, btl_b_b)
+    bdt = (torch.bfloat16 if all(b.dtype == torch.bfloat16 for b in biases)
+           else torch.float32)
+    args = [as_(cv1_w, dt), as_(cv1_b, bdt), as_(cv2_w, dt),
+            as_(cv2_b, bdt), as_(cv3_w1, dt), as_(cv3_w2, dt),
+            as_(cv3_b, bdt), as_(btl_a_w, dt), as_(btl_a_b, bdt),
+            as_(btl_b_w, torch.int8 if s8 else dt), as_(btl_b_b, bdt),
+            as_(btl_b_scale, torch.float32) if s8 else None]
     m = n * h * w
-    y1 = torch.empty(m * hid, dtype=dt, device=x.device)
+    ybuf = torch.empty(m * 2 * hid, dtype=dt, device=x.device)
     abuf = torch.empty(m * hid, dtype=torch.float32, device=x.device)
+    qbuf = (torch.empty(m * hid, dtype=torch.int8, device=x.device)
+            if s8 else None)
     amax = torch.empty(n, dtype=torch.int32, device=x.device)
     out = torch.empty((n, h, w, oc), dtype=dt, device=x.device)
+    route = ctypes.c_int(-1)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.si_c3_block(
-            x.data_ptr(), _DTYPE_CODES[dt],
+            x.data_ptr(), _DTYPE_CODES[dt], _DTYPE_CODES[bdt],
             *[a.data_ptr() if a is not None else None for a in args],
-            y1.data_ptr(), abuf.data_ptr(), amax.data_ptr(), out.data_ptr(),
-            n, h, w, c, hid, oc, nb, int(shortcut), code, arg,
+            ybuf.data_ptr(), abuf.data_ptr(),
+            qbuf.data_ptr() if s8 else None, amax.data_ptr(),
+            out.data_ptr(), n, h, w, c, hid, oc, nb, int(shortcut), code,
+            arg, ctypes.byref(route),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_c3_block launch failed with CUDA error {err}"
                            f" (x {tuple(x.shape)}, hid {hid}, oc {oc}, "
                            f"T {nb}, s8 {s8})")
     launches += 1
+    tc_launches += route.value == 1
+    weight_copies += copies
     return out

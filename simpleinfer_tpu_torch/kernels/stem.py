@@ -12,8 +12,10 @@ package's, byte for byte.
 
 `stem_s2d(x_packed, w_packed, bias, activation)` returns the stem output
 [N, 320, 320, OC] in bf16: the 108 patch taps of each output pixel as an
-im2col GEMM in csrc/stem.cu, x and w cast to bf16 first (as the JAX
-package casts them), f32 sums, bias and the optional activation in f32.
+im2col GEMM in shared memory on the bf16 tensor cores (csrc/stem.cu),
+x and w at bf16 (as the JAX package casts them: w_packed may be f32 or
+bf16, and the kernel rounds an f32 one as it stages it, so no call
+casts the weight), f32 sums, bias and the optional activation in f32.
 
 No op dispatches it, in the JAX package or here: Conv2d runs the stem on
 the library conv. chip_smoke.py drives it at the YOLOv5s / YOLOv5l-640
@@ -45,6 +47,8 @@ _K_PAD = 128   # 108 useful patch taps, zero-padded (the TPU's lane width)
 _K_USED = 108
 _HP = 645      # 640 + 2 top pad + 3 bottom (2 conv pad + 1 slice slack)
 _OHW = 320
+# w_packed dtypes the kernel stages (csrc/epilogue.cuh's DType codes)
+_W_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pack_stem_weights(w_oihw: np.ndarray) -> np.ndarray:
@@ -99,8 +103,8 @@ def stem_s2d_ref(x_packed, w_packed, bias, activation: Optional[str] = None):
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.si_stem_s2d.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                                vp]
+    lib.si_stem_s2d.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
+                                ctypes.c_float, vp]
     lib.si_stem_s2d.restype = ci
 
 
@@ -114,8 +118,11 @@ def stem_s2d(x_packed, w_packed, bias, activation: Optional[str] = None):
 
     x_packed: [N, 645, 6, 320] (`pack_stem_input` of the image);
     w_packed: [128, OC] (`pack_stem_weights` of the OIHW weight);
-    bias: [OC]. Returns [N, 320, 320, OC] bf16. The TPU wrapper's
-    `interpret` is its CPU mode and has no counterpart here."""
+    bias: [OC]. Returns [N, 320, 320, OC] bf16. On the card w_packed is
+    read as given in f32 or bf16 (another dtype raises), x_packed at
+    bf16 from a 16-byte aligned start (a misaligned view is copied). The
+    TPU wrapper's `interpret` is its CPU mode and has no counterpart
+    here."""
     global launches
     n = x_packed.shape[0]
     if tuple(x_packed.shape[1:]) != (_HP, 6, _OHW):
@@ -138,17 +145,23 @@ def stem_s2d(x_packed, w_packed, bias, activation: Optional[str] = None):
                              f"{x_packed.device}")
     if n * _OHW * _OHW * max(oc, 64) >= 2 ** 31:
         raise ValueError(f"stem too large for the kernel: N={n}, OC={oc}")
+    if w_packed.dtype not in _W_CODES:
+        raise TypeError(f"w_packed dtype {w_packed.dtype} is not "
+                        f"float32/bfloat16")
     code, arg = _act_code(activation)
     x = x_packed.to(torch.bfloat16).contiguous()
-    w = w_packed.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:           # the bulk copies start 16-byte aligned
+        x = x.clone()
+    w = w_packed.contiguous()
     b = bias.float().contiguous()
     out = torch.empty((n, _OHW, _OHW, oc), dtype=torch.bfloat16,
                       device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.si_stem_s2d(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, oc,
-            code, arg, torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), w.data_ptr(), _W_CODES[w.dtype], b.data_ptr(),
+            out.data_ptr(), n, oc, code, arg,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"si_stem_s2d launch failed with CUDA error {err} "
                            f"(N={n}, OC={oc})")

@@ -4,18 +4,21 @@
 Created by ir/passes.fuse_c3_blocks from the YOLOv5 C3 pattern
 (cv1 -> bottlenecks -> cat(cv2) -> cv3, zoo/builders.py c3()).
 
-Dispatch, as in the JAX package: kernels/c3block.c3_block where
-`kernel_ok` (kernels on, and the block passes c3_supported and
-c3_profitable at its actual input), else the chain of the unfused convs,
+Dispatch: kernels/c3block.c3_block where `kernel_ok` (kernels on, and
+the block passes c3_supported and c3_profitable, at C3_MIN_WORK as
+measured on the H100, at its actual input), else the chain of the
+unfused convs,
 the counterpart of the JAX package's lax chain: on the card in bf16
 `c3_chain` (bf16 operands on the library, as the JAX chain runs bf16
 operands on the MXU with f32 sums), otherwise `c3_block_reference` (f32
 sums of the operands at x's dtype: the CPU path, fp32 on the card, and
 the oracle the kernel and `c3_chain` are held to). Static-int8 engines
-give the kernel int8 3x3 taps where the JAX package does (kernel_ok and
-c3_taps_s8_profitable); the chain always runs the fp taps, its conv
-chain being the unfused engine's math. Weights stay float
-(quantizable={}): the s8 taps are quantized here at load.
+give a block int8 3x3 taps exactly where the JAX package does (kernels
+on, c3_supported, c3_profitable at the JAX package's JAX_C3_MIN_WORK and
+c3_taps_s8_profitable), whichever route runs it: the taps are the
+reference's numerics, so the H100's gate moves no block between s8 and
+fp taps. Weights stay float (quantizable={}): the s8 taps are quantized
+here at load.
 """
 from __future__ import annotations
 
@@ -110,6 +113,20 @@ def c3_chain(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
     return conv1x1(cat, torch.cat([cv3_w1.to(dt), cv3_w2.to(dt)], 0), cv3_b)
 
 
+def c3_routes(h, w, c_in, hid, oc, n_btl, taps_s8: bool,
+              use_kernels: bool) -> tuple:
+    """(kernel_ok, s8) of a fused block at input h x w: the kernel where
+    kernels are on and the block passes c3_supported and c3_profitable
+    (C3_MIN_WORK, the H100's); int8 taps where the JAX package gives
+    them: a static-int8 engine (`taps_s8`), kernels on, c3_supported,
+    c3_profitable at JAX_C3_MIN_WORK and c3_taps_s8_profitable."""
+    supported = use_kernels and kc3.c3_supported(h, w, c_in, hid, oc)
+    kernel_ok = supported and kc3.c3_profitable(h, w, hid, n_btl)
+    s8 = (taps_s8 and supported and kc3.c3_taps_s8_profitable(hid)
+          and kc3.c3_profitable(h, w, hid, n_btl, kc3.JAX_C3_MIN_WORK))
+    return kernel_ok, s8
+
+
 @register_op("si.FusedC3")
 def lower_fused_c3(op, cfg):
     c_in = require_param(op, "in_channels", PARAM_INT).i
@@ -146,10 +163,8 @@ def lower_fused_c3(op, cfg):
     def apply(w, x):
         dt = x.dtype
         h, ww = x.shape[1], x.shape[2]
-        kernel_ok = (use_kernels
-                     and kc3.c3_supported(h, ww, c_in, hid, oc)
-                     and kc3.c3_profitable(h, ww, hid, n_btl))
-        s8 = taps_s8 and kernel_ok and kc3.c3_taps_s8_profitable(hid)
+        kernel_ok, s8 = c3_routes(h, ww, c_in, hid, oc, n_btl, taps_s8,
+                                  use_kernels)
         args = (x, w["cv1_w"].to(dt), w["cv1_b"], w["cv2_w"].to(dt),
                 w["cv2_b"], w["cv3_w"][:hid].to(dt), w["cv3_w"][hid:].to(dt),
                 w["cv3_b"], w["btl_a_w"].to(dt), w["btl_a_b"],

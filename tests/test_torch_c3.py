@@ -23,6 +23,9 @@ Tolerances:
   max 0.05 x scale and mean 5e-4 x scale (chip_smoke.C3_MAX_TOL /
   C3_MEAN_TOL): its 3x3 rounds to bf16 before the bias.
 """
+import os
+import sys
+
 import jax  # noqa: F401  (both frameworks in one process, JAX on CPU)
 import jax.numpy as jnp
 import numpy as np
@@ -37,9 +40,23 @@ from simpleinfer_tpu.quant.tensor import QuantizedTensor as JQ
 from simpleinfer_tpu.zoo import build_yolov5 as jbuild
 from simpleinfer_tpu_torch import Engine, EngineConfig
 from simpleinfer_tpu_torch.convert import program_weights_from_numpy
+from simpleinfer_tpu_torch.ir.expression import expand_expression
+from simpleinfer_tpu_torch.ir.passes import run_inference_fusions
 from simpleinfer_tpu_torch.kernels import c3block as tc3
 from simpleinfer_tpu_torch.ops import c3 as oc3
 from simpleinfer_tpu_torch.zoo import build_yolov5
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke
+
 
 # (n, h, w, c, hid, oc, n_btl): tests/test_kernels.py's C3_CASES
 C3_CASES = [
@@ -142,7 +159,11 @@ def test_c3_reference_s8_taps_match_pallas_one_band():
                                atol=5e-4 * np.sqrt(c + 9 * hid))
 
 
-def test_quantize_taps_and_gates_match_jax():
+def test_quantize_taps_and_gates_match_jax(monkeypatch):
+    """The port's gates are the JAX package's, but for the work threshold
+    of c3_profitable, measured on the H100 (C3_MIN_WORK): with the JAX
+    package's threshold set, they agree everywhere."""
+    monkeypatch.setattr(tc3, "C3_MIN_WORK", tc3.JAX_C3_MIN_WORK)
     ws = _weights(19, 16, 24, 16, 3)[9]
     for a, b in zip(tc3.quantize_taps(ws), jc3.quantize_taps(ws)):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
@@ -228,7 +249,8 @@ def test_fused_c3_dispatch_follows_the_jax_gates(monkeypatch):
     that pass c3_profitable at 640 reach c3_block, C3_1 (hid 64) with s8
     taps in int8 mode; the other four run the reference chain. The
     forward runs on a 64x64 image with the threshold scaled by
-    (64 / 640)^2 (C3_MIN_WORK = 20000), which keeps the same blocks."""
+    (64 / 640)^2 (C3_MIN_WORK = 20000, the JAX package's threshold, for
+    both gates), which keeps the same blocks."""
     calls = []
     orig = tc3.c3_block
 
@@ -238,6 +260,7 @@ def test_fused_c3_dispatch_follows_the_jax_gates(monkeypatch):
 
     monkeypatch.setattr(tc3, "c3_block", spy)
     monkeypatch.setattr(tc3, "C3_MIN_WORK", 20000)
+    monkeypatch.setattr(tc3, "JAX_C3_MIN_WORK", 20000)
     g, in_name, out_name = build_yolov5("l", batch=1, image_size=64)
     eng = Engine(EngineConfig(device="cpu", quant="int8", c3_fusion=True,
                               use_kernels=True))
@@ -296,3 +319,76 @@ def test_yolov5l_c3_fusion_matches_jax(quant):
                               {in_name: torch.from_numpy(x)})[out_name]
     np.testing.assert_array_equal(again.numpy(),
                                   te.run({in_name: x})[out_name])
+
+
+def test_h100_gate_dispatches_the_blocks_chip_smoke_expects(monkeypatch):
+    """The H100's C3_MIN_WORK (and the JAX package's threshold, which
+    decides the s8 taps), both scaled by (64 / 640)^2 for yolov5l on a
+    64x64 image, static int8 with kernels on: chip_smoke.INT8_C3_BLOCKS
+    blocks reach c3_block (all but the two 20x20-at-640 ones), C3_1
+    alone with s8 taps, and the other INT8_C3_PLAIN_BLOCKS run the
+    chain."""
+    cs = _chip_smoke()
+    assert tc3.C3_MIN_WORK == 1_000_000
+    calls = []
+    orig = tc3.c3_block
+
+    def spy(x, *args, btl_b_scale=None, **kw):
+        calls.append((tuple(x.shape), btl_b_scale is not None))
+        return orig(x, *args, btl_b_scale=btl_b_scale, **kw)
+
+    monkeypatch.setattr(tc3, "c3_block", spy)
+    monkeypatch.setattr(tc3, "C3_MIN_WORK", tc3.C3_MIN_WORK // 100)
+    monkeypatch.setattr(tc3, "JAX_C3_MIN_WORK", tc3.JAX_C3_MIN_WORK // 100)
+    g, in_name, out_name = build_yolov5("l", batch=1, image_size=64)
+    eng = Engine(EngineConfig(device="cpu", quant="int8", c3_fusion=True,
+                              use_kernels=True))
+    eng.load_model(None, graph=g)
+    fused = [i.type for i in eng.program.impls].count("si.FusedC3")
+    out = eng.run({in_name: _x(31, 1, 64, 64, 3)})[out_name]
+    assert np.isfinite(out).all()
+    assert len(calls) == cs.INT8_C3_BLOCKS
+    assert fused - len(calls) == cs.INT8_C3_PLAIN_BLOCKS
+    assert sum(s8 for _, s8 in calls) == cs.INT8_C3_S8_BLOCKS
+    assert sorted(calls) == sorted([((1, 16, 16, 128), True),
+                                    ((1, 8, 8, 256), False),
+                                    ((1, 4, 4, 512), False),
+                                    ((1, 8, 8, 512), False),
+                                    ((1, 4, 4, 1024), False),
+                                    ((1, 4, 4, 512), False)])
+
+
+@pytest.mark.parametrize("variant,fused,s8_blocks", [("l", 8, 1),
+                                                     ("s", 7, 0)])
+def test_s8_taps_where_the_jax_package_gives_them(variant, fused, s8_blocks,
+                                                  monkeypatch):
+    """At every fused C3 block of yolov5l / YOLOv5s at 640 a static-int8
+    engine takes int8 3x3 taps exactly where the JAX package's TPU
+    dispatch does (c3_supported, c3_profitable at its own threshold and
+    c3_taps_s8_profitable), whichever route the H100's gate sends the
+    block to."""
+    monkeypatch.delenv("SI_C3_MIN_WORK", raising=False)
+    cs = _chip_smoke()
+    graph = build_yolov5(variant, batch=1, image_size=640)[0]
+    expand_expression(graph)
+    run_inference_fusions(graph, EngineConfig(device="cpu", c3_fusion=True))
+    hw = cs.spatial_sizes(graph)
+    blocks = [op for op in graph.ops if op.type == "si.FusedC3"]
+    assert len(blocks) == fused
+    kernel, s8 = [], []
+    for op in blocks:
+        h, w = hw[op.inputs[0].name]
+        c, hid, oc, t = (op.params[k].value for k in (
+            "in_channels", "hidden_channels", "out_channels",
+            "n_bottlenecks"))
+        jax_s8 = (jc3.c3_supported(h, w, c, hid, oc)
+                  and jc3.c3_profitable(h, w, hid, t)
+                  and jc3.c3_taps_s8_profitable(hid))
+        k_ok, port_s8 = oc3.c3_routes(h, w, c, hid, oc, t, True, True)
+        assert port_s8 == jax_s8, (op.name, h, w, c, hid, oc, t)
+        assert oc3.c3_routes(h, w, c, hid, oc, t, False, True)[1] is False
+        kernel.append(k_ok)
+        s8.append(port_s8)
+    assert sum(s8) == s8_blocks
+    if variant == "l":
+        assert sum(kernel) == cs.INT8_C3_BLOCKS

@@ -486,6 +486,72 @@ def test_c3_kernel_matches_plain_on_card(cuda, n, h, w, c, hid, oc, t,
         assert float(d.mean()) <= 5e-4 * scale_, float(d.mean())
 
 
+def _c3_check(got, ref, exact):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    d = (got - ref).abs()
+    scale_ = max(1.0, float(ref.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    if exact:
+        assert bool((d <= 1e-5 * scale_).all()), float(d.max())
+    else:
+        assert float(d.max()) <= 0.05 * scale_, float(d.max())
+        assert float(d.mean()) <= 5e-4 * scale_, float(d.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,hid,oc,t,shortcut", [
+    (3, 7, 9, 32, 24, 16, 1, True), (2, 13, 11, 40, 40, 48, 3, False),
+    (2, 12, 12, 64, 64, 64, 3, True), (1, 9, 9, 24, 72, 40, 1, False),
+    (4, 5, 6, 16, 16, 24, 3, True), (2, 11, 10, 48, 56, 24, 1, True)])
+@pytest.mark.parametrize("s8", [False, True], ids=["fp", "s8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c3_kernel_edges_on_card(cuda, n, h, w, c, hid, oc, t, shortcut,
+                                 s8, dtype):
+    """c3_block at the tiles' edges: M off the 128-row tile, tiles
+    straddling two or more images (the per-image s8 scale), hid of 16 to
+    72 that no tile divides (hid off 16: the s8 taps' element staging),
+    T 1 and 3, both shortcut forms; the tensor-core route in bf16 (with
+    bf16 biases, as an engine places them) and the f32-FMA tile in
+    f32."""
+    x, ws, scale = _c3_case(cuda, n, h, w, c, hid, oc, t, s8, dtype)
+    if dtype == torch.bfloat16:     # biases as an engine places them
+        for i in (1, 3, 6, 8, 10):
+            ws[i] = ws[i].to(torch.bfloat16)
+    before, tc_before = kc3.launches, kc3.tc_launches
+    with fp32_parity(True):
+        got = kc3.c3_block(x, *ws, btl_b_scale=scale, shortcut=shortcut)
+        torch.cuda.synchronize()
+        ref = kc3.c3_block_reference(x, *ws, btl_b_scale=scale,
+                                     shortcut=shortcut)
+    assert kc3.launches - before == 1 and got.dtype == ref.dtype
+    assert kc3.tc_launches - tc_before == int(dtype == torch.bfloat16)
+    _c3_check(got, ref, dtype == torch.float32 and not s8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c3_kernel_zero_activation_image_on_card(cuda, dtype):
+    """s8 taps where one image's bottleneck activation is all zero (ReLU
+    below a negative bias): its abs-max is 0, the scale the 1e-8 floor,
+    its taps sum to 0; the other images keep their own scales."""
+    n, h, w, c, hid, oc, t = 3, 10, 9, 32, 64, 32, 2
+    x, ws, scale = _c3_case(cuda, n, h, w, c, hid, oc, t, True, dtype)
+    x = (x.float() * 5).to(dtype)
+    x[0] = 0
+    ws[8] = ws[8] - 1.5          # the bottleneck 1x1's bias
+    kw = dict(btl_b_scale=scale, activation="relu", shortcut=True)
+    with fp32_parity(True):
+        got = kc3.c3_block(x, *ws, **kw)
+        torch.cuda.synchronize()
+        ref = kc3.c3_block_reference(x, *ws, **kw)
+    _c3_check(got, ref, False)
+    y1 = torch.relu(x[0].float() @ ws[0].to(dtype).float() + ws[1])
+    a = torch.relu(y1.to(dtype).float() @ ws[7][0].to(dtype).float()
+                   + ws[8][0])
+    assert float(a.abs().max()) == 0.0      # the case holds
+    _c3_check(got[0], ref[0], False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,c,oc", [
     (2, 1, 1, 3, 5), (2, 5, 7, 13, 17), (1, 3, 33, 70, 131),
@@ -596,4 +662,28 @@ def test_stem_kernel_matches_plain_on_card(cuda, n, oc):
         torch.cuda.synchronize()
         assert got.shape == (n, 320, 320, oc)
         _assert_close(got, kstem.stem_s2d_ref(xp, wp, bias, act))
+    assert kstem.launches - before == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("oc", [16, 32, 48, 64])
+@pytest.mark.parametrize("act", [None, "silu", "relu"])
+def test_stem_kernel_widths_on_card(cuda, n, oc, act):
+    """stem_s2d at every tile width it takes (an n8 tile per 8 channels,
+    16 to 64), one and two images, three activations, w_packed in f32 and
+    bf16 (read as given: the kernel rounds f32 to bf16 as it stages it)."""
+    rng = np.random.default_rng(7 * n + oc)
+    img = rng.random((n, 640, 640, 3)).astype(np.float32)
+    w = (rng.standard_normal((oc, 3, 6, 6)) / 10).astype(np.float32)
+    xp = torch.from_numpy(kstem.pack_stem_input(img)).to(cuda, torch.bfloat16)
+    wp = torch.from_numpy(kstem.pack_stem_weights(w)).to(cuda)
+    bias = torch.from_numpy(0.05 * rng.standard_normal(oc).astype(
+        np.float32)).to(cuda)
+    before = kstem.launches
+    for wd in (torch.float32, torch.bfloat16):
+        got = kstem.stem_s2d(xp, wp.to(wd), bias, act)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 320, 320, oc)
+        _assert_close(got, kstem.stem_s2d_ref(xp, wp.to(wd), bias, act))
     assert kstem.launches - before == 2

@@ -671,8 +671,8 @@ def test_chip_smoke_int8_phase_rehearses_on_cpu():
     res = chip_smoke.yolo_int8_rehearsal(torch.device("cpu"))
     assert res["output_shape"] == [2, 252, 85]
     assert res["s8s8_convs_per_forward"] == 5
-    assert res["c3_kernel_blocks_per_forward"] == 4
-    assert res["c3_s8_blocks_per_forward"] == 1
+    assert res["c3_kernel_blocks_per_forward"] == chip_smoke.INT8_C3_BLOCKS
+    assert res["c3_s8_blocks_per_forward"] == chip_smoke.INT8_C3_S8_BLOCKS
     assert res["int8w_convs_per_forward"] == chip_smoke.INT8_INT8W_CONVS
     # on a CPU tensor c3_block runs the plain version too
     assert res["c3_plain_blocks_per_forward"] == \
