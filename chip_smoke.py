@@ -22,6 +22,36 @@ Phases, each printing JSON lines:
    the same model run with kernels off, and throughput both ways (both
    matmul entries take csrc/matmul.cu's bf16 tensor-core route there);
 4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s;
+4a. the detection pipeline (zoo/detect.py): `host_native`, the port's
+   native host library (csrc/si_host.cpp, built by g++ at first use)
+   loaded, its letterbox_batch against letterbox_one (bytes) and the
+   numpy route, and its NMS against the numpy one; the device decode
+   (decode_device: f32, stable sorts, the fixed-point NMS batched over
+   the images) against the host decode (decode_predictions) on a
+   planted head [2, 4000, 85] with suppression chains and exact ties,
+   f32 and bf16; `detect_v5` / `detect_v8`: YOLOv5s / YOLOv8s-640-b8
+   bf16 int8w through `detect_images` on 8 seeded images of mixed sizes,
+   with matmul_int8w's launches in one call (22 / 11, counts set to 0
+   just before), the device decode against the host decode on the
+   engine's own head (kept-row floors), the device decode's kernel
+   launches and NMS rounds at pre_topk 512 and 1024, and each route's
+   time a batch split into letterbox, staging, forward, decode + fetch
+   (device decode or host decode, float or uint8 staging; hooks on the
+   steps of detect_images itself), img/s end to end and bytes staged
+   and fetched; for YOLOv8s also head="auto", matmul_int8w against its
+   plain version and timed at the path's shapes, kernels on vs off (box
+   and scores each over its own scale, V8_ONOFF_TOL) and fp32 on the
+   card vs the CPU port at 64 px (DetectV8's DFL and anchors);
+   `engine_warmup`: Engine.warmup((1, 2, 4, 8, 16, 32)) on YOLOv5s-640
+   bf16 int8w with the kernel libraries unloaded first, seconds per
+   batch size, the first forward after it building and loading nothing
+   (calls to kernels/build.py's build, libraries loaded), and
+   Engine.temp_bytes per batch size (rising with the batch, under the
+   free memory); `segment`: build_unet 128 px b8 bf16 int8w through
+   zoo.segment, matmul_int8w's launches, the kernel against its plain
+   version and timed at the path's shape, the device argmax against the
+   host argmax of the same logits, pixel for pixel, and the logits
+   against a use_kernels=False engine (UNET_ONOFF_TOL);
 4b. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
    bf16, quant="int8", c3_fusion, calibrated by Engine.calibrate on 2
    seeded batches (wall time printed); the launches of `matmul_s8s8` (5
@@ -305,11 +335,13 @@ def _close(got, ref):
     return float(d.max()), ok
 
 
-def kernel_vs_plain(device, shapes, seed=0) -> float:
+def kernel_vs_plain(device, shapes, seed=0, ragged=True,
+                    phase="kernel_vs_plain") -> float:
     """Every kernel against its plain version on the card, at `shapes`
-    (M, K, N) plus the ragged ones, both x dtypes, every activation, with
-    and without bias. Returns the largest max-abs error seen at the main
-    path's own configuration (bf16 x, int8 w, bias, silu)."""
+    (M, K, N) plus (`ragged`) the ragged ones, both x dtypes, every
+    activation, with and without bias. Returns the largest max-abs error
+    seen at the main path's own configuration (bf16 x, int8 w, bias,
+    silu)."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import matmul as kmm
@@ -317,7 +349,7 @@ def kernel_vs_plain(device, shapes, seed=0) -> float:
     gen = torch.Generator(device=device).manual_seed(seed)
     worst_main, n_checks = 0.0, 0
     failures = []
-    for (m, k, n) in list(shapes) + RAGGED_SHAPES:
+    for (m, k, n) in list(shapes) + (RAGGED_SHAPES if ragged else []):
         for x_dtype in (torch.bfloat16, torch.float32):
             x, w, wq, scale, bias = _inputs(gen, device, m, k, n, x_dtype)
             for act in ACTIVATIONS:
@@ -347,7 +379,7 @@ def kernel_vs_plain(device, shapes, seed=0) -> float:
                                 and act == "silu" and (m, k, n) in shapes):
                             worst_main = max(worst_main, err)
             del x, w, wq, scale, bias
-    emit({"phase": "kernel_vs_plain", "checks": n_checks,
+    emit({"phase": phase, "checks": n_checks,
           "failures": failures[:10], "n_failures": len(failures),
           "atol": f"{KERNEL_ATOL}*max(1,|ref|)",
           "bf16_out_rtol": KERNEL_BF16_RTOL,
@@ -1337,24 +1369,43 @@ def int8_onoff(off, out_name, feeds, outs) -> dict:
     |diff| over that part's own scale, max(1, max|off part|)."""
     worst = {part: [0.0, 0.0] for part in INT8_ONOFF_PARTS}
     for f, got in zip(feeds, outs):
-        want = off.run(f)[out_name]
-        for part, sl in INT8_ONOFF_PARTS.items():
-            w_ = want[..., sl]
-            scale = max(1.0, float(np.abs(w_).max()))
-            d = np.abs(got[..., sl] - w_)
-            worst[part][0] = max(worst[part][0], float(d.max()) / scale)
-            worst[part][1] = max(worst[part][1], float(d.mean()) / scale)
+        r = parts_onoff(got, off.run(f)[out_name], INT8_ONOFF_TOL)
+        for part, w in worst.items():
+            w[0] = max(w[0], r[part]["max_abs_over_scale"])
+            w[1] = max(w[1], r[part]["mean_abs_over_scale"])
     return {part: {"max_abs_over_scale": mx, "mean_abs_over_scale": mn,
                    "tol": list(INT8_ONOFF_TOL[part])}
             for part, (mx, mn) in worst.items()}
 
 
+def parts_onoff(got, want, tol: dict, parts=INT8_ONOFF_PARTS) -> dict:
+    """Kernels on (`got`) vs off (`want`), per part of the last axis
+    (`parts`, all of it for a part not named there): max and mean |diff|
+    over that part's own scale, max(1, max|want part|), beside its
+    (max, mean) limit in `tol`."""
+    out = {}
+    for part, lim in tol.items():
+        sl = parts.get(part, slice(None))
+        w = want[..., sl]
+        scale = max(1.0, float(np.abs(w).max()))
+        d = np.abs(got[..., sl] - w)
+        out[part] = {"max_abs_over_scale": float(d.max()) / scale,
+                     "mean_abs_over_scale": float(d.mean()) / scale,
+                     "scale": scale, "tol": list(lim)}
+    return out
+
+
+def check_parts(r: dict, what: str) -> None:
+    """Fail if a part of a parts_onoff reading is past its limits."""
+    for part, v in r.items():
+        max_tol, mean_tol = v["tol"]
+        if (not v["max_abs_over_scale"] <= max_tol
+                or not v["mean_abs_over_scale"] <= mean_tol):
+            raise AssertionError(f"{what}, {part}: {r}")
+
+
 def check_int8_onoff(res) -> None:
-    r = res["vs_kernels_off"]
-    for part, (max_tol, mean_tol) in INT8_ONOFF_TOL.items():
-        if (r[part]["max_abs_over_scale"] > max_tol
-                or r[part]["mean_abs_over_scale"] > mean_tol):
-            raise AssertionError(f"int8 kernels on vs off, {part}: {r}")
+    check_parts(res["vs_kernels_off"], "int8 kernels on vs off")
 
 
 def yolo_int8_phase(device, kernels: dict) -> dict:
@@ -2970,8 +3021,662 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
     return res
 
 
+# ---- the detection pipeline (zoo/detect.py) ------------------------------
+# 8 seeded uint8 HWC images of mixed sizes and aspect ratios (landscape,
+# portrait, square, 16:9)
+DETECT_SIZES = ((480, 640), (720, 1280), (640, 640), (1080, 810),
+                (375, 500), (768, 1024), (600, 800), (427, 640))
+DETECT = dict(batch=8, image=640, seed=0)
+DETECT_MAX_DET = 300
+DETECT_PRE_TOPK = 1024
+DETECT_REPS = 5
+# YOLOv8s pointwise convs that reach matmul_int8w per forward (the other
+# pointwise convs are cat-split sums or below the int8 gate; the count is
+# fixed by tests/test_torch_yolov8.py)
+YOLOV8S_POINTWISE = 11
+# device vs host decode of the same head output: the same rows, classes
+# equal, boxes within DECODE_BOX_RTOL * max(1, |box|) and scores within
+# DECODE_SCORE_RTOL * max(1, |score|) (both sides compute the same f32
+# products; only the order of a reduction may differ)
+DECODE_BOX_RTOL = 1e-4
+DECODE_SCORE_RTOL = 1e-6
+# kept-row floors of those comparisons, over all images of a check: the
+# random-weight heads put every score in a narrow band (YOLOv5s ~0.27-0.29,
+# YOLOv8s ~0.54), so the comparison's threshold keeps DETECT_PRE_TOPK
+# candidates an image and NMS keeps 300 (v5) or ~60 (v8) of them (CPU
+# runs at 320 px); the planted head keeps ~110 rows an image
+DECODE_FLOOR = {"v5": 1200, "v8": 200, "planted": 150}
+# kernels on vs off (bf16): YOLOv8s, each part of a detection row over
+# its own scale (INT8_ONOFF_PARTS: the box in pixels, the 80 class
+# scores in [0, 1]), and UNet-128's logits. Limits (max, mean) x scale
+# between the sound reading and the fault stand-ins'
+# (scripts/torch_onoff_control.py --detect). On an H100: YOLOv8s sound
+# box 8.1e-5 / 5.7e-6, scores 6.1e-4 / 6.3e-5 (matmul_int8w as its plain
+# version reads the same); a K tile lost in every matmul_int8w call box
+# 2.0e-3 / 4.7e-4, scores 0.036 / 7.5e-3; lost in the three cls-branch
+# 1x1s only: box as sound, scores 0.033 / 7.3e-3. Every limit is >= 6x
+# sound, and each fault reads >= 4x every limit of the part it touches
+# (the whole-row scale of 636 px would hide the second). UNet sound 4.4e-3
+# (one bf16 ulp of the scale) / 3.1e-4; a lost K tile (K 32 -> 1) 1.0 /
+# 0.14; limits 4.5x and 10x sound
+V8_ONOFF_TOL = {"box": (5e-4, 5e-5), "scores": (5e-3, 6e-4)}
+UNET_ONOFF_TOL = {"logits": (0.02, 3e-3)}
+# Engine.warmup's batch sizes on YOLOv5s-640
+WARMUP_BATCHES = (1, 2, 4, 8, 16, 32)
+SEGMENT = dict(batch=8, image_size=128, seed=0)
+# letterbox: the native route against the numpy one (the JAX package's
+# two routes differ the same way: f32 sampling weights in C++, f64 in
+# numpy; tests/test_host.py holds them to 2e-2): unnormalized within
+# LETTERBOX_RAW_TOL, normalized within LETTERBOX_NORM_TOL
+LETTERBOX_RAW_TOL = 1e-4
+LETTERBOX_NORM_TOL = 1e-6
+
+
+def seeded_images(seed=DETECT["seed"], sizes=DETECT_SIZES) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in sizes]
+
+
+def detect_engine(device, head, compute, use_kernels, batch, image,
+                  seed=0):
+    """A YOLOv5s (head "v5") or YOLOv8s ("v8") int8w Engine on `device`;
+    returns (engine, input name, output name, fused graph)."""
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_yolov5, build_yolov8
+
+    build = build_yolov8 if head == "v8" else build_yolov5
+    graph, in_name, out_name = build("s", batch=batch, image_size=image,
+                                     seed=seed)
+    eng = Engine(EngineConfig(compute_dtype=compute, quant="int8w",
+                              device=str(device), use_kernels=use_kernels))
+    eng.load_model(None, graph=graph)
+    return eng, in_name, out_name, graph
+
+
+def max_class_scores(head_np, head) -> np.ndarray:
+    if head == "v8":
+        return head_np[..., 4:].max(-1)
+    return (head_np[..., 5:] * head_np[..., 4:5]).max(-1)
+
+
+def conf_for_topk(head_np, head, k=DETECT_PRE_TOPK) -> float:
+    """The least f32 threshold that leaves at most k candidate rows in
+    every image: the device decode's pre_topk cut then drops no row the
+    host decode would see."""
+    sc = max_class_scores(head_np, head).astype(np.float32)
+    if sc.shape[1] <= k:
+        return 0.0
+    kth = np.float32(np.sort(sc, axis=1)[:, -(k + 1)].max())
+    return float(np.nextafter(kth, np.float32(np.inf)))
+
+
+def decode_vs_host(rows, head_np, head, conf, iou=0.45) -> dict:
+    """Device-decoded rows [N, max_det, 6] against decode_predictions of
+    the same head output, image by image."""
+    from simpleinfer_tpu_torch.zoo.detect import decode_predictions
+
+    kept = host_rows = differing = 0
+    box_err = score_err = 0.0
+    for i in range(head_np.shape[0]):
+        want = decode_predictions(head_np[i], conf_thresh=conf,
+                                  iou_thresh=iou, head=head)
+        got = rows[i][rows[i][:, 4] >= 0]
+        kept, host_rows = kept + len(got), host_rows + len(want)
+        differing += abs(len(got) - len(want))
+        for g, d in zip(got, want):
+            box = np.asarray(d.box, np.float64)
+            e = np.abs(g[:4] - box)
+            box_err = max(box_err, float(e.max()))
+            score_err = max(score_err, abs(float(g[4]) - d.score))
+            if (int(g[5]) != d.class_id
+                    or (e > DECODE_BOX_RTOL * np.maximum(1.0, np.abs(box))
+                        ).any()
+                    or abs(float(g[4]) - d.score)
+                    > DECODE_SCORE_RTOL * max(1.0, abs(d.score))):
+                differing += 1
+    return {"kept_rows": kept, "host_rows": host_rows,
+            "rows_differing": differing, "max_box_err": box_err,
+            "max_score_err": score_err, "equal": differing == 0}
+
+
+def check_decode(res, floor, what) -> None:
+    if not res["equal"] or res["kept_rows"] < floor:
+        raise AssertionError(f"{what}: device vs host decode {res} (floor "
+                             f"{floor} kept rows)")
+
+
+def planted_head(n=2, m=4000, nc=80, clusters=48, per=12, seed=5,
+                 head="v5"):
+    """A synthetic YOLOv5 head [n, m, 5+nc]: background rows under the
+    0.25 threshold, and `clusters` clusters an image of `per` boxes that
+    partly overlap (suppression chains), with exact score ties inside and
+    across clusters (three objectness levels) and tied class maxima (the
+    first index wins on both sides). head="v8": the same rows without
+    the objectness column, its factor folded into the class scores."""
+    rng = np.random.default_rng(seed)
+    pred = np.zeros((n, m, 5 + nc), np.float32)
+    pred[..., :2] = rng.uniform(16, 624, (n, m, 2))
+    pred[..., 2:4] = rng.uniform(8, 80, (n, m, 2))
+    pred[..., 4] = rng.uniform(0, 0.2, (n, m))
+    pred[..., 5:] = rng.dirichlet(np.ones(nc), (n, m))
+    for i in range(n):
+        rows = rng.permutation(m)[:clusters * per]
+        for c in range(clusters):
+            cx, cy = rng.uniform(60, 580, 2)
+            w = rng.uniform(30, 90)
+            cls = int(rng.integers(nc))
+            for j in range(per):
+                r = rows[c * per + j]
+                pred[i, r, :2] = (cx + rng.uniform(-w / 4, w / 4),
+                                  cy + rng.uniform(-w / 4, w / 4))
+                pred[i, r, 2:4] = (w, w * rng.uniform(0.8, 1.2))
+                pred[i, r, 4] = (0.9, 0.8, 0.7)[j % 3]
+                pred[i, r, 5:] = 0.0
+                pred[i, r, 5 + cls] = 1.0
+                if j % 4 == 0:          # a tied class maximum
+                    pred[i, r, 5 + (cls + 1) % nc] = 1.0
+    if head == "v8":
+        pred = np.concatenate([pred[..., :4],
+                               pred[..., 5:] * pred[..., 4:5]], -1)
+    return pred
+
+
+def planted_checks(device) -> list:
+    """decode_device on the planted head, f32 and bf16, on `device`
+    against the host decode of the same values."""
+    import torch
+    from simpleinfer_tpu_torch.zoo.detect import decode_device
+
+    out = []
+    pred = planted_head()
+    for dtype in (torch.float32, torch.bfloat16):
+        head = torch.from_numpy(pred).to(device).to(dtype)
+        rows = decode_device(head, 0.25, 0.45, DETECT_MAX_DET, "v5",
+                             pre_topk=DETECT_PRE_TOPK).cpu().numpy()
+        res = decode_vs_host(rows, head.float().cpu().numpy(), "v5", 0.25)
+        res.update(phase="detect_planted", shape=list(pred.shape),
+                   dtype=str(dtype).split(".")[-1])
+        emit(res)
+        check_decode(res, DECODE_FLOOR["planted"], f"planted {dtype}")
+        out.append(res)
+    return out
+
+
+def decode_launches(device, raw, head, conf) -> dict:
+    """Kernels the device decode launches on one head output (profiler),
+    and its NMS rounds, at pre_topk 512 and 1024: the rounds follow the
+    data's suppression chains, not K."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch.zoo import detect
+
+    res = {}
+    orig = detect.nms_rounds
+    rounds = []
+
+    def counted(*a, **kw):
+        out = orig(*a, **kw)
+        rounds.append(out[2])
+        return out
+
+    detect.nms_rounds = counted
+    try:
+        for k in (512, DETECT_PRE_TOPK):
+            detect.decode_device(raw, conf, 0.45, DETECT_MAX_DET, head,
+                                 pre_topk=k)
+            launches = None
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    detect.decode_device(raw, conf, 0.45, DETECT_MAX_DET,
+                                         head, pre_topk=k)
+                    torch.cuda.synchronize(device)
+                launches = sum(
+                    e.count for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+            res[f"pre_topk_{k}"] = {"kernel_launches": launches,
+                                    "nms_rounds": rounds[-1]}
+    finally:
+        detect.nms_rounds = orig
+    return res
+
+
+# detect_images' steps, as detect_breakdown times them: the hooked name
+# (a function of zoo/detect.py, or an Engine method) -> its step
+DETECT_STEPS = {"letterbox_images": "letterbox_host",
+                "stage_for_engine": "letterbox_host", "input": "staging",
+                "forward": "forward", "decode_device": "decode_device",
+                "extract": "extract", "decode_predictions": "decode_host",
+                "detections_from_decoded": "unmap"}
+
+
+def detect_breakdown(engine, images, head, size, device_decode, stage_uint8,
+                     reps) -> dict:
+    """detect_images itself, its steps timed by hooks: each function of
+    zoo/detect.py and Engine method it calls (DETECT_STEPS) runs to its
+    end on the device before its time is taken. Letterbox (host) and
+    staging (Engine.input), forward, then decode on the device, or the
+    head's fetch (extract) and decode on the host; `rest` is the
+    remainder of the call (the rows' fetch on the device route). Medians
+    over `reps` batches, ms a batch; then detect_images without hooks
+    end to end (img/s)."""
+    from simpleinfer_tpu_torch.zoo import detect
+
+    steps: dict = {}
+    seen: dict = {}
+    orig = {k: getattr(detect, k) for k in DETECT_STEPS
+            if hasattr(detect, k)}
+
+    def hooked(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            engine.synchronize()
+            step = DETECT_STEPS[name]
+            steps[step] = steps.get(step, 0.0) + time.perf_counter() - t
+            if name == "input":
+                seen["staged"] = a[1].nbytes
+            if name == "extract":
+                seen["fetched"] = out.nbytes if kw.get("as_numpy", True) \
+                    else 0
+            if name == "decode_device":
+                seen["fetched"] = out.nelement() * out.element_size()
+            return out
+        return run
+
+    per: dict = {}
+    for k, fn in orig.items():
+        setattr(detect, k, hooked(k, fn))
+    for k in ("input", "forward", "extract"):
+        setattr(engine, k, hooked(k, getattr(engine, k)))
+    try:
+        for _ in range(reps):
+            steps.clear()
+            t = time.perf_counter()
+            dets = detect.detect_images(engine, images, size=size,
+                                        device_decode=device_decode,
+                                        stage_uint8=stage_uint8,
+                                        head=head)
+            total = time.perf_counter() - t
+            steps["rest"] = total - sum(steps.values())
+            for k, v in steps.items():
+                per.setdefault(k, []).append(v * 1e3)
+    finally:
+        for k, fn in orig.items():
+            setattr(detect, k, fn)
+        for k in ("input", "forward", "extract"):
+            delattr(engine, k)
+    detect.detect_images(engine, images, size=size,
+                         device_decode=device_decode,
+                         stage_uint8=stage_uint8, head=head)
+    engine.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        detect.detect_images(engine, images, size=size,
+                             device_decode=device_decode,
+                             stage_uint8=stage_uint8, head=head)
+    e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ms = {k: statistics.median(v) for k, v in per.items()}
+    return {"device_decode": device_decode, "stage_uint8": stage_uint8,
+            "ms_per_batch": ms, "sum_of_steps_ms": sum(ms.values()),
+            "detect_images_ms": e2e_ms,
+            "img_per_s": len(images) * 1e3 / e2e_ms,
+            "bytes_staged": seen["staged"], "bytes_fetched": seen["fetched"],
+            "detections": sum(len(d) for d in dets)}
+
+
+def detect_path(device, head, kernels: dict, batch=DETECT["batch"],
+                image=DETECT["image"], reps=DETECT_REPS,
+                floor=None) -> dict:
+    """One YOLO family through zoo.detect on `device`, bf16 int8w: the
+    launches of matmul_int8w per forward (detect_images with the device
+    decode, counts set to 0 just before), the device decode against the
+    host decode on the engine's own head (threshold from conf_for_topk;
+    at least `floor` kept rows, DECODE_FLOOR's by default),
+    the device decode's launches and rounds, and the four routes' time
+    breakdown (device / host decode, float / uint8 staging)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo.detect import decode_device, detect_images
+
+    floor = DECODE_FLOOR[head] if floor is None else floor
+    t0 = time.perf_counter()
+    eng, in_name, out_name, graph = detect_engine(device, head, "bfloat16",
+                                                  True, batch, image)
+    load_s = time.perf_counter() - t0
+    images = seeded_images(sizes=DETECT_SIZES[:batch])
+    pointwise = len(kernel_conv_names(graph))
+    want = YOLOV8S_POINTWISE if head == "v8" else YOLOV5S_POINTWISE
+    if pointwise != want:
+        raise AssertionError(f"{head}: {pointwise} kernel convs, expected "
+                             f"{want}")
+    detect_images(eng, images, size=image, device_decode=True)   # warm
+    kmm.launches = 0
+    dets = detect_images(eng, images, size=image, device_decode=True)
+    launches = kmm.launches
+    if device.type == "cuda" and launches != pointwise:
+        raise AssertionError(f"{head}: {launches} matmul_int8w launches in "
+                             f"one detect_images, expected {pointwise}")
+    # the device decode against the host decode of the same head output
+    raw = eng.extract(out_name, as_numpy=False)
+    head_np = raw.float().cpu().numpy()
+    conf = conf_for_topk(head_np, head)
+    rows = decode_device(raw, conf, 0.45, DETECT_MAX_DET, head,
+                         pre_topk=DETECT_PRE_TOPK).cpu().numpy()
+    cmp = decode_vs_host(rows, head_np, head, conf)
+    res = {"phase": f"detect_{head}", "model": f"yolov{head[1]}s",
+           "batch": batch, "image": image, "compute": "bfloat16",
+           "quant": "int8w", "load_s": load_s,
+           "image_sizes": [list(im.shape[:2]) for im in images],
+           "matmul_int8w_launches": launches,
+           "kernel_convs_per_forward": pointwise,
+           "head_shape": list(raw.shape), "head_dtype": str(raw.dtype),
+           "detections_at_0.25": [len(d) for d in dets],
+           "decode_vs_host": dict(cmp, conf_thresh=conf, floor=floor),
+           "decode_launches": decode_launches(device, raw, head, conf)}
+    emit(res)
+    check_decode(cmp, floor, f"{head} head")
+    routes = [detect_breakdown(eng, images, head, image, dd, u8, reps)
+              for dd in (True, False) for u8 in (False, True)]
+    for r in routes:
+        emit({"phase": f"detect_{head}_route", **r})
+    res["routes"] = routes
+    kernels.setdefault("matmul_int8w", {})[f"detect_{head}"] = {
+        "launches": launches, "launches_per_forward": launches}
+    res.update(engine=(eng, in_name, out_name, graph))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def v8_feed(batch, image) -> np.ndarray:
+    """The YOLOv8s on-vs-off input: seeded uint8 NHWC pixels."""
+    return np.random.default_rng(0).integers(
+        0, 256, (batch, image, image, 3), dtype=np.uint8)
+
+
+def detect_v8_extra(device, run, kernels: dict) -> dict:
+    """YOLOv8s beyond detect_path: head="auto" picks v8; matmul_int8w
+    against its plain version at the shapes the path gives it, and its
+    time there; kernels on vs off (V8_ONOFF_TOL); fp32 on the card vs
+    the CPU port at image 64 (DetectV8's DFL and anchors)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo.detect import detect_images
+
+    eng, in_name, out_name, _ = run.pop("engine")
+    images = seeded_images(sizes=DETECT_SIZES[:run["batch"]])
+    auto = detect_images(eng, images, size=run["image"], head="auto",
+                         device_decode=True)
+    v8 = detect_images(eng, images, size=run["image"], head="v8",
+                       device_decode=True)
+    if [[(d.box, d.class_id) for d in a] for a in auto] != \
+            [[(d.box, d.class_id) for d in a] for a in v8]:
+        raise AssertionError("detect_images(head='auto') did not pick v8")
+    feed = v8_feed(run["batch"], run["image"])
+    with Recorder({"matmul_int8w": kmm}, keep={
+            "matmul_int8w": lambda x, w_q, *a, **kw: (
+                int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))}
+            ) as rec:
+        got = eng.run({in_name: feed})[out_name]
+    shape_counts = rec.count("matmul_int8w")
+    res = {"phase": "detect_v8_kernels", "head_auto": "v8", "shapes": [
+        [*k, c] for k, c in sorted(shape_counts.items())]}
+    entry = kernels.setdefault("matmul_int8w", {})["detect_v8"]
+    if device.type == "cuda":
+        entry["max_abs_err"] = kernel_vs_plain(
+            device, list(shape_counts), ragged=False,
+            phase="detect_v8_kernel_vs_plain")
+        t = time_kernels(device, shape_counts)["matmul_int8w"]
+        entry.update({k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")})
+    off = detect_engine(device, "v8", "bfloat16", False, run["batch"],
+                        run["image"])[0]
+    res["vs_kernels_off"] = parts_onoff(got, off.run({in_name: feed})[
+        out_name], V8_ONOFF_TOL)
+    del off
+    emit(res)
+    if not np.isfinite(got).all():
+        raise AssertionError("yolov8s: a non-finite output")
+    check_parts(res["vs_kernels_off"], "yolov8s kernels on vs off")
+    # fp32 on the card vs the port on the CPU, small
+    card, i_name, o_name, _ = detect_engine(device, "v8", "float32", True,
+                                            2, 64)
+    cpu = detect_engine(torch.device("cpu"), "v8", "float32", True, 2,
+                        64)[0]
+    x = np.random.default_rng(0).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32) / 3
+    got = card.run({i_name: x})[o_name]
+    want = cpu.run({i_name: x})[o_name]
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    emit({"phase": "detect_v8_fp32_card_vs_cpu", "shape": list(got.shape),
+          "max_abs_err": err, "scale": scale,
+          "tol": f"{FP32_TOL}*scale + {FP32_TOL}*|ref|"})
+    np.testing.assert_allclose(got, want, atol=FP32_TOL * scale,
+                               rtol=FP32_TOL)
+    return res
+
+
+def engine_warmup_phase(device, batches=WARMUP_BATCHES, image=640) -> dict:
+    """Engine.warmup and Engine.temp_bytes on YOLOv5s bf16 int8w: seconds
+    of warmup per batch size, with the kernel libraries unloaded first
+    (build._libs cleared, as in a fresh process: warmup loads them);
+    then the first forward after warmup must call kernels/build.py's
+    `build` no time and load no library. temp_bytes per batch size must
+    rise with the batch and stay below the card's free memory."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import build
+
+    eng, in_name, out_name, _ = detect_engine(device, "v5", "bfloat16",
+                                              True, batches[0], image)
+    calls = {"build": 0}
+    orig_build = build.build
+
+    def counted_build(*a, **kw):
+        calls["build"] += 1
+        return orig_build(*a, **kw)
+
+    build._libs.clear()
+    build.build = counted_build
+    try:
+        seconds = {}
+        for bs in batches:
+            t0 = time.perf_counter()
+            eng.warmup((bs,))
+            seconds[bs] = time.perf_counter() - t0
+        loaded = sorted(build._libs)
+        builds_in_warmup = calls["build"]
+        x = np.random.default_rng(1).integers(
+            0, 256, (batches[-1], image, image, 3), dtype=np.uint8)
+        eng.input(in_name, x)
+        eng.forward()
+        eng.synchronize()
+        after = {"build_calls": calls["build"] - builds_in_warmup,
+                 "libraries_loaded": sorted(set(build._libs) - set(loaded))}
+    finally:
+        build.build = orig_build
+    temp = {bs: eng.temp_bytes(bs) for bs in batches}
+    free = torch.cuda.mem_get_info(device)[0] if device.type == "cuda" \
+        else None
+    res = {"phase": "engine_warmup", "model": "yolov5s", "image": image,
+           "compute": "bfloat16", "quant": "int8w",
+           "warmup_s": seconds, "libraries_loaded_by_warmup": loaded,
+           "build_calls_in_warmup": builds_in_warmup,
+           "first_forward_after_warmup": after,
+           "temp_bytes": temp, "free_bytes": free}
+    emit(res)
+    if after["build_calls"] or after["libraries_loaded"]:
+        raise AssertionError(f"the forward after warmup built or loaded: "
+                             f"{after}")
+    if device.type == "cuda":
+        if "matmul.cu" not in loaded:
+            raise AssertionError(f"warmup loaded {loaded}, not matmul.cu")
+        vals = [temp[bs] for bs in batches]
+        if any(b <= a for a, b in zip(vals, vals[1:])) or vals[-1] >= free:
+            raise AssertionError(f"temp_bytes {temp} (free {free})")
+    elif any(v is not None for v in temp.values()):
+        raise AssertionError(f"temp_bytes on the CPU: {temp}")
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def segment_phase(device, kernels: dict, cfg=SEGMENT) -> dict:
+    """build_unet bf16 int8w through zoo.segment: matmul_int8w's launches
+    in one segment_images (counts set to 0 just before), the kernel
+    against its plain version at the shapes the path gives it, and its
+    time there; the device argmax against the host argmax of the same
+    logits, and segment_images with either argmax; the logits against a
+    use_kernels=False engine of the same graph (UNET_ONOFF_TOL)."""
+    import torch
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo import build_unet
+    from simpleinfer_tpu_torch.zoo.common import fetch_nhwc
+    from simpleinfer_tpu_torch.zoo.segment import (mask_from_logits,
+                                                   segment_images)
+
+    graph, in_name, out_name = build_unet(**cfg)
+    engines = [Engine(EngineConfig(compute_dtype="bfloat16", quant="int8w",
+                                   device=str(device), use_kernels=k)
+                      ).load_model(None, graph=graph) for k in (True, False)]
+    eng, off = engines
+    images = seeded_images(seed=3, sizes=DETECT_SIZES[:cfg["batch"]])
+    with Recorder({"matmul_int8w": kmm}, keep={
+            "matmul_int8w": lambda x, w_q, *a, **kw: (
+                int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))}
+            ) as rec:
+        segment_images(eng, images)                   # warm
+    shape_counts = rec.count("matmul_int8w")
+    kmm.launches = 0
+    dev = segment_images(eng, images)
+    launches = kmm.launches
+    want = len(kernel_conv_names(graph))
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"unet: {launches} matmul_int8w launches, "
+                             f"expected {want}")
+    logits = fetch_nhwc(eng, out_name, as_numpy=False)
+    ids_dev = logits.argmax(dim=-1).int().cpu().numpy()
+    logits_np = logits.float().cpu().numpy()
+    ids_host = np.stack([mask_from_logits(v) for v in logits_np])
+    host = segment_images(eng, images, device_argmax=False)
+    masks_off = segment_images(off, images)
+    logits_off = fetch_nhwc(off, out_name)
+    res = {"phase": "segment", "model": "unet", **cfg,
+           "compute": "bfloat16", "quant": "int8w",
+           "matmul_int8w_launches": launches, "kernel_convs": want,
+           "shapes": [[*k, c] for k, c in sorted(shape_counts.items())],
+           "logits_shape": list(logits.shape),
+           "same_logits_pixels_differing": int((ids_dev != ids_host).sum()),
+           "mask_pixels": int(ids_dev.size),
+           "classes_seen": int(len(np.unique(ids_dev))),
+           "segment_images_pixels_differing": int(sum(
+               (a != b).sum() for a, b in zip(dev, host))),
+           "vs_kernels_off": parts_onoff(logits_np, logits_off,
+                                         UNET_ONOFF_TOL),
+           "mask_pixels_differing_vs_kernels_off": int(sum(
+               (a != b).sum() for a, b in zip(dev, masks_off))),
+           "image_pixels": int(sum(m.size for m in dev))}
+    del engines, off
+    entry = {"launches": launches, "launches_per_forward": launches}
+    if device.type == "cuda":
+        entry["max_abs_err"] = kernel_vs_plain(
+            device, list(shape_counts), ragged=False,
+            phase="segment_kernel_vs_plain")
+        t = time_kernels(device, shape_counts)["matmul_int8w"]
+        entry.update({k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")})
+    res["matmul_int8w"] = entry
+    emit(res)
+    if res["same_logits_pixels_differing"] or \
+            res["segment_images_pixels_differing"]:
+        raise AssertionError(f"device vs host argmax: {res}")
+    if not np.isfinite(logits_np).all():
+        raise AssertionError("unet: a non-finite logit")
+    check_parts(res["vs_kernels_off"], "unet kernels on vs off")
+    kernels.setdefault("matmul_int8w", {})["segment"] = entry
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def host_native_phase() -> dict:
+    """The port's native host library (csrc/si_host.cpp, built by g++ at
+    first use): loaded, letterbox_batch byte-equal to letterbox_one image
+    by image and within LETTERBOX_*_TOL of the numpy route, and si_nms
+    the numpy route's indices on the planted boxes."""
+    from simpleinfer_tpu_torch import host
+    from simpleinfer_tpu_torch.zoo.detect import (CLASS_OFFSET, letterbox,
+                                                  nms)
+
+    lib = host.library()
+    images = seeded_images()
+    res = {"phase": "host_native", "library": lib, "built": host.builds}
+    if lib is None:
+        emit(res)
+        raise AssertionError("the native host library did not build/load")
+    for norm, tol in ((False, LETTERBOX_RAW_TOL), (True, LETTERBOX_NORM_TOL)):
+        t0 = time.perf_counter()
+        batch = host.letterbox_batch(images, 640, normalize=norm)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        numpy_route = np.stack([letterbox(im, 640, normalize=norm,
+                                          use_native=False)[0]
+                                for im in images])
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        singles = np.stack([host.letterbox_one(im, 640, normalize=norm)
+                            for im in images])
+        err = float(np.abs(batch - numpy_route).max())
+        res[f"letterbox_normalize_{norm}"] = {
+            "batch_equals_singles": bool(np.array_equal(batch, singles)),
+            "max_abs_vs_numpy": err, "tol": tol,
+            "bytes_equal_to_numpy": bool(np.array_equal(batch, numpy_route)),
+            "native_ms": native_ms, "numpy_ms": numpy_ms}
+        if not np.array_equal(batch, singles) or err > tol:
+            emit(res)
+            raise AssertionError(f"native letterbox: {res}")
+    pred = planted_head()[0]
+    boxes = np.concatenate([pred[:, :2] - pred[:, 2:4] / 2,
+                            pred[:, :2] + pred[:, 2:4] / 2], 1)
+    cls = np.argmax(pred[:, 5:], 1)
+    boxes = (boxes + cls[:, None] * CLASS_OFFSET).astype(np.float32)
+    scores = (pred[:, 4] * pred[:, 5:].max(1)).astype(np.float32)
+    native = nms(boxes, scores)
+    plain = nms(boxes.astype(np.float64), scores.astype(np.float64))
+    res["nms_native_equals_numpy"] = bool(np.array_equal(native, plain))
+    res["nms_kept"] = int(len(native))
+    emit(res)
+    if not res["nms_native_equals_numpy"]:
+        raise AssertionError("native nms differs from the numpy route")
+    return res
+
+
+def detect_rehearsal(device, image=64, batch=2) -> dict:
+    """The detection phases at a tiny size (the CPU tests run them with
+    the plain versions)."""
+    kernels: dict = {}
+    out = {"host_native": host_native_phase(),
+           "planted": planted_checks(device)}
+    for head in ("v5", "v8"):
+        run = detect_path(device, head, kernels, batch=batch, image=image,
+                          reps=1, floor=batch)
+        if head == "v8":
+            detect_v8_extra(device, run, kernels)
+        run.pop("engine", None)
+        out[head] = run
+    out["warmup"] = engine_warmup_phase(device, batches=(1, 2), image=image)
+    out["segment"] = segment_phase(device, kernels, dict(
+        batch=batch, image_size=32, seed=0, width=8, depth=1))
+    out["kernels"] = kernels
+    return out
+
+
 # ---- driver -------------------------------------------------------------
-PHASES = ("yolo", "yolo_int8", "conv_kernels", "resnet_int8",
+PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
+          "segment", "yolo_int8", "conv_kernels", "resnet_int8",
           "llama_kernels", "llama_service", "llama_onoff", "llama_fp32")
 
 
@@ -3037,6 +3742,23 @@ def main(argv=None) -> int:
             # the same shapes; no op dispatches it
             "matmul_dense": {k: totals["matmul"][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+        torch.cuda.empty_cache()
+
+    if "host_native" in phases:
+        host_native_phase()
+    if {"detect_v5", "detect_v8"} & set(phases):
+        planted_checks(device)
+    for head in ("v5", "v8"):
+        if f"detect_{head}" in phases:
+            run = detect_path(device, head, kernels)
+            if head == "v8":
+                detect_v8_extra(device, run, kernels)
+            del run
+            torch.cuda.empty_cache()
+    if "engine_warmup" in phases:
+        engine_warmup_phase(device)
+    if "segment" in phases:
+        segment_phase(device, kernels)
         torch.cuda.empty_cache()
 
     if "yolo_int8" in phases:

@@ -5,6 +5,7 @@ limits tell a kernel that is wrong from bf16 and int8 noise?
     python3 scripts/torch_onoff_control.py          # llama (phase 7)
     python3 scripts/torch_onoff_control.py --int8   # yolov5l int8 + C3
     python3 scripts/torch_onoff_control.py --resnet # ResNet-50 int8
+    python3 scripts/torch_onoff_control.py --detect # YOLOv8s, UNet int8w
 
 Loads the llama "base" bf16 int4w engine (kernels on), the same graph
 with use_kernels=False, and the fp32 yardstick, as chip_smoke.py does,
@@ -40,6 +41,18 @@ calibrated) against the same graph and scales with use_kernels=False,
 as chip_smoke.py's resnet_int8 phase compares their logits, sound and
 with s8s8_bf16_product and s8s8_drop_k_tile as above, and
 int8w_drop_k_tile on the path's 33 pointwise convs (a fault).
+
+With --detect: chip_smoke.py's detect_v8 and segment comparisons, the
+YOLOv8s-640-b8 bf16 int8w engine (box and scores each against its own
+scale) and the UNet-128-b8 one (logits) against the same graphs with
+use_kernels=False, sound and with:
+
+- int8w_plain: matmul_int8w is its plain version (f32 products and
+  sums; a precision change, not a fault);
+- int8w_drop_k_tile: matmul_int8w loses the last 32 of K (a fault);
+- int8w_cls_drop_k_tile: the same, only in the class-score convs (N
+  the model's class count: YOLOv8s's three cls-branch 1x1s, UNet's
+  head), the fault the whole-row scale would hide (a fault).
 
 Prints one JSON line of readings per run, each with whether
 chip_smoke's check fails it, then a summary line. Needs a CUDA card.
@@ -141,12 +154,32 @@ def s8s8_drop_k_tile(orig):
     return fn
 
 
-def int8w_drop_k_tile(orig):
+def int8w_drop_k_tile(orig, only_n=None):
     def fn(x, w_q, scale, bias=None, activation=None, **kw):
+        if only_n is not None and w_q.shape[1] != only_n:
+            return orig(x, w_q, scale, bias, activation, **kw)
         k = max(x.shape[1] - 32, 1)
         return orig(x[:, :k].contiguous(), w_q[:k].contiguous(), scale,
                     bias, activation, **kw)
     return fn
+
+
+def int8w_plain(orig):
+    from simpleinfer_tpu_torch.kernels.matmul import matmul_int8w_ref
+
+    def fn(x, w_q, scale, bias=None, activation=None, *, out_dtype=None):
+        return matmul_int8w_ref(x, w_q, scale, bias, activation,
+                                out_dtype=out_dtype or x.dtype)
+    return fn
+
+
+def detect_controls(classes: int) -> dict:
+    return {"int8w_plain": ("matmul", "matmul_int8w", int8w_plain),
+            "int8w_drop_k_tile": ("matmul", "matmul_int8w",
+                                  int8w_drop_k_tile),
+            "int8w_cls_drop_k_tile": (
+                "matmul", "matmul_int8w",
+                lambda orig: int8w_drop_k_tile(orig, only_n=classes))}
 
 
 def c3_fp_taps(orig):
@@ -213,6 +246,13 @@ def main() -> int:
         print(json.dumps({"limits": {"on_vs_off": cs.RESNET_ONOFF_TOL},
                           "summary": summary}), flush=True)
         return 0 if not summary["sound"]["caught"] else 1
+    if "--detect" in sys.argv[1:]:
+        summary = run_detect_controls(device)
+        print(json.dumps({"limits": {"yolov8s": cs.V8_ONOFF_TOL,
+                                     "unet": cs.UNET_ONOFF_TOL},
+                          "summary": summary}), flush=True)
+        return 0 if not any(summary[m]["sound"]["caught"]
+                            for m in summary) else 1
     if "--int8" in sys.argv[1:]:
         on, in_name, out_name = cs.int8_engine(device, True)
         off = cs.int8_engine(device, False)[0]
@@ -316,6 +356,80 @@ def run_int8_controls(on, off, out_name, feeds, controls=INT8_CONTROLS,
             summary[name]["top1_agreement"] = r["top1_agreement"]
         print(json.dumps({"control": name, "failed": failed,
                           **summary[name]}), flush=True)
+    return summary
+
+
+def run_detect_controls(device) -> dict:
+    """chip_smoke's YOLOv8s and UNet on-vs-off readings, sound and under
+    each of detect_controls, and whether chip_smoke.check_parts fails
+    each."""
+    import importlib
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch.zoo import build_unet
+    from simpleinfer_tpu_torch.zoo.common import fetch_nhwc
+    from simpleinfer_tpu_torch.zoo.segment import segment_images
+
+    b, image = cs.DETECT["batch"], cs.DETECT["image"]
+    on, in_name, out_name, _ = cs.detect_engine(device, "v8", "bfloat16",
+                                                True, b, image)
+    off = cs.detect_engine(device, "v8", "bfloat16", False, b, image)[0]
+    feed = {in_name: cs.v8_feed(b, image)}
+    want_v8 = off.run(feed)[out_name]
+    del off
+    graph, _, unet_out = build_unet(**cs.SEGMENT)
+    unet_on, unet_off = [
+        Engine(EngineConfig(compute_dtype="bfloat16", quant="int8w",
+                            device=str(device), use_kernels=k)
+               ).load_model(None, graph=graph) for k in (True, False)]
+    images = cs.seeded_images(seed=3,
+                              sizes=cs.DETECT_SIZES[:cs.SEGMENT["batch"]])
+    segment_images(unet_off, images)
+    want_unet = fetch_nhwc(unet_off, unet_out)
+    del unet_off
+
+    def unet_logits():
+        segment_images(unet_on, images)
+        return fetch_nhwc(unet_on, unet_out)
+
+    models = {"yolov8s": (lambda: on.run(feed)[out_name], want_v8,
+                          cs.V8_ONOFF_TOL, 80),
+              "unet": (unet_logits, want_unet, cs.UNET_ONOFF_TOL,
+                       int(want_unet.shape[-1]))}
+    summary = {}
+    for model, (run, want, tol, classes) in models.items():
+        controls = detect_controls(classes)
+        summary[model] = {}
+        for name in ("sound", *controls):
+            restore = None
+            if name != "sound":
+                mod_name, attr, make = controls[name]
+                mod = importlib.import_module(
+                    f"simpleinfer_tpu_torch.kernels.{mod_name}")
+                restore = (mod, attr, getattr(mod, attr))
+                setattr(mod, attr, make(restore[2]))
+            try:
+                got = run()
+            finally:
+                if restore:
+                    setattr(*restore)
+            res = cs.parts_onoff(got, want, tol)
+            try:
+                if not np.isfinite(got).all():
+                    raise AssertionError("a non-finite output")
+                cs.check_parts(res, f"{model} kernels on vs off")
+                failed = None
+            except AssertionError as e:
+                failed = str(e)[:200]
+            summary[model][name] = {"caught": failed is not None, **{
+                part: [r["max_abs_over_scale"], r["mean_abs_over_scale"]]
+                for part, r in res.items()}}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
     return summary
 
 

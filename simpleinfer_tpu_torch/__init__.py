@@ -14,10 +14,13 @@ group-wise int4 weights, the KV-cache decoder, sampling and
 serving.GenerationService — with `matmul_int4w`, `flash_attention` and
 `decode_attention` as CUDA kernels; and static int8 (calibration, int8
 chains, per-channel folding) with the C3 collapse — with `matmul_s8s8`
-and `c3_block` as CUDA kernels.
+and `c3_block` as CUDA kernels; the CNN classification family with
+`conv3x3_s1_same` and `stem_s2d`; and the detection pipeline (zoo/detect,
+YOLOv5 and YOLOv8 heads, NMS on the device), segmentation, metrics,
+image I/O and the native host library (host.py).
 """
 from .config import EngineConfig
-from .engine import Engine, EngineStateError
+from .engine import Engine, EngineStateError, initialize_context
 from .executor import Program, build_program
 from .ir.graph import Graph
 
@@ -28,4 +31,5 @@ __all__ = [
     "Graph",
     "Program",
     "build_program",
+    "initialize_context",
 ]

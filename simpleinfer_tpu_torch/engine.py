@@ -10,6 +10,9 @@ The counterpart of simpleinfer_tpu/engine.py, with the same surface:
     Engine.extract(name)
     Engine.run(**inputs)
     Engine.synchronize()           (the block_until_ready counterpart)
+    Engine.warmup(batch_sizes)     (one forward per batch size, ahead)
+    Engine.temp_bytes(batch_size)  (a forward's peak memory above what
+                                    was allocated before it; None on CPU)
     Engine.calibrate(batches)      (static int8: activation scales)
     Engine.save_calibration(path) / load_calibration(path)
 
@@ -38,6 +41,15 @@ from .quant.tensor import (Quantized4Tensor, QuantizedTensor,
                            quantize_per_channel)
 
 logger = logging.getLogger("simpleinfer_tpu_torch")
+
+
+def initialize_context() -> None:
+    """Logging init, as the JAX package's initialize_context (the
+    reference's InitializeContext also only initializes logging)."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(levelname).1s %(name)s] %(message)s")
 
 
 class EngineStateError(RuntimeError):
@@ -187,6 +199,75 @@ class Engine:
         with torch.inference_mode(), fp32_parity(fp32):
             self._outputs = self._program.fn(self._device_weights,
                                              self._staged)
+
+    def _zero_feeds(self, batch_size: int, what: str,
+                    dynamic_ok: bool) -> dict:
+        """Zeros of each input's declared shape at `batch_size`. A
+        dynamic non-batch dim raises unless `dynamic_ok` (then 1)."""
+        feeds = {}
+        for spec in self._program.inputs:
+            if not spec.shape:
+                raise EngineStateError(
+                    f"{what} needs a declared shape for input "
+                    f"{spec.name!r}")
+            if not dynamic_ok and any(d == -1 for d in spec.shape[1:]):
+                # batch is the only axis a warmup can pick a size for
+                raise EngineStateError(
+                    f"{what} cannot pick a size for dynamic non-batch "
+                    f"dim(s) of input {spec.name!r} (declared "
+                    f"{spec.shape}); feed a concrete array via "
+                    f"input()+forward() instead")
+            shape = [batch_size] + [1 if d == -1 else d
+                                    for d in spec.shape[1:]]
+            if self.config.io_layout == "nchw" and len(shape) == 4:
+                # input() reads rank-4 arrays as NCHW on such an engine
+                # (the JAX package's warmup feeds NHWC zeros there and
+                # fails)
+                shape = [shape[0], shape[3], shape[1], shape[2]]
+            feeds[spec.name] = np.zeros(shape, np.float32)
+        return feeds
+
+    def warmup(self, batch_sizes=(1,)) -> None:
+        """One forward per batch size on zeros of the declared input
+        shapes, ahead of the first request: builds and loads the kernel
+        libraries, and runs cuDNN's and cuBLAS's first-call setup for
+        those shapes. Requires declared input shapes. The staged inputs
+        and outputs of the last forward are kept."""
+        self._require_loaded()
+        staged_backup, outputs_backup = dict(self._staged), self._outputs
+        try:
+            for bs in batch_sizes:
+                for name, x in self._zero_feeds(bs, "warmup",
+                                                False).items():
+                    self.input(name, x)
+                self.forward()
+            self.synchronize()
+        finally:
+            self._staged, self._outputs = staged_backup, outputs_backup
+
+    def temp_bytes(self, batch_size: int) -> Optional[int]:
+        """Peak device memory of one forward at this batch size above
+        what was allocated before it (the resident weights, the staged
+        zeros of the input shapes, anything else the process holds):
+        the forward's temporaries and outputs. torch.cuda's allocator
+        statistics count allocated bytes, not the blocks its cache
+        keeps. None on the CPU, which keeps no such statistics (the JAX
+        method returns None where its backend gives no memory report)."""
+        self._require_loaded()
+        if self.device.type != "cuda":
+            return None
+        staged = {k: self._prepare_input(k, v) for k, v in self._zero_feeds(
+            batch_size, "temp_bytes", True).items()}
+        fp32 = self.config.compute_torch_dtype == torch.float32
+        torch.cuda.synchronize(self.device)
+        base = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        with torch.inference_mode(), fp32_parity(fp32):
+            out = self._program.fn(self._device_weights, staged)
+        torch.cuda.synchronize(self.device)
+        peak = torch.cuda.max_memory_allocated(self.device)
+        del out, staged
+        return int(peak - base)
 
     # ---- static int8 ---------------------------------------------------
     def calibrate(self, sample_batches) -> dict:

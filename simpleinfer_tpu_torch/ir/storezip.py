@@ -7,9 +7,10 @@ directory), builds a name -> (offset, size) index, and serves raw byte
 reads; the writer emits store-method local file headers, a central
 directory, and an end-of-central-directory record with CRC32 checksums.
 
-A copy of simpleinfer_tpu/ir/storezip.py (numpy-free, framework-free)
-without the optional native index walker, so the port never imports the
-JAX package.
+A copy of simpleinfer_tpu/ir/storezip.py (numpy-free, framework-free);
+its optional native index walker is the port's own host library
+(simpleinfer_tpu_torch/host.py), so the port never imports the JAX
+package.
 """
 from __future__ import annotations
 
@@ -40,9 +41,14 @@ class StoreZipReader:
         if path is not None:
             self.open(path)
 
+    # archives larger than this try the native index walker first
+    _NATIVE_THRESHOLD = 1 << 20
+
     def open(self, path: str) -> None:
         self.close()
         self._fp = open(path, "rb")
+        if self._try_native_index(path):
+            return
         fp = self._fp
         while True:
             sig_bytes = fp.read(4)
@@ -93,6 +99,32 @@ class StoreZipReader:
                     fp.seek(12, 1)
                 else:
                     fp.seek(8, 1)
+
+    def _try_native_index(self, path: str) -> bool:
+        """Index via the C library (csrc/si_host.cpp) when built and the
+        archive is big enough to matter; False -> python walker."""
+        import os
+
+        try:
+            if os.path.getsize(path) < self._NATIVE_THRESHOLD:
+                return False
+            from .. import host
+
+            if not host.available():
+                return False
+            import mmap
+
+            with mmap.mmap(self._fp.fileno(), 0,
+                           access=mmap.ACCESS_READ) as mm:
+                idx = host.storezip_index(bytes(mm))
+            if not idx:
+                return False
+            for name, (off, size) in idx.items():
+                self._index[name] = _FileMeta(offset=off, size=size)
+            return True
+        except Exception:
+            self._index.clear()
+            return False
 
     def namelist(self) -> list[str]:
         return list(self._index)

@@ -1,9 +1,10 @@
-"""models.yolo.Detect lowering — YOLOv5 detection head (counterpart of
-simpleinfer_tpu/ops/yolo.py).
+"""models.yolo.Detect and models.yolo.DetectV8 lowerings — the YOLOv5 and
+YOLOv8 detection heads (counterpart of simpleinfer_tpu/ops/yolo.py).
 
-Three feature levels (P3/P4/P5), each through its own 1x1 conv (attrs
-``m.{0,1,2}.weight/bias``); the logits of all levels are concatenated in
-the channel-packed [N, ΣHW, A*ni] layout and decoded ONCE, in f32:
+Detect (YOLOv5): three feature levels (P3/P4/P5), each through its own
+1x1 conv (attrs ``m.{0,1,2}.weight/bias``); the logits of all levels are
+concatenated in the channel-packed [N, ΣHW, A*ni] layout and decoded
+ONCE, in f32:
 
     xy = (sig(xy) * 2 + grid) * stride
     wh = (sig(wh) * 2)^2 * anchor_grid
@@ -18,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ir.graph import PARAM_INT
 from .conv import conv2d_nhwc
-from .registry import OpImpl, register_op, require_attr
+from .registry import OpImpl, register_op, require_attr, require_param
 
 _ANCHOR_ATTR_INDEX = (4, 2, 0)
 _GRID_ATTR_INDEX = (6, 3, 1)
@@ -33,6 +35,61 @@ def detect_tables(level_tables: list) -> dict:
     the concat. Shared with convert.program_weights_from_numpy."""
     return {"grid": np.concatenate([g for g, _ in level_tables]),
             "anchor": np.concatenate([a for _, a in level_tables])}
+
+
+@register_op("models.yolo.DetectV8")
+def lower_yolo_detect_v8(op, cfg):
+    """Anchor-free YOLOv8 decode (ultralytics v8). Inputs: one
+    [N, H, W, 4*reg_max+nc] map per level (NHWC). In f32 whatever the
+    engine's dtype, as in the JAX package:
+
+        dist = softmax(box.reshape(..., 4, reg_max)) @ arange(reg_max)
+        xy   = ((anchor+0.5) + (rb-lt)/2) * stride        (cell centres)
+        wh   = (lt + rb) * stride
+        out  = concat([xy, wh, sigmoid(cls)], -1)  ->  [N, total, 4+nc]
+    """
+    nc = require_param(op, "nc", PARAM_INT).i
+    reg_max = require_param(op, "reg_max", PARAM_INT).i
+    strides = require_attr(op, "strides", 1).array().astype(np.float32)
+    n_levels = len(op.inputs)
+    if strides.shape != (n_levels,):
+        raise ValueError(f"DetectV8 {op.name}: strides {strides.shape} "
+                         f"vs {n_levels} levels")
+    no = 4 * reg_max + nc
+    centres: dict = {}   # (H, W, device) -> anchor-cell centres [H*W, 2]
+
+    def centres_of(h, w, device):
+        key = (h, w, device)
+        if key not in centres:
+            xv, yv = np.meshgrid(np.arange(w), np.arange(h))
+            centres[key] = torch.from_numpy(
+                np.stack([xv, yv], -1).reshape(h * w, 2)
+                .astype(np.float32) + 0.5).to(device)
+        return centres[key]
+
+    def apply(weights, *features):
+        bins = torch.arange(reg_max, dtype=torch.float32,
+                            device=features[0].device)
+        outs = []
+        for i, x in enumerate(features):
+            n, h, w_, c = x.shape
+            if c != no:
+                raise ValueError(
+                    f"DetectV8 {op.name}: level {i} has {c} channels, "
+                    f"expected {no}")
+            x = x.float().reshape(n, h * w_, c)
+            box, cls = x[..., :4 * reg_max], x[..., 4 * reg_max:]
+            # DFL: softmax over reg_max bins -> expected distance
+            d = torch.softmax(box.reshape(n, h * w_, 4, reg_max), -1)
+            d = (d * bins).sum(-1)                   # [N, HW, 4] ltrb
+            lt, rb = d[..., :2], d[..., 2:]
+            s = float(strides[i])
+            xy = (centres_of(h, w_, x.device) + (rb - lt) * 0.5) * s
+            wh = (lt + rb) * s
+            outs.append(torch.cat([xy, wh, torch.sigmoid(cls)], -1))
+        return torch.cat(outs, dim=1)
+
+    return OpImpl(name=op.name, type=op.type, apply=apply, weights={})
 
 
 @register_op("models.yolo.Detect")

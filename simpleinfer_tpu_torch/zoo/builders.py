@@ -1,8 +1,8 @@
-"""Programmatic pnnx graph builders: the YOLOv5, llama and CNN
+"""Programmatic pnnx graph builders: the YOLOv5, YOLOv8, llama and CNN
 classification / segmentation families, ported subset.
 
 A copy of `GraphBuilder` (the layers those families use), `build_yolov5`,
-`build_resnet18`, `build_resnet50`, `build_mobilenet_like`,
+`build_yolov8`, `build_resnet18`, `build_resnet50`, `build_mobilenet_like`,
 `build_densenet`, `build_unet`, `LLAMA_PRESETS` and `build_llama` from
 simpleinfer_tpu/zoo/builders.py (numpy only), so the port builds the
 same graphs with the same seeded weights (the same RNG calls in the same
@@ -412,6 +412,21 @@ class GraphBuilder:
     def tanh(self, x: str) -> str:
         return self._act("nn.Tanh", x)
 
+    def yolo_detect_v8(self, features: list, nc: int = 80,
+                       reg_max: int = 16,
+                       strides=(8.0, 16.0, 32.0)) -> str:
+        """Anchor-free YOLOv8 decode head (models.yolo.DetectV8): each
+        input is a per-level [N, 4*reg_max+nc, H, W] prediction map."""
+        (out,) = self._op(
+            "models.yolo.DetectV8", self._name("detectv8"),
+            list(features),
+            params=dict(nc=nc, reg_max=reg_max),
+            attrs={"strides": np.asarray(strides, np.float32)})
+        n = self.shape[features[0]][0]
+        total = sum(self.shape[f][2] * self.shape[f][3] for f in features)
+        self.shape[out] = [n, total, 4 + nc]
+        return out
+
     def yolo_detect(self, features: list, nc: int = 80,
                     anchors=YOLO_ANCHORS, strides=YOLO_STRIDES) -> str:
         na = len(anchors[0])
@@ -528,6 +543,93 @@ def build_yolov5(variant: str = "n", batch: int = 1, image_size: int = 640,
 
 
 # ---- the CNN classification and segmentation family ----
+def build_yolov8(variant: str = "n", batch: int = 1, image_size: int = 640,
+                 num_classes: int = 80, reg_max: int = 16,
+                 seed: int = 0) -> tuple:
+    """YOLOv8-style detector: C2f blocks (chunk + growing concat), SPPF,
+    PAN neck, anchor-free decoupled head with DFL decode
+    (models.yolo.DetectV8). A model FAMILY the CPU reference cannot run
+    (its registry has no chunk/DFL ops) — superset capability.
+    variant: n / s / m / l or (depth_mult, width_mult)."""
+    presets = {"n": (0.33, 0.25), "s": (0.33, 0.50), "m": (0.67, 0.75),
+               "l": (1.0, 1.0)}
+    depth_mult, width_mult = presets[variant] if isinstance(variant, str) \
+        else variant
+    cw = _yolo_channels(width_mult)
+
+    def dn(n):
+        return max(round(n * depth_mult), 1)
+
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def conv_silu(x, out_c, k=1, s=1, p=None):
+        return b.silu(b.conv(x, out_c, k, s, p))
+
+    def bottleneck(x, out_c, shortcut=True):
+        in_c = b.shape[x][1]
+        y = conv_silu(x, out_c, 3)
+        y = conv_silu(y, out_c, 3)
+        if shortcut and in_c == out_c:
+            return b.add(y, x)
+        return y
+
+    def c2f(x, out_c, n=1, shortcut=True):
+        hid = out_c // 2
+        y = conv_silu(x, out_c, 1)
+        a, c = b.chunk(y, 2, dim=1)
+        parts = [a, c]
+        for _ in range(n):
+            c = bottleneck(c, hid, shortcut)
+            parts.append(c)
+        return conv_silu(b.cat(parts, 1), out_c, 1)
+
+    def sppf(x, out_c, k=5):
+        hid = b.shape[x][1] // 2
+        y = conv_silu(x, hid, 1)
+        p1 = b.maxpool(y, k, 1, k // 2)
+        p2 = b.maxpool(p1, k, 1, k // 2)
+        p3 = b.maxpool(p2, k, 1, k // 2)
+        return conv_silu(b.cat([y, p1, p2, p3], 1), out_c, 1)
+
+    # backbone (v8 yaml: 3x3 s2 stem, C2f stages)
+    x = conv_silu(x, cw(64), 3, 2)              # P1/2
+    x = conv_silu(x, cw(128), 3, 2)             # P2/4
+    x = c2f(x, cw(128), dn(3))
+    x = conv_silu(x, cw(256), 3, 2)             # P3/8
+    p3 = c2f(x, cw(256), dn(6))
+    x = conv_silu(p3, cw(512), 3, 2)            # P4/16
+    p4 = c2f(x, cw(512), dn(6))
+    x = conv_silu(p4, cw(1024), 3, 2)           # P5/32
+    x = c2f(x, cw(1024), dn(3))
+    p5 = sppf(x, cw(1024))
+
+    # PAN neck (v8: no pre-upsample 1x1s; C2f without shortcut)
+    x = b.cat([b.upsample(p5, 2), p4], 1)
+    n4 = c2f(x, cw(512), dn(3), shortcut=False)
+    x = b.cat([b.upsample(n4, 2), p3], 1)
+    d3 = c2f(x, cw(256), dn(3), shortcut=False)         # P3 out
+    x = conv_silu(d3, cw(256), 3, 2)
+    x = b.cat([x, n4], 1)
+    d4 = c2f(x, cw(512), dn(3), shortcut=False)         # P4 out
+    x = conv_silu(d4, cw(512), 3, 2)
+    x = b.cat([x, p5], 1)
+    d5 = c2f(x, cw(1024), dn(3), shortcut=False)        # P5 out
+
+    # decoupled head: box (4*reg_max) and cls (nc) branches per level
+    no = 4 * reg_max + num_classes
+    heads = []
+    for d in (d3, d4, d5):
+        c = b.shape[d][1]
+        hid = max(c // 2, 16)
+        box = b.conv(conv_silu(d, hid, 3), 4 * reg_max, 1)
+        cls = b.conv(conv_silu(d, hid, 3), num_classes, 1)
+        heads.append(b.cat([box, cls], 1))
+    out = b.yolo_detect_v8(heads, nc=num_classes, reg_max=reg_max)
+    b.output(out)
+    return b.build(), "0", out
+
+
 def build_resnet18(batch: int = 1, image_size: int = 224,
                    num_classes: int = 1000, width: int = 64,
                    seed: int = 0) -> tuple:

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .common import _resize_bilinear, stage_for_engine
+from .common import stage_for_engine
+from .detect import _resize_bilinear
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)

@@ -687,3 +687,75 @@ def test_stem_kernel_widths_on_card(cuda, n, oc, act):
         assert got.shape == (n, 320, 320, oc)
         _assert_close(got, kstem.stem_s2d_ref(xp, wp.to(wd), bias, act))
     assert kstem.launches - before == 2
+
+
+# ---- the detection pipeline's device side (zoo/detect.py) --------------
+def _planted_head(n, m, nc, seed, head="v5"):
+    """chip_smoke's planted head: clusters of partly overlapping boxes
+    with exact score ties, over background rows under the 0.25
+    threshold."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke.planted_head(n, m, nc, seed=seed, head=head)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["v5", "v8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("class_agnostic", [False, True],
+                         ids=["classwise", "agnostic"])
+def test_decode_device_on_card_equals_cpu(cuda, head, dtype, class_agnostic):
+    """decode_device on the card gives the CPU's rows (the same stable
+    sorts and f32 arithmetic): indices and classes equal, boxes within
+    1e-6 x max(1, |box|), at least 40 kept rows."""
+    from simpleinfer_tpu_torch.zoo.detect import decode_device
+
+    pred = torch.from_numpy(_planted_head(2, 3000, 20, 7, head)).to(dtype)
+    want = decode_device(pred, head=head, class_agnostic=class_agnostic)
+    got = decode_device(pred.to(cuda), head=head,
+                        class_agnostic=class_agnostic).cpu()
+    assert got.shape == want.shape == (2, 300, 6)
+    assert int((want[..., 4] >= 0).sum()) >= 40
+    assert torch.equal(got[..., 4:], want[..., 4:])
+    assert ((got[..., :4] - want[..., :4]).abs()
+            <= 1e-6 * want[..., :4].abs().clamp(min=1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_keep", [5, 64, 300])
+def test_nms_device_on_card_equals_cpu(cuda, max_keep):
+    """nms_device on the card: the CPU's indices, -1 padded, for
+    distinct and all-tied scores."""
+    from simpleinfer_tpu_torch.zoo.detect import nms_device
+
+    rng = np.random.default_rng(max_keep)
+    xy = rng.uniform(0, 300, (3, 256, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(10, 80, (3, 256, 2)).astype(np.float32)], -1))
+    for scores in (torch.from_numpy(rng.uniform(0, 1, (3, 256))
+                                    .astype(np.float32)),
+                   torch.full((3, 256), 0.5)):
+        want = nms_device(boxes, scores, 0.45, max_keep)
+        got = nms_device(boxes.to(cuda), scores.to(cuda), 0.45,
+                         max_keep).cpu()
+        assert torch.equal(got, want)
+        assert int((want >= 0).sum()) >= 3
+
+
+@pytest.mark.cuda
+def test_engine_temp_bytes_on_card(cuda):
+    """temp_bytes rises with the batch; warmup keeps the staged inputs."""
+    g, in_name, out_name = build_yolov5("n", batch=1, image_size=64)
+    eng = Engine(EngineConfig(compute_dtype="bfloat16", quant="int8w"))
+    eng.load_model(None, graph=g)
+    eng.warmup((1, 2, 4))
+    t = [eng.temp_bytes(b) for b in (1, 2, 4)]
+    assert 0 < t[0] < t[1] < t[2]

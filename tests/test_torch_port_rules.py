@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on CPU)
 import pytest
@@ -127,3 +128,59 @@ def test_every_kernel_source_is_built_and_counted():
     assert sorted(owners) == sources
     for mod in owners.values():
         assert isinstance(mod.launches, int)
+
+
+@pytest.mark.parametrize("module", [
+    "host.py", "ir/codegen.py", "zoo/detect.py", "zoo/metrics.py",
+    "zoo/imageio.py", "zoo/segment.py", "ops/yolo.py", "engine.py"])
+def test_new_modules_are_checked(module):
+    """The slice's modules are among the files test_no_jax_imports
+    reads."""
+    assert os.path.join(PKG, module) in _port_files()
+
+
+def test_host_library_from_the_ports_source_only():
+    """host.py builds csrc/si_host.cpp of the port into the port's
+    gitignored _build/ and loads nothing of the JAX package's host
+    library (csrc/si_host.cpp, csrc/libsi_host.so at the root)."""
+    from simpleinfer_tpu_torch import host
+
+    assert host.SOURCE == Path(PKG, "csrc", "si_host.cpp")
+    assert host.library_path().parent == Path(PKG, "_build")
+    text = open(os.path.join(PKG, "host.py")).read()
+    assert "libsi_host.so" not in text and "dirname(os.path" not in text
+    # the build lands under .gitignore's entry, never in a commit
+    ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
+    assert "simpleinfer_tpu_torch/_build/" in ignored
+    assert str(host.library_path()).startswith(
+        os.path.join(ROOT, "simpleinfer_tpu_torch", "_build") + os.sep)
+
+
+def test_detect_pipeline_runs_without_jax():
+    """With jax made unimportable: a YOLOv8n engine, detect_images with
+    the device decode and the native letterbox and NMS; neither the JAX
+    package nor its host library is loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from simpleinfer_tpu_torch import Engine, EngineConfig, host\n"
+        "from simpleinfer_tpu_torch.zoo import build_yolov8\n"
+        "from simpleinfer_tpu_torch.zoo.detect import detect_images\n"
+        "g, i, o = build_yolov8('n', batch=1, image_size=32)\n"
+        "e = Engine(EngineConfig(device='cpu')).load_model(None, graph=g)\n"
+        "img = np.zeros((40, 50, 3), np.uint8)\n"
+        "d = detect_images(e, [img], size=32, device_decode=True)\n"
+        "h = detect_images(e, [img], size=32)\n"
+        "assert len(d) == len(h) == 1\n"
+        "assert host.available()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'csrc/libsi_host.so' not in maps\n"
+        "assert 'libsi_host_' in maps\n"
+        "assert not any(m == 'simpleinfer_tpu' or\n"
+        "               m.startswith('simpleinfer_tpu.') for m in sys.modules)\n"
+        "print('OK')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("OK")
