@@ -52,7 +52,31 @@ Phases, each printing JSON lines:
    version and timed at the path's shape, the device argmax against the
    host argmax of the same logits, pixel for pixel, and the logits
    against a use_kernels=False engine (UNET_ONOFF_TOL);
-4b. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
+4b. CNN serving (serving/batcher.py, serving/http.py) on YOLOv5s-640
+   bf16 int8w behind BatchingService(max_batch=8) with decode_device as
+   its device postprocess: `serving`: the bucket sweep (temp_bytes and
+   the forward's time per image at b1-b32, and the spill budget they
+   give beside the committed SPILL_BUDGET_BYTES); the dispatch contract
+   on the raw head (a batch's dispatch returns while a long queued
+   kernel still runs, and _resolve(N) returns while batch N+1 is still
+   queued); 8 canvases submitted together make one b8 batch whose rows
+   equal the serial loop's, with 22 matmul_int8w calls in its forward
+   (a Recorder); then 512 canvases submitted from a client thread as
+   fast as it can, twice, between two serial loops (input -> forward ->
+   decode_device -> .cpu(), 8 at a time): img/s, p50 / p99 latency,
+   occupancy, batches per bucket, matmul_int8w's launches (22 a
+   forward, counts set to 0 just before each load), the scheduler's
+   host ms a batch by step and the NMS host checks a batch; the bare
+   forward's img/s (CUDA events); `serving_http`: InferenceServer over
+   a fresh service, a client process (spawn; http.client and numpy)
+   posting 256 seeded uint8 images of mixed sizes as .npy to /v1/detect
+   over 16 keep-alive connections: img/s, p50 / p99, the scheduler's
+   steps under that load; every reply 200, /v1/stats' requests and
+   per-bucket items equal to the posts, one image alone equal to
+   detect_images of it (bucket 1 both), /metrics parsed; detect_images
+   at b8 in the same run, with its letterbox share beside what the
+   service hid;
+4c. static int8 (`yolo_int8`): yolov5l-640-b16 (full width and depth),
    bf16, quant="int8", c3_fusion, calibrated by Engine.calibrate on 2
    seeded batches (wall time printed); the launches of `matmul_s8s8` (5
    per forward), `c3_block` (INT8_C3_BLOCKS at the H100's C3_MIN_WORK,
@@ -3674,10 +3698,582 @@ def detect_rehearsal(device, image=64, batch=2) -> dict:
     return out
 
 
+# ---- the CNN service (serving/batcher.py, serving/http.py) ---------------
+# YOLOv5s-640 bf16 int8w behind BatchingService(max_batch=8), with
+# decode_device (its defaults: conf 0.25, pre_topk 1024, max_det 300) as
+# the device postprocess; the in-process load submits `requests` canvases
+# (the 8 seeded images letterboxed, cycled), the HTTP load posts
+# `http_requests` seeded uint8 images over `http_connections` keep-alive
+# connections from a client process
+SERVING = dict(max_batch=8, requests=512, http_requests=256,
+               http_connections=16, seed=0)
+# the bucket sweep: Engine.temp_bytes and the forward's time per image
+SERVING_SWEEP = (1, 2, 4, 8, 16, 32)
+# the queued kernel of the pipeline check, ~0.2 s at H100 clocks: longer
+# than a batch's dispatch on the host
+PIPELINE_SPIN_CYCLES = 400_000_000
+# the scheduler's steps as SchedulerSteps times them: (owner, attribute,
+# step); owner "svc" / "eng" / a module of the port
+SERVING_STEPS = (("svc", "_gather", "gather"),
+                 ("batcher", "stage_batch", "stack_pinned"),
+                 ("eng", "input", "stage"), ("eng", "forward", "forward"),
+                 ("svc", "device_post", "device_post"),
+                 ("batcher", "fetch_async", "fetch_queue"),
+                 ("svc", "_resolve", "resolve_wait"))
+
+
+class SchedulerSteps:
+    """Host time of a BatchingService's scheduler by step, for the length
+    of a `with` block: each step of SERVING_STEPS is wrapped (a gather
+    counts only when it returns a batch; `resolve_wait` is _resolve, its
+    wait on the batch's event and setting the futures), and the NMS
+    rounds of each decode_device (detect.nms_rounds) are kept, from which
+    the host checks follow (a check every NMS_ROUNDS_PER_CHECK rounds).
+    Nothing is synchronised: these are the scheduler's own host times."""
+
+    def __init__(self, svc):
+        from simpleinfer_tpu_torch.serving import batcher
+        from simpleinfer_tpu_torch.zoo import detect
+
+        self.owners = {"svc": svc, "eng": svc.engine, "batcher": batcher}
+        self.detect = detect
+        self.ms = {step: [] for _, _, step in SERVING_STEPS}
+        self.rounds: list = []
+        self.saved: list = []
+
+    def __enter__(self):
+        def timed(step, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if step != "gather" or out:
+                    self.ms[step].append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        def counted(fn):
+            def run(*a, **kw):
+                out = fn(*a, **kw)
+                self.rounds.append(out[2])
+                return out
+            return run
+
+        for owner, name, step in SERVING_STEPS:
+            obj = self.owners[owner]
+            fn = getattr(obj, name)
+            if fn is None:            # a service without a postprocess
+                continue
+            own = isinstance(obj, type(os)) or name in vars(obj)
+            self.saved.append((obj, name, own, fn))
+            setattr(obj, name, timed(step, fn))
+        self.saved.append((self.detect, "nms_rounds", True,
+                           self.detect.nms_rounds))
+        self.detect.nms_rounds = counted(self.detect.nms_rounds)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, own, fn in reversed(self.saved):
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+    def report(self) -> dict:
+        n = max(len(self.ms["stack_pinned"]), 1)
+        per = self.detect.NMS_ROUNDS_PER_CHECK
+        return {"batches": len(self.ms["stack_pinned"]),
+                "host_ms_per_batch": {k: sum(v) / n
+                                      for k, v in self.ms.items()},
+                "nms_rounds": sorted(set(self.rounds)),
+                "nms_host_checks_per_batch": sum(
+                    -(-r // per) for r in self.rounds) / n}
+
+
+def serving_engine(device, image):
+    """The service's engine: YOLOv5s bf16 int8w, kernels on; returns
+    (engine, input name, output name, letterboxed canvases of the 8
+    seeded images)."""
+    from simpleinfer_tpu_torch.zoo.detect import letterbox_images
+
+    eng, in_name, out_name, _ = detect_engine(device, "v5", "bfloat16", True,
+                                              SERVING["max_batch"], image)
+    batch, _ = letterbox_images(seeded_images(), image)
+    return eng, in_name, out_name, list(batch)
+
+
+def bucket_sweep(device, eng, in_name, canvases, buckets=SERVING_SWEEP,
+                 iters=10) -> dict:
+    """Engine.temp_bytes and the forward's device time per image (CUDA
+    events, median of `iters`) at each bucket; the spill budget they
+    give: the largest temp_bytes of a bucket whose time per image is no
+    worse than the best smaller bucket's (None on the CPU, which has no
+    allocator statistics and is not timed)."""
+    from simpleinfer_tpu_torch.serving import batcher
+
+    temp, per_image = {}, {}
+    for b in buckets:
+        temp[b] = eng.temp_bytes(b)
+        if device.type == "cuda":
+            x = np.stack([canvases[i % len(canvases)] for i in range(b)])
+            per_image[b] = forward_times(eng, {in_name: x},
+                                         iters=iters)["median_ms"] / b
+    budget, best = None, math.inf
+    if device.type == "cuda":
+        for b in buckets:
+            if per_image[b] <= best:
+                budget = max(budget or 0, temp[b])
+            best = min(best, per_image[b])
+    res = {"phase": "serving_sweep", "model": "yolov5s",
+           "compute": "bfloat16", "quant": "int8w", "temp_bytes": temp,
+           "forward_ms_per_image": per_image,
+           "spill_budget_from_sweep": budget,
+           "spill_budget_committed": batcher.SPILL_BUDGET_BYTES,
+           "buckets_kept_by_committed": [
+               b for b in buckets if temp[b] is None
+               or temp[b] <= batcher.SPILL_BUDGET_BYTES]}
+    emit(res)
+    return res
+
+
+def pipeline_check(device, eng, canvases) -> dict:
+    """The dispatch contract on the card: batch A is dispatched, a long
+    kernel queued (PIPELINE_SPIN_CYCLES), batch B dispatched; B's
+    dispatch must return while the kernel still runs (its event not
+    reached), and _resolve(A) must return while B is still queued. On
+    the raw head: a postprocess with host reads (decode_device's NMS
+    checks) waits for its own forward inside _dispatch by design."""
+    import torch
+    from simpleinfer_tpu_torch.serving import BatchingService, Request
+
+    svc = BatchingService(eng, max_batch=SERVING["max_batch"])
+    for c in canvases * 2:
+        svc._q.put(Request(c))
+    first, second = svc._gather(), svc._gather()
+    svc._dispatch(first, 0)          # warm: the pinned blocks exist after
+    torch.cuda.synchronize(device)
+    a = svc._dispatch(first, 0)
+    torch.cuda._sleep(PIPELINE_SPIN_CYCLES)
+    t = time.perf_counter()
+    b = svc._dispatch(second, 0)
+    dispatch_ms = (time.perf_counter() - t) * 1e3
+    b_queued_after_dispatch = not b[2].query()
+    t = time.perf_counter()
+    svc._resolve(a)
+    resolve_ms = (time.perf_counter() - t) * 1e3
+    b_queued_after_resolve_a = not b[2].query()
+    t = time.perf_counter()
+    svc._resolve(b)
+    resolve_b_ms = (time.perf_counter() - t) * 1e3
+    for r in second:
+        r.future.result(timeout=60)
+    res = {"phase": "serving_pipeline", "spin_cycles": PIPELINE_SPIN_CYCLES,
+           "dispatch_b_ms": dispatch_ms, "resolve_a_ms": resolve_ms,
+           "resolve_b_ms": resolve_b_ms,
+           "b_queued_after_its_dispatch": b_queued_after_dispatch,
+           "b_queued_after_resolve_a": b_queued_after_resolve_a}
+    emit(res)
+    if not (b_queued_after_dispatch and b_queued_after_resolve_a):
+        raise AssertionError(f"the dispatch waited for the card, or "
+                             f"_resolve(A) waited for batch B: {res}")
+    return res
+
+
+def decoded_rows_vs(got, want) -> dict:
+    """[N, max_det, 6] decoded rows of two runs of the same images: the
+    same kept rows and classes, boxes within DECODE_BOX_RTOL x max(1,
+    |box|), scores within DECODE_SCORE_RTOL x max(1, |score|)."""
+    kept = differing = 0
+    for g, w in zip(got, want):
+        g, w = g[g[:, 4] >= 0], w[w[:, 4] >= 0]
+        kept += len(w)
+        if len(g) != len(w):
+            differing += abs(len(g) - len(w)) + min(len(g), len(w))
+            continue
+        bad = ((g[:, 5] != w[:, 5])
+               | (np.abs(g[:, :4] - w[:, :4]) > DECODE_BOX_RTOL
+                  * np.maximum(1.0, np.abs(w[:, :4]))).any(1)
+               | (np.abs(g[:, 4] - w[:, 4]) > DECODE_SCORE_RTOL
+                  * np.maximum(1.0, np.abs(w[:, 4]))))
+        differing += int(bad.sum())
+    return {"kept_rows": kept, "rows_differing": differing,
+            "equal": differing == 0 and len(got) == len(want)}
+
+
+def serial_loop(eng, in_name, out_name, canvases, n, batch, post) -> dict:
+    """The yardstick: Engine.input -> forward -> the postprocess -> .cpu()
+    over n canvases (cycled), `batch` at a time, one after another on
+    the host clock; with the forward's own host ms a batch."""
+    fwd = []
+    t0 = time.perf_counter()
+    for i in range(0, n, batch):
+        x = np.stack([canvases[j % len(canvases)] for j in range(i, i + batch)])
+        eng.input(in_name, x)
+        t = time.perf_counter()
+        eng.forward()
+        fwd.append((time.perf_counter() - t) * 1e3)
+        post(eng.extract(out_name, as_numpy=False)).cpu()
+    wall = time.perf_counter() - t0
+    return {"img_per_s": n / wall, "ms_per_batch": wall * 1e3 * batch / n,
+            "forward_host_ms_per_batch": statistics.mean(fwd)}
+
+
+def service_load(svc, canvases, n) -> dict:
+    """n canvases (cycled) submitted from a client thread as fast as it
+    can; img/s over the whole load, request latency (submit to future
+    done), and what the service's stats counted in it."""
+    import threading
+
+    t_sub, lat = [0.0] * n, [0.0] * n
+    futs = []
+
+    def done_at(i):
+        return lambda f: lat.__setitem__(i, time.perf_counter() - t_sub[i])
+
+    def client():
+        for i in range(n):
+            t_sub[i] = time.perf_counter()
+            f = svc.submit(canvases[i % len(canvases)])
+            f.add_done_callback(done_at(i))
+            futs.append(f)
+
+    s = svc.stats
+    before = (s.requests, s.batches, s.padded_items,
+              {b: (v.batches, v.items) for b, v in s.per_bucket.items()})
+    t0 = time.perf_counter()
+    th = threading.Thread(target=client, name="serving-client")
+    th.start()
+    th.join(timeout=600)
+    for f in futs:
+        f.result(timeout=600)
+    wall = time.perf_counter() - t0
+    requests, batches = s.requests - before[0], s.batches - before[1]
+    padded = s.padded_items - before[2]
+    per_bucket = {b: v.batches - before[3].get(b, (0, 0))[0]
+                  for b, v in sorted(s.per_bucket.items())}
+    ms = [x * 1e3 for x in lat]
+    return {"requests": requests, "img_per_s": n / wall,
+            "latency": _ms_stats(ms), "p50_ms": statistics.median(ms),
+            "batches": batches, "batches_per_bucket": {
+                b: c for b, c in per_bucket.items() if c},
+            "mean_occupancy": requests / max(requests + padded, 1)}
+
+
+def serving_phase(device, kernels, eng, in_name, out_name, canvases,
+                  n=SERVING["requests"]) -> dict:
+    """The service in process: the bucket sweep, the pipeline check, a
+    b8 batch held against the serial loop's rows, then the load with
+    the scheduler's steps, between two serial loops and beside the bare
+    forward (ABBA: serial, service, service, serial)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.serving import BatchingService
+    from simpleinfer_tpu_torch.zoo.detect import decode_device
+
+    mb = SERVING["max_batch"]
+    sweep = bucket_sweep(device, eng, in_name, canvases,
+                         SERVING_SWEEP if device.type == "cuda" else (1, 2))
+    pipe = pipeline_check(device, eng, canvases) \
+        if device.type == "cuda" else None
+    svc = BatchingService(eng, max_batch=mb,
+                          device_postprocess=decode_device).start()
+    try:
+        for f in [svc.submit(c) for c in canvases * 2]:       # warm
+            f.result(timeout=600)
+        # 8 canvases submitted together: one b8 batch, the serial rows
+        b8 = svc.stats.per_bucket.get(mb)
+        b8_before = (svc.stats.batches, b8.batches if b8 else 0)
+        with Recorder({"matmul_int8w": kmm}, keep={
+                "matmul_int8w": lambda *a, **kw: 1}) as rec:
+            got = np.stack([f.result(timeout=600) for f in
+                            [svc.submit(c) for c in canvases[:mb]]])
+        one_batch = (svc.stats.batches - b8_before[0] == 1
+                     and svc.stats.per_bucket[mb].batches
+                     - b8_before[1] == 1)
+        calls_per_forward = len(rec.calls["matmul_int8w"])
+        eng.input(in_name, np.stack(canvases[:mb]))
+        eng.forward()
+        want = decode_device(eng.extract(out_name, as_numpy=False)
+                             ).cpu().numpy()
+        rows = decoded_rows_vs(got, want)
+        correct = {"phase": "serving_correct", "one_b8_batch": one_batch,
+                   "matmul_int8w_calls_per_forward": calls_per_forward,
+                   "vs_serial_rows": rows}
+        emit(correct)
+        if not (one_batch and rows["equal"] and rows["kept_rows"] >= mb):
+            raise AssertionError(f"service vs serial loop: {correct}")
+        if calls_per_forward != YOLOV5S_POINTWISE:
+            raise AssertionError(f"{calls_per_forward} matmul_int8w calls "
+                                 f"in the service's forward, expected "
+                                 f"{YOLOV5S_POINTWISE}")
+        serial, service = [], []
+        for turn in ("serial", "service", "service", "serial"):
+            if turn == "serial":
+                serial.append(serial_loop(eng, in_name, out_name, canvases,
+                                          n, mb, decode_device))
+                continue
+            kmm.launches = 0
+            with SchedulerSteps(svc) as steps:
+                run = service_load(svc, canvases, n)
+            run["matmul_int8w_launches"] = kmm.launches
+            run["scheduler"] = steps.report()
+            service.append(run)
+            if device.type == "cuda" and \
+                    kmm.launches != YOLOV5S_POINTWISE * run["batches"]:
+                raise AssertionError(
+                    f"{kmm.launches} matmul_int8w launches in "
+                    f"{run['batches']} service batches, expected "
+                    f"{YOLOV5S_POINTWISE} a forward")
+    finally:
+        svc.stop()
+    bare = None
+    if device.type == "cuda":
+        t = forward_times(eng, {in_name: np.stack(canvases[:mb])})
+        bare = {"median_ms": t["median_ms"],
+                "img_per_s": mb * 1e3 / t["median_ms"]}
+    serial_ips = statistics.mean(r["img_per_s"] for r in serial)
+    service_ips = statistics.mean(r["img_per_s"] for r in service)
+    res = {"phase": "serving", "model": "yolov5s", "compute": "bfloat16",
+           "quant": "int8w", "max_batch": mb, "requests": n,
+           "service": service, "serial_loop": serial,
+           "bare_forward": bare, "service_img_per_s": service_ips,
+           "serial_img_per_s": serial_ips,
+           "service_over_serial": service_ips / serial_ips,
+           "spill_budget_from_sweep": sweep["spill_budget_from_sweep"]}
+    emit(res)
+    launches = service[-1]["matmul_int8w_launches"]
+    kernels.setdefault("matmul_int8w", {})["serving"] = {
+        "launches": launches,
+        "launches_per_forward": launches / max(service[-1]["batches"], 1)}
+    res.update(sweep=sweep, pipeline=pipe, correct=correct)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def http_client(url, n, conns, seed, out_q) -> None:
+    """The load generator of `serving_http`, run in its own process
+    (multiprocessing, spawn; http.client and numpy only): `conns`
+    keep-alive connections post one warm-up image each, then n seeded
+    uint8 images of mixed sizes (DETECT_SIZES, cycled) as .npy to
+    /v1/detect, connection c posting images c, c + conns, ...; puts the
+    statuses, latencies (ms), detection counts and the load's wall time
+    on `out_q`."""
+    import http.client
+    import io
+    import threading
+    from urllib.parse import urlsplit
+
+    rng = np.random.default_rng(seed)
+    bodies = []
+    for i in range(n):
+        h, w = DETECT_SIZES[i % len(DETECT_SIZES)]
+        buf = io.BytesIO()
+        np.save(buf, rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                allow_pickle=False)
+        bodies.append(buf.getvalue())
+    host = urlsplit(url)
+    res = {"status": [None] * n, "ms": [None] * n, "count": [None] * n,
+           "warm_status": [None] * conns}
+    start = threading.Barrier(conns + 1, timeout=900)
+
+    def post(conn, body):
+        conn.request("POST", "/v1/detect", body=body,
+                     headers={"Content-Type": "application/x-npy"})
+        r = conn.getresponse()
+        return r.status, r.read()
+
+    def worker(c):
+        conn = http.client.HTTPConnection(host.hostname, host.port,
+                                          timeout=900)
+        try:
+            res["warm_status"][c] = post(conn, bodies[c])[0]
+            start.wait()
+            for i in range(c, n, conns):
+                t = time.perf_counter()
+                status, data = post(conn, bodies[i])
+                res["ms"][i] = (time.perf_counter() - t) * 1e3
+                res["status"][i] = status
+                if status == 200:
+                    res["count"][i] = json.loads(data)["count"]
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, args=(c,))
+               for c in range(conns)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    res["wall_s"] = time.perf_counter() - t0
+    out_q.put(res)
+
+
+def run_http_client(url, n, conns, seed) -> dict:
+    """http_client in a spawned process; its result, the process
+    joined."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=http_client, args=(url, n, conns, seed, q),
+                       daemon=True)
+    added = HERE not in sys.path         # the child imports this module
+    if added:
+        sys.path.insert(0, HERE)
+    try:
+        proc.start()
+    finally:
+        if added:
+            sys.path.remove(HERE)
+    import queue
+
+    try:
+        deadline = time.perf_counter() + 900
+        while time.perf_counter() < deadline:
+            try:
+                return q.get(timeout=1)
+            except queue.Empty:
+                if not proc.is_alive():
+                    raise RuntimeError(f"the HTTP client process exited "
+                                       f"({proc.exitcode}) with no result")
+        raise TimeoutError("the HTTP client process gave no result")
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=30)
+
+
+def parse_metrics(text) -> dict:
+    """Prometheus text exposition -> {series: value}; raises on a line
+    that is neither a comment nor `series value`."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def serving_http_phase(device, eng, in_name, out_name, canvases,
+                       service_ips=None, n=SERVING["http_requests"],
+                       conns=SERVING["http_connections"]) -> dict:
+    """InferenceServer over a fresh BatchingService of the same engine:
+    the client process's load on /v1/detect with the scheduler's steps,
+    then the checks (every reply 200; /v1/stats' requests and per-bucket
+    items equal to the posts; one image alone equals detect_images of it
+    on the same engine; /metrics parses), and detect_images at b8 in the
+    same run with its letterbox share beside what the service hid."""
+    import io
+    import urllib.request
+
+    import torch
+    from simpleinfer_tpu_torch.serving import BatchingService, InferenceServer
+    from simpleinfer_tpu_torch.zoo.detect import decode_device, detect_images
+
+    mb = SERVING["max_batch"]
+    image = canvases[0].shape[0]
+    svc = BatchingService(eng, max_batch=mb,
+                          device_postprocess=decode_device).start()
+    server = InferenceServer(svc, port=0).start()
+    url = "http://%s:%d" % server.address[:2]
+    try:
+        with SchedulerSteps(svc) as steps:
+            load = run_http_client(url, n, conns, SERVING["seed"])
+        with urllib.request.urlopen(url + "/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = parse_metrics(r.read().decode())
+        img = seeded_images(seed=7, sizes=DETECT_SIZES[1:2])[0]
+        body = io.BytesIO()
+        np.save(body, img, allow_pickle=False)
+        req = urllib.request.Request(
+            url + "/v1/detect", data=body.getvalue(),
+            headers={"Content-Type": "application/x-npy"})
+        b1 = svc.stats.per_bucket.get(1)
+        b1_before = b1.batches if b1 else 0
+        with urllib.request.urlopen(req, timeout=600) as r:
+            alone = json.loads(r.read())["detections"]
+        alone_b1 = svc.stats.per_bucket[1].batches - b1_before \
+            if 1 in svc.stats.per_bucket else 0
+    finally:
+        server.stop()
+        svc.stop(drain=False)
+    want = detect_images(eng, [img], size=image, device_decode=True)[0]
+    got = np.array([d["box"] + [d["score"], d["class_id"]] for d in alone],
+                   np.float32).reshape(-1, 6)
+    ref = np.array([list(d.box) + [d.score, d.class_id] for d in want],
+                   np.float32).reshape(-1, 6)
+    alone_vs = decoded_rows_vs([got], [ref])
+    sent = n + conns
+    statuses = load["status"] + load["warm_status"]
+    bucket_items = sum(v["items"] for v in stats["per_bucket"].values())
+    lb = detect_breakdown(eng, seeded_images(), "v5", image, True, False,
+                          DETECT_REPS)
+    letterbox_ms_img = lb["ms_per_batch"]["letterbox_host"] / mb
+    http_ips = n / load["wall_s"]
+    res = {"phase": "serving_http", "requests": n, "connections": conns,
+           "img_per_s": http_ips, "latency": _ms_stats(load["ms"]),
+           "p50_ms": statistics.median(load["ms"]),
+           "detections": sum(c or 0 for c in load["count"]),
+           "non_200": sum(s != 200 for s in statuses),
+           "stats_requests": stats["requests"],
+           "stats_bucket_items": bucket_items, "sent": sent,
+           "batches_per_bucket": {b: v["batches"] for b, v in
+                                  stats["per_bucket"].items()},
+           "mean_occupancy": stats["mean_batch_occupancy"],
+           "scheduler": steps.report(),
+           "metrics_requests": metrics.get("si_requests_total"),
+           "alone_bucket_1_batches": alone_b1,
+           "alone_vs_detect_images": alone_vs,
+           "detect_images_b8": {k: lb[k] for k in (
+               "img_per_s", "detect_images_ms", "ms_per_batch")},
+           "letterbox_ms_per_image_in_detect_images": letterbox_ms_img,
+           "letterbox_share_of_detect_images":
+               lb["ms_per_batch"]["letterbox_host"] / lb["detect_images_ms"],
+           "http_ms_per_image": 1e3 / http_ips}
+    if service_ips:
+        # what the letterbox adds to the service per image, at most: the
+        # HTTP load's time per image over the in-process load's (which
+        # submits canvases already letterboxed); the HTTP and JSON work
+        # is in it too
+        extra = 1e3 / http_ips - 1e3 / service_ips
+        res.update(inproc_service_ms_per_image=1e3 / service_ips,
+                   http_extra_ms_per_image=extra,
+                   letterbox_hidden_at_least=max(
+                       0.0, 1.0 - extra / letterbox_ms_img))
+    emit(res)
+    if res["non_200"] or stats["requests"] != sent or bucket_items != sent:
+        raise AssertionError(f"serving_http: replies or stats: {res}")
+    if not alone_vs["equal"] or alone_b1 != 1:
+        raise AssertionError(f"one image alone vs detect_images: {res}")
+    if metrics.get("si_requests_total") != sent:
+        raise AssertionError(f"/metrics: {metrics}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def serving_rehearsal(device, image=64, n=24, http_n=12, conns=3) -> dict:
+    """The serving phases at a tiny size (the CPU tests run them)."""
+    kernels: dict = {}
+    eng, in_name, out_name, canvases = serving_engine(device, image)
+    run = serving_phase(device, kernels, eng, in_name, out_name, canvases,
+                        n=n)
+    http = serving_http_phase(device, eng, in_name, out_name, canvases,
+                              run["service_img_per_s"], n=http_n,
+                              conns=conns)
+    return {"serving": run, "serving_http": http, "kernels": kernels}
+
+
 # ---- driver -------------------------------------------------------------
 PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
-          "segment", "yolo_int8", "conv_kernels", "resnet_int8",
-          "llama_kernels", "llama_service", "llama_onoff", "llama_fp32")
+          "segment", "serving", "serving_http", "yolo_int8", "conv_kernels",
+          "resnet_int8", "llama_kernels", "llama_service", "llama_onoff",
+          "llama_fp32")
 
 
 def main(argv=None) -> int:
@@ -3759,6 +4355,17 @@ def main(argv=None) -> int:
         engine_warmup_phase(device)
     if "segment" in phases:
         segment_phase(device, kernels)
+        torch.cuda.empty_cache()
+    if {"serving", "serving_http"} & set(phases):
+        eng, in_name, out_name, canvases = serving_engine(device,
+                                                          DETECT["image"])
+        ips = None
+        if "serving" in phases:
+            ips = serving_phase(device, kernels, eng, in_name, out_name,
+                                canvases)["service_img_per_s"]
+        if "serving_http" in phases:
+            serving_http_phase(device, eng, in_name, out_name, canvases, ips)
+        del eng, canvases
         torch.cuda.empty_cache()
 
     if "yolo_int8" in phases:

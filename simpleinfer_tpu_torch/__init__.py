@@ -15,9 +15,13 @@ serving.GenerationService — with `matmul_int4w`, `flash_attention` and
 `decode_attention` as CUDA kernels; and static int8 (calibration, int8
 chains, per-channel folding) with the C3 collapse — with `matmul_s8s8`
 and `c3_block` as CUDA kernels; the CNN classification family with
-`conv3x3_s1_same` and `stem_s2d`; and the detection pipeline (zoo/detect,
+`conv3x3_s1_same` and `stem_s2d`; the detection pipeline (zoo/detect,
 YOLOv5 and YOLOv8 heads, NMS on the device), segmentation, metrics,
-image I/O and the native host library (host.py).
+image I/O and the native host library (host.py); and CNN serving:
+serving.BatchingService (buckets, the pipelined dispatch, engine pools),
+the HTTP front end serving.InferenceServer, and the command line
+(`python -m simpleinfer_tpu_torch dump|detect|classify|segment|calibrate|
+serve`, tools.py).
 """
 from .config import EngineConfig
 from .engine import Engine, EngineStateError, initialize_context

@@ -5,7 +5,8 @@ The counterpart of simpleinfer_tpu/engine.py, with the same surface:
     Engine.load_model(parampath, binpath, graph=...)
     Engine.release()
     Engine.input_names / output_names / program
-    Engine.input(name, array)      (dtype policy, u8 scaling, io_layout)
+    Engine.input(name, array)      (dtype policy, u8 scaling, io_layout;
+                                    a pinned tensor is copied async)
     Engine.forward()
     Engine.extract(name)
     Engine.run(**inputs)
@@ -156,9 +157,12 @@ class Engine:
     # ---- run-time calls --------------------------------------------------
     def input(self, name: str, array) -> None:
         """Stage one named input (numpy array or torch tensor) on the
-        engine's device at the compute dtype. Arrays are NHWC by default;
-        with io_layout='nchw' rank-4 arrays are permuted here. uint8
-        arrays are shipped raw and scaled on the device by u8_scale.
+        engine's device at the compute dtype. A pinned CPU tensor is
+        copied without the host waiting for the copy; a numpy array or a
+        pageable tensor is copied before this returns. Arrays are NHWC
+        by default; with io_layout='nchw' rank-4 arrays are permuted
+        here. uint8 arrays are shipped raw and scaled on the device by
+        u8_scale.
         Token-id inputs (consumed only by nn.Embedding, e.g. [N, L] ids
         of an LM) are staged as float32, which holds every id below 2^24
         exactly (bf16 would round ids above 256)."""
@@ -176,6 +180,12 @@ class Engine:
         spec = next(s for s in self._program.inputs if s.name == name)
         dtype = torch.float32 if spec.token else \
             self.config.compute_torch_dtype
+        if self.device.type == "cuda" and x.is_pinned():
+            # queued behind the work already on the stream, the host not
+            # waiting for it (a pageable copy would); the dtype converts
+            # on the card (the pinned block is freed only once the copy
+            # has run: the caching host allocator records it)
+            x = x.to(self.device, non_blocking=True)
         if x.dtype == torch.uint8 and not spec.token:
             x = x.to(self.device).to(dtype) * self.config.u8_scale
         else:

@@ -52,6 +52,12 @@ COCO_NAMES = (
 # the class offset of class-wise NMS: boxes of different classes never
 # overlap once shifted by class_id * CLASS_OFFSET px
 CLASS_OFFSET = 4096.0
+# nms_rounds' rounds between two host reads of convergence. On an H100
+# the random-weight YOLOv5s-640-b8 head settles in 4 rounds and YOLOv8s
+# in 14 (the longest suppression chain, chip_smoke.py's detect_v5 /
+# detect_v8): 4 gives a YOLOv5s batch one host wait, YOLOv8s four, and
+# costs at most 3 spare rounds (one batched product each)
+NMS_ROUNDS_PER_CHECK = 4
 
 
 @dataclass
@@ -291,12 +297,19 @@ def nms_rounds(boxes, scores, iou_thresh: float = 0.45):
     valid = torch.gather(scores, 1, order) >= 0
     keep, rounds = valid, 0
     while True:
-        rounds += 1
-        hit = torch.bmm(keep.to(torch.float32)[:, None, :], sup)[:, 0]
-        new = valid & (hit == 0)
-        if torch.equal(new, keep):   # the fixed point: greedy's keep set
-            return order, keep, rounds
-        keep = new
+        # NMS_ROUNDS_PER_CHECK rounds, then one host read: a fixed point
+        # stays fixed, so rounds past it change nothing, and the round
+        # that reached it is the first that left `keep` as it found it
+        seen = [keep]
+        for _ in range(NMS_ROUNDS_PER_CHECK):
+            hit = torch.bmm(seen[-1].to(torch.float32)[:, None, :], sup)[:, 0]
+            seen.append(valid & (hit == 0))
+        s = torch.stack(seen).flatten(1)
+        same = (s[1:] == s[:-1]).all(dim=1).tolist()   # the host waits
+        if same[-1]:                 # the fixed point: greedy's keep set
+            return order, seen[-1], rounds + same.index(True) + 1
+        rounds += NMS_ROUNDS_PER_CHECK
+        keep = seen[-1]
 
 
 def _compact(order, keep, max_keep: int):

@@ -759,3 +759,128 @@ def test_engine_temp_bytes_on_card(cuda):
     eng.warmup((1, 2, 4))
     t = [eng.temp_bytes(b) for b in (1, 2, 4)]
     assert 0 < t[0] < t[1] < t[2]
+
+
+# ---- the CNN service's host waits (serving/batcher.py, Engine.input) -----
+# a queued kernel of ~0.2 s at H100 clocks: far longer than the host work
+# of a small model's input, dispatch or resolve
+SPIN_CYCLES = 400_000_000
+
+
+def _yolo_n(cuda, compute="bfloat16"):
+    g, in_name, out_name = build_yolov5("n", batch=1, image_size=64)
+    eng = Engine(EngineConfig(compute_dtype=compute, quant="int8w"))
+    return eng.load_model(None, graph=g), in_name, out_name
+
+
+@pytest.mark.cuda
+def test_engine_input_of_a_pinned_tensor_does_not_wait(cuda):
+    """Engine.input of a pinned tensor is queued behind the work on the
+    stream and returns while it runs; a numpy array's copy waits for it.
+    Both stage the same values."""
+    eng, in_name, out_name = _yolo_n(cuda)
+    x = np.random.default_rng(0).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32)
+    pinned = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+    pinned.numpy()[:] = x
+    eng.input(in_name, pinned)
+    eng.forward()
+    torch.cuda.synchronize()
+    for arr, waits in ((pinned, False), (x, True)):
+        eng.forward()
+        torch.cuda._sleep(SPIN_CYCLES)
+        mark = torch.cuda.Event()
+        mark.record()
+        eng.input(in_name, arr)
+        assert mark.query() is waits
+        torch.cuda.synchronize()
+        staged = eng._staged[in_name]
+        assert staged.dtype == torch.bfloat16
+        assert torch.equal(staged.cpu(), torch.from_numpy(x).bfloat16())
+
+
+@pytest.mark.cuda
+def test_dispatch_and_resolve_do_not_wait_for_later_batches(cuda):
+    """BatchingService on the card: _dispatch returns while its forward
+    is still queued behind a long kernel, and _resolve(N) waits on batch
+    N's event only, not on batch N + 1's forward (still queued when it
+    returns); each future gets its own batch's rows (fp32: within
+    1e-4 x scale of one forward over all items)."""
+    from simpleinfer_tpu_torch.serving import BatchingService, Request
+
+    eng, in_name, out_name = _yolo_n(cuda, "float32")
+    rng = np.random.default_rng(1)
+    items = [rng.standard_normal((64, 64, 3)).astype(np.float32) / 3
+             for _ in range(8)]
+    svc = BatchingService(eng, max_batch=4)
+    for it in items + items[:4]:
+        svc._q.put(Request(it))
+    warm, first, second = svc._gather(), svc._gather(), svc._gather()
+    svc._resolve(svc._dispatch(warm, 0))
+    a = svc._dispatch(first, 0)
+    torch.cuda._sleep(SPIN_CYCLES)
+    b = svc._dispatch(second, 0)
+    assert a[2] is not None and not b[2].query()
+    svc._resolve(a)
+    assert not b[2].query()
+    svc._resolve(b)
+    want = eng.run({in_name: np.stack(items)})[out_name]
+    for reqs, rows in ((first, want[4:]), (second, want[:4])):
+        got = np.stack([r.future.result(timeout=60) for r in reqs])
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, rows, atol=1e-4 * max(
+            1.0, float(np.abs(rows).max())), rtol=1e-4)
+
+
+def _nms_rounds_per_round(boxes, scores, iou_thresh=0.45):
+    """nms_rounds as it was with a host check after every round."""
+    order = torch.sort(-scores, dim=-1, stable=True).indices
+    b = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    x1 = torch.maximum(b[:, :, None, 0], b[:, None, :, 0])
+    y1 = torch.maximum(b[:, :, None, 1], b[:, None, :, 1])
+    x2 = torch.minimum(b[:, :, None, 2], b[:, None, :, 2])
+    y2 = torch.minimum(b[:, :, None, 3], b[:, None, :, 3])
+    inter = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    area = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    iou = inter / torch.clamp(area[:, :, None] + area[:, None, :] - inter,
+                              min=1e-9)
+    k = scores.shape[-1]
+    above = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    sup = ((iou > iou_thresh) & above).to(torch.float32)
+    valid = torch.gather(scores, 1, order) >= 0
+    keep, rounds = valid, 0
+    while True:
+        rounds += 1
+        hit = torch.bmm(keep.to(torch.float32)[:, None, :], sup)[:, 0]
+        new = valid & (hit == 0)
+        if torch.equal(new, keep):
+            return order, keep, rounds
+        keep = new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["v5", "v8"])
+def test_nms_rounds_checked_every_few_rounds_equals_per_round_on_card(
+        cuda, head):
+    """nms_rounds with a host check every NMS_ROUNDS_PER_CHECK rounds
+    gives the per-round loop's order, keep flags and round count, bit
+    for bit, on the planted head's class-offset boxes."""
+    from simpleinfer_tpu_torch.zoo import detect
+
+    pred = torch.from_numpy(_planted_head(2, 4000, 80, 5, head)).to(cuda)
+    p = pred.float()
+    cls = p[..., 4:] if head == "v8" else p[..., 5:] * p[..., 4:5]
+    score, cid = cls.amax(-1), cls.argmax(-1)
+    score = torch.where(score >= 0.25, score, torch.full_like(score, -1.0))
+    score, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    score, idx = score[:, :1024], idx[:, :1024]
+    xywh = torch.gather(p[..., :4], 1, idx[..., None].expand(-1, -1, 4))
+    half = xywh[..., 2:] / 2
+    boxes = torch.cat([xywh[..., :2] - half, xywh[..., :2] + half], -1)
+    boxes = boxes + torch.gather(cid, 1, idx)[..., None].float() * \
+        detect.CLASS_OFFSET
+    got = detect.nms_rounds(boxes, score)
+    want = _nms_rounds_per_round(boxes, score)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] == want[2] >= 2
+    assert int(got[1].sum()) >= 100

@@ -458,6 +458,30 @@ def test_nms_rounds_are_the_chain_length_not_k():
         [int(i) for i in np.asarray(want) if i >= 0]
 
 
+@pytest.mark.parametrize("head", ["v5", "v8"])
+def test_nms_rounds_checked_every_few_rounds_equals_per_round(head,
+                                                              monkeypatch):
+    """A host check every NMS_ROUNDS_PER_CHECK rounds (2, 3, 4, 16)
+    gives the order, keep flags and round count of a check after every
+    round, bit for bit, on the planted head's class-offset boxes: a
+    fixed point stays fixed."""
+    pred = torch.from_numpy(planted_head(m=3000, seed=4, head=head))
+    cls = pred[..., 4:] if head == "v8" else pred[..., 5:] * pred[..., 4:5]
+    score, cid = cls.amax(-1), cls.argmax(-1)
+    score = torch.where(score >= 0.25, score, torch.full_like(score, -1.0))
+    half = pred[..., 2:4] / 2
+    boxes = torch.cat([pred[..., :2] - half, pred[..., :2] + half], -1) + \
+        cid[..., None].float() * T.CLASS_OFFSET
+    monkeypatch.setattr(T, "NMS_ROUNDS_PER_CHECK", 1)
+    want = T.nms_rounds(boxes, score)
+    assert want[2] >= 3 and int(want[1].sum()) >= 100
+    for every in (2, 3, 4, 16):
+        monkeypatch.setattr(T, "NMS_ROUNDS_PER_CHECK", every)
+        got = T.nms_rounds(boxes, score)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2] == want[2]
+
+
 # ---- detect_images end to end --------------------------------------------
 def _engines(head, batch=2, image=64):
     if head == "v8":

@@ -132,7 +132,8 @@ def test_every_kernel_source_is_built_and_counted():
 
 @pytest.mark.parametrize("module", [
     "host.py", "ir/codegen.py", "zoo/detect.py", "zoo/metrics.py",
-    "zoo/imageio.py", "zoo/segment.py", "ops/yolo.py", "engine.py"])
+    "zoo/imageio.py", "zoo/segment.py", "ops/yolo.py", "engine.py",
+    "serving/batcher.py", "serving/http.py", "tools.py", "__main__.py"])
 def test_new_modules_are_checked(module):
     """The slice's modules are among the files test_no_jax_imports
     reads."""
