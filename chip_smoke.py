@@ -157,7 +157,31 @@ Phases, each printing JSON lines:
    within limits set between the sound reading and a fault's
    (scripts/torch_onoff_control.py --resnet), top-1 agreement reported;
    classify_images top-5 of 8 seeded 256x320 images; fp32 ResNet-18 on
-   the card vs the CPU port.
+   the card vs the CPU port;
+11. `gpt2`: GPT-2 small (GPT_PRESETS["small"], 1024 positions, vocab
+   50257) bf16 int4w served by GenerationService(slots=16, KV bf16), 48
+   greedy requests (prompts 32–960, 64 new tokens each) as streams:
+   TTFT, decode and output tokens/s, the launches of matmul_int4w, the
+   causal flash kernel and decode_attention (each above 0); each kernel
+   against its plain version at the recorded shapes and timed there;
+   the service's tokens for 4 prompts equal to a solo decode; kernels
+   on vs off, each against an fp32 yardstick; fp32 on the card vs the
+   CPU port at depth 2;
+12. `llama_swa`: llama "base" with every layer sliding over 512
+   positions, bf16 int4w, served the same way with prompts of
+   1100–1900 tokens: the banded flash kernel's launches (16 a wave on
+   the 2048 rung), no decode_attention (kernel_ok); the ring caches'
+   bytes against full windows; the wave's banded kernel against the
+   torch banded path, SDPA with the band mask and the band's bound;
+   service vs solo tokens; kernels on vs off; the band gate's sweep
+   (L 512–4096, bands 256–1024, [4, 32, L, 64] bf16);
+13. `attn_variants`: the gemma2-ish llama (attn_scale, softcap 50,
+   sliding 512 on alternate layers) at llama-base width and BLOOM at
+   bloom-560m widths (ALiBi), 2 layers each: bf16 int4w against fp32, a
+   short service run with no decode_attention launch, fp32 on the card
+   vs the CPU port; ViT-B/16-224 and BERT-base-128 bf16 int8w kernels
+   on vs off with matmul_int8w's launches a forward (one per
+   nn.Linear) and the kernel against its plain version there.
 
 The line before the last two is the card's nvidia-smi name and power
 limit, then {"kernels": [...]}, then {"ok": true, "device": {...}}. Any
@@ -2129,7 +2153,8 @@ def _decode_case(gen, device, n, kvh, g, length, d, q_dtype, cache):
     return q, k.to(dt), v.to(dt)
 
 
-def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
+def llama_kernel_checks(device, main_shapes=None, seed=3, ragged=True,
+                        phase="llama_kernel_vs_plain") -> dict:
     """matmul_int4w, flash_attention and decode_attention against their
     plain versions on `device`: at the main path's shapes (recorded from
     the service run, when given) and at ragged ones; f32 and bf16;
@@ -2137,8 +2162,9 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
     edges of the split's shares, with a max_len under L, bf16, f32 and
     int8 leaves, and at the service's decode shape (16 rows, L 2048),
     every decode case run twice on the card and required bit-equal;
-    flash causal, non-causal and banded. Returns the largest max-abs
-    error of each kernel at the main path's configuration."""
+    flash causal, non-causal and banded (`ragged`=False: the main
+    path's shapes only). Returns the largest max-abs error of each
+    kernel at the main path's configuration."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import attention as kattn
@@ -2168,11 +2194,11 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
     cases = [(m, k, n, xd, od, b, a, True)
              for (m, k, n, xd, od, b, a) in main_shapes.get("matmul_int4w",
                                                             [])]
-    ragged = [(1, 200, 70, 128), (37, 129, 131, 64), (100, 256, 50, 128),
-              (17, 384, 96, 128), (16, 2048, 33, 128), (64, 130, 64, 32)]
+    ragged_mm = [(1, 200, 70, 128), (37, 129, 131, 64), (100, 256, 50, 128),
+                 (17, 384, 96, 128), (16, 2048, 33, 128), (64, 130, 64, 32)]
     if device.type == "cuda":   # the down projection's K, the MLP's N
-        ragged.append((17, 5456, 5456, 128))
-    for (m, k, n, group) in ragged:
+        ragged_mm.append((17, 5456, 5456, 128))
+    for (m, k, n, group) in (ragged_mm if ragged else []):
         for xd in ("float32", "bfloat16"):
             cases.append((m, k, n, xd, "float32", True, "silu", False,
                           group))
@@ -2194,9 +2220,10 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
         del x, q, bias
 
     # flash_attention: (B, H, Lq, Lk, D, dtype, causal, window, main?)
-    fcases = [(b, h, l, l, d, dt, True, None, True)
-              for (b, h, l, d, dt) in main_shapes.get("flash_attention", [])]
-    for dt in ("float32", "bfloat16"):
+    fcases = [(b, h, l, l, d, dt, causal, sw, True)
+              for (b, h, l, d, dt, causal, sw)
+              in main_shapes.get("flash_attention", [])]
+    for dt in ("float32", "bfloat16") if ragged else ():
         fcases += [(2, 3, 100, 100, 24, dt, True, None, False),
                    (1, 4, 77, 130, 64, dt, False, None, False),
                    (2, 2, 300, 300, 64, dt, True, 50, False),
@@ -2204,7 +2231,7 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
                    (1, 2, 129, 129, 256, dt, True, None, False)]
         if device.type == "cuda":   # the main path's width, banded
             fcases.append((1, 32, 2048, 2048, 64, dt, True, 256, False))
-    if device.type == "cuda":       # head_dim 128 at the main width
+    if ragged and device.type == "cuda":   # head_dim 128, main width
         fcases.append((1, 8, 2048, 2048, 128, "bfloat16", True, None, False))
     for (b, h, lq, lk, d, dt, causal, sw, main) in fcases:
         dtype = getattr(torch, dt)
@@ -2230,7 +2257,7 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
     dcases = [(n, kv, g, l, d, qd, c, lens, None, True)
               for (n, kv, g, l, d, qd, c, lens) in main_shapes.get(
                   "decode_attention", [])]
-    for c in ("bfloat16", "float32", "int8"):
+    for c in ("bfloat16", "float32", "int8") if ragged else ():
         for qd in ("bfloat16", "float32"):
             dcases.append((6, 8, 4, 2048, 64, qd, c,
                            [0, 1, 63, 64, 65, 2048], None, False))
@@ -2243,7 +2270,7 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
                        [0, 999, 1000, 517], 1000, False))
         dcases.append((3, 2, 3, 100, 24, "float32", c, [0, 37, 100], None,
                        False))
-    if device.type == "cuda":   # the llama service's decode shape
+    if ragged and device.type == "cuda":   # the llama service's decode
         dcases.append((16, 8, 4, 2048, 64, "bfloat16", "bfloat16",
                        np.random.default_rng(seed).integers(
                            1, 2049, 16).tolist(), None, False))
@@ -2276,7 +2303,7 @@ def llama_kernel_checks(device, main_shapes=None, seed=3) -> dict:
                 failures.append(dict(kernel="decode_attention", case=case,
                                      rerun="not bit-equal"))
         del q, k_leaf, v_leaf
-    emit({"phase": "llama_kernel_vs_plain", "checks": n_checks,
+    emit({"phase": phase, "checks": n_checks,
           "decode_reruns_bit_equal": reruns,
           "failures": failures[:10], "n_failures": len(failures),
           "atol": f"{KERNEL_ATOL}*max(1,|ref|)",
@@ -2367,7 +2394,8 @@ def llama_recorder() -> Recorder:
                 bias is not None, activation)
 
     def flash(q, k, v, **kw):
-        return (*map(int, q.shape), str(q.dtype)[6:])
+        return (*map(int, q.shape), str(q.dtype)[6:],
+                bool(kw.get("causal", False)), kw.get("sliding_window"))
 
     def decode(q, k_leaf, v_leaf, lengths, **kw):
         k = k_leaf[0] if isinstance(k_leaf, tuple) else k_leaf
@@ -2389,14 +2417,27 @@ def llama_prompts(n, lo, hi, vocab, seed=0) -> list:
     return [rng.integers(0, vocab, int(p)) for p in lens]
 
 
+def vocab_of(engine) -> int:
+    """The vocabulary of a causal-LM engine: its nn.Embedding's rows."""
+    (name,) = [impl.name for impl in engine.program.impls
+               if impl.type == "nn.Embedding"]
+    return int(engine.program.weights[name]["weight"].shape[0])
+
+
+LM_KERNELS = ("matmul_int4w", "flash_attention", "decode_attention")
+
+
 def service_run(engine, device, n_requests=N_REQUESTS,
                 prompt_range=PROMPT_RANGE, max_new=MAX_NEW, seed=0,
+                phase="llama_service", expect=LM_KERNELS, absent=(),
                 **service_kw) -> dict:
     """The main path: `n_requests` greedy requests (seeded prompt lengths
     uniform in `prompt_range`, max_new each, no eos) submitted at once to
     a GenerationService over `engine`, consumed as streams. Every kernel
     count is set to 0 just before and read just after; a Recorder notes
-    the shapes. Returns the metrics, the counts and the recorder."""
+    the shapes. On the card, each kernel of `expect` must have launched
+    and none of `absent`. Returns the metrics, the counts, the recorder,
+    the prompts and the service's outputs."""
     import threading
 
     import torch
@@ -2405,8 +2446,7 @@ def service_run(engine, device, n_requests=N_REQUESTS,
     from simpleinfer_tpu_torch.kernels import matmul as kmm
     from simpleinfer_tpu_torch.serving import GenerationService
 
-    vocab = engine.program.weights[engine.program.plan[0][0].name][
-        "weight"].shape[0]
+    vocab = vocab_of(engine)
     prompts = llama_prompts(n_requests, *prompt_range, vocab, seed)
     svc = GenerationService(engine, **{**SERVICE, **service_kw})
     t0 = time.perf_counter()
@@ -2478,7 +2518,7 @@ def service_run(engine, device, n_requests=N_REQUESTS,
     # time outside admission prefills
     decode_tokens = sum(c - 1 for c in counts)
     long_prompts = sum(len(p) > 1024 for p in prompts)
-    res = {"phase": "llama_service", "requests": n_requests,
+    res = {"phase": phase, "requests": n_requests,
            "prompt_lengths": [int(min(map(len, prompts))),
                               int(max(map(len, prompts)))],
            "prompts_over_1024": long_prompts, "max_new": max_new,
@@ -2495,12 +2535,14 @@ def service_run(engine, device, n_requests=N_REQUESTS,
                for k in rec.calls}}
     emit(res)
     if device.type == "cuda":
-        missing = [k for k in ("matmul_int4w", "flash_attention",
-                               "decode_attention") if launches[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: "
-                                 f"{missing}")
-    return {"res": res, "recorder": rec, "prompts": prompts}
+        missing = [k for k in expect if launches[k] == 0]
+        extra = [k for k in absent if launches[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"{phase}: kernels not launched on the "
+                                 f"main path: {missing}; launched where "
+                                 f"they must not be: {extra}")
+    return {"res": res, "recorder": rec, "prompts": prompts,
+            "results": results}
 
 
 def decode_step_profile(engine, device, lengths, k_steps=1, blocks=8,
@@ -2581,7 +2623,6 @@ def decode_slots_sweep(engine, device, lengths, slots=DECODE_SWEEP_SLOTS,
     _name, info = dec._mha_ops[0]
     heads, kvh, d = dec._geometry(info)
     layers = len(dec._mha_ops)
-    scale = dec._scale(info, d)
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     lengths = np.asarray(lengths)
@@ -2599,8 +2640,8 @@ def decode_slots_sweep(engine, device, lengths, slots=DECODE_SWEEP_SLOTS,
 
         def route(kernel):
             return lambda: dec._attend_frozen_scratch(
-                qh, (k, v), scr, 0, pos0, heads // kvh, scale,
-                torch.bfloat16, kernel)
+                qh, (k, v), scr, 0, pos0, pos0, info, torch.bfloat16,
+                kernel)
         with torch.inference_mode():    # ~20 torch calls a route
             t = {"slots": n,
                  "kernel_ms": layers * _time_ms(device, route(True), 10,
@@ -2632,8 +2673,9 @@ def main_shapes_of(rec) -> dict:
     shapes = {"matmul_int4w": [
         (m, k, n, xd, od, b, act) for (m, k, n, xd, od, b, act)
         in rec.count("matmul_int4w")],
-        "flash_attention": [(b, h, l, d, dt) for (b, h, l, d, dt)
-                            in rec.count("flash_attention")]}
+        "flash_attention": list(rec.count("flash_attention"))}
+    if not rec.decode_lengths:
+        return shapes
     lens = median_lengths(rec)
     shapes["decode_attention"] = [
         (n, kv, g, l, d, qd, cd, lens.tolist())
@@ -2650,7 +2692,7 @@ def median_lengths(rec):
 
 
 def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
-                       seed=5) -> dict:
+                       seed=5, prefix="") -> dict:
     """Each kernel's time at the main path's shapes beside its plain
     version's, a library call's and the bound (CUDA events, the L2
     flushed before each launch):
@@ -2720,11 +2762,12 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
                            if k[0] == slots}, 10)
     tot["launches_per_step"] = tot.pop("launches")
     out["matmul_int4w"] = tot
-    emit({"phase": "kernel_time_int4w", "unit": "one decode step",
+    emit({"phase": prefix + "kernel_time_int4w", "unit": "one decode step",
           **tot, "shapes": rows})
 
     # flash_attention per admission wave at the recorded shape
-    fkey = max(rec.count("flash_attention"),
+    fkey = max((k_ for k_ in rec.count("flash_attention")
+                if k_[5] and k_[6] is None),
                key=lambda k_: k_[0] * k_[2] ** 2)
     # matmul_int4w over the full-width projections of that wave (its
     # rows x width; waves at that M = its flash launches / layers)
@@ -2736,13 +2779,13 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     out["matmul_int4w_prefill"] = ptot
     for r in prows:     # one line per projection shape of the wave
         m, k, n = r["shape"]
-        emit({"phase": "kernel_time_int4w_prefill_shape", **r,
+        emit({"phase": prefix + "kernel_time_int4w_prefill_shape", **r,
               "tflops": 2.0 * m * k * n / (r["ms"] * 1e9),
               "library_tflops": 2.0 * m * k * n / (r["library_ms"] * 1e9)})
-    emit({"phase": "kernel_time_int4w_prefill",
+    emit({"phase": prefix + "kernel_time_int4w_prefill",
           "unit": "one admission wave's full-width projections",
           "rows": fkey[0], "width": fkey[2], **ptot, "shapes": prows})
-    b_, h_, l_, d_, dt = fkey
+    b_, h_, l_, d_, dt = fkey[:5]
     q, k, v = (torch.randn(b_, h_, l_, d_, generator=gen, device=device)
                .to(getattr(torch, dt)) for _ in range(3))
     pairs = l_ * (l_ + 1) // 2
@@ -2761,7 +2804,7 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
         {kk: v * per_wave for kk, v in one.items()},
         bound_by="bytes" if t_b >= t_o else "operations",
         launches_per_wave=per_wave, shape=list(fkey))
-    emit({"phase": "kernel_time_flash", "unit": "one admission wave",
+    emit({"phase": prefix + "kernel_time_flash", "unit": "one admission wave",
           **out["flash_attention"], "per_launch": one,
           "per_row_ms": out["flash_attention"]["ms"] / b_})
 
@@ -2802,101 +2845,120 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
         bound_by="bytes" if t_b >= t_o else "operations",
         launches_per_step=per_step, shape=list(dkey),
         mean_length=float(lens.float().mean()))
-    emit({"phase": "kernel_time_decode", "unit": "one decode step",
+    emit({"phase": prefix + "kernel_time_decode", "unit": "one decode step",
           **out["decode_attention"], "per_launch": one})
     return out
 
 
+def lm_prompts_window(engine, prompt_lens, seed=7):
+    """Seeded prompts of `prompt_lens` tokens, padded to the window:
+    (tokens [N, window] float, lengths [N])."""
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    window = CachedDecoder(engine)._window
+    vocab = vocab_of(engine)
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((len(prompt_lens), window), np.float32)
+    for i, p in enumerate(prompt_lens):
+        tokens[i, :p] = rng.integers(0, vocab, p)
+    return tokens, np.asarray(prompt_lens)
+
+
+def lm_logits(engine, device, tokens, lengths, decode_kernel) -> tuple:
+    """The prefill's last logits [N, V] and step 0 of a scratch decode
+    block's logits over that cache (the decoder's own block step, called
+    directly: on the decode kernel when `decode_kernel` is true and
+    CachedDecoder.kernel_ok allows it, else on torch), KV bf16 for a
+    bf16 engine and f32 for an fp32 one (TF32 off). Returns (last, step,
+    whether the step ran the decode kernel)."""
+    import torch
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    bf16 = engine.config.compute_dtype == "bfloat16"
+    dec = CachedDecoder(engine, scratch_blocks=True,
+                        kv_dtype=SERVICE["kv_dtype"] if bf16 else None)
+    n = len(lengths)
+    last, caches = dec.prefill(tokens, lengths)
+    scr = {}
+    for name, info in dec._mha_ops:
+        _, kvh, d = dec._geometry(info)
+        scr[name] = tuple(torch.zeros((n, kvh, 1, d), dtype=dec._kv_store,
+                                      device=device) for _ in range(2))
+    pos = torch.as_tensor(lengths, device=device)
+    tok = torch.as_tensor(tokens[np.arange(n), lengths - 1], device=device)
+    kernel = bool(decode_kernel and dec.kernel_ok)
+    with dec._mode():
+        step = dec._step_fn_scratch(tok[:, None], pos, caches, scr, 0, pos,
+                                    kernel)[:, 0, :]
+    return last, step, kernel
+
+
+def compare_logits(got, want) -> dict:
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max()))
+    d = (got - want).abs()
+    return {"max_abs_over_scale": float(d.max()) / scale,
+            "mean_abs_over_scale": float(d.mean()) / scale,
+            "scale": scale, "argmax_equal": int(
+                (got.argmax(-1) == want.argmax(-1)).sum())}
+
+
 def onoff(engine, engine_off, device, reference, seed=7,
-          prompt_lens=(2000, 1900)) -> dict:
+          prompt_lens=(2000, 1900), phase="llama_kernels_on_vs_off",
+          tol=(ONOFF_MAX_TOL, ONOFF_MEAN_TOL)) -> dict:
     """Kernels on vs off: `engine` (kernels on) against `engine_off`, an
     engine of the same graph with use_kernels=False (the ops' torch
     paths): the prefill's last logits at the full window (int4 kernel +
-    flash at width 2048 vs dense bf16 matmuls + unblocked attention),
+    flash at the window vs dense bf16 matmuls + unblocked attention),
     then one scratch decode-block step's logits over each side's cache
-    (int4 kernel + decode kernel vs the torch paths). `reference` is an
-    fp32 engine of the same weights (kernels on, TF32 off): each bf16
-    side's distance from it is reported too. Returns the readings;
-    `check_onoff` holds them to the limits."""
-    import torch
-    from simpleinfer_tpu_torch.engine import fp32_parity
-    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
-
-    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
-                        scratch_blocks=True, decode_attn="kernel")
-    dec_off = CachedDecoder(engine_off, kv_dtype=SERVICE["kv_dtype"],
-                            scratch_blocks=True, decode_attn="torch")
-    window = dec._window
-    vocab = engine.program.weights[engine.program.plan[0][0].name][
-        "weight"].shape[0]
-    rng = np.random.default_rng(seed)
-    n = len(prompt_lens)
-    tokens = np.zeros((n, window), np.float32)
-    for i, p in enumerate(prompt_lens):
-        tokens[i, :p] = rng.integers(0, vocab, p)
-    lengths = np.asarray(prompt_lens)
-
-    def block_step(dec, caches, kernel_attn):
-        # step 0 of a scratch decode block, with its logits: the
-        # decoder's own block step (zoo/generate.py), called directly
-        scr = {name: tuple(torch.zeros(
-            (n, info["num_kv_heads"], 1, info["head_dim"]),
-            dtype=dec._kv_store, device=device) for _ in range(2))
-            for name, info in dec._mha_ops}
-        pos = torch.as_tensor(lengths, device=device)
-        tok = torch.as_tensor(tokens[np.arange(n), lengths - 1],
-                              device=device)
-        with torch.inference_mode():
-            return dec._step_fn_scratch(tok[:, None], pos, caches, scr, 0,
-                                        pos, kernel_attn)[:, 0, :]
-
-    def compare(got, want):
-        got, want = got.float(), want.float()
-        scale = max(1.0, float(want.abs().max()))
-        d = (got - want).abs()
-        return {"max_abs_over_scale": float(d.max()) / scale,
-                "mean_abs_over_scale": float(d.mean()) / scale,
-                "scale": scale, "argmax_equal": int(
-                    (got.argmax(-1) == want.argmax(-1)).sum())}
-
-    on, caches = dec.prefill(tokens, lengths)
-    step_on = block_step(dec, caches, True)
-    del caches
-    off, caches = dec_off.prefill(tokens, lengths)
-    step_off = block_step(dec_off, caches, False)
-    del caches
-    rdec = CachedDecoder(reference, scratch_blocks=True,
-                         decode_attn="kernel")
-    with fp32_parity(True):
-        truth, rcaches = rdec.prefill(tokens, lengths)
-        step_truth = block_step(rdec, rcaches, True)
-    res = {"phase": "llama_kernels_on_vs_off", "rows": n,
-           "prompt_lens": list(prompt_lens), "width": window,
-           "prefill_logits": compare(on, off),
-           "decode_step_logits": compare(step_on, step_off),
+    (int4 kernel + decode kernel vs the torch paths; a model the decode
+    kernel does not take, CachedDecoder.kernel_ok, decodes on torch on
+    both sides). `reference` is an fp32 engine of the same weights
+    (kernels on, decode kernel where the on side runs it, TF32 off):
+    each bf16 side's distance from it is reported too. Returns the
+    readings; `check_onoff` holds them to `tol` (max, mean over
+    scale)."""
+    tokens, lengths = lm_prompts_window(engine, prompt_lens, seed)
+    on, step_on, kernel = lm_logits(engine, device, tokens, lengths, True)
+    off, step_off, _ = lm_logits(engine_off, device, tokens, lengths,
+                                 False)
+    truth, step_truth, _ = lm_logits(reference, device, tokens, lengths,
+                                     kernel)
+    res = {"phase": phase, "rows": len(lengths), "decode_kernel": kernel,
+           "prompt_lens": list(prompt_lens), "width": tokens.shape[1],
+           "prefill_logits": compare_logits(on, off),
+           "decode_step_logits": compare_logits(step_on, step_off),
            "vs_fp32": {
-               "prefill_logits": {"on": compare(on, truth),
-                                  "off": compare(off, truth)},
-               "decode_step_logits": {"on": compare(step_on, step_truth),
-                                      "off": compare(step_off, step_truth)}},
-           "tol": [ONOFF_MAX_TOL, ONOFF_MEAN_TOL],
+               "prefill_logits": {"on": compare_logits(on, truth),
+                                  "off": compare_logits(off, truth)},
+               "decode_step_logits": {
+                   "on": compare_logits(step_on, step_truth),
+                   "off": compare_logits(step_off, step_truth)}},
+           "tol": list(tol),
            "tol_vs_fp32": f"on <= {ONOFF_VS_FP32} x off"}
     emit(res)
     return res
 
 
+def within(r, tol) -> bool:
+    """A compare_logits reading within (max, mean) over scale."""
+    return (r["max_abs_over_scale"] <= tol[0]
+            and r["mean_abs_over_scale"] <= tol[1])
+
+
 def check_onoff(res) -> None:
-    """Fails past the on-vs-off limits, or when the kernels' side is more
-    than ONOFF_VS_FP32 times farther from fp32 than the torch side."""
+    """Fails past the on-vs-off limits (res["tol"]), or when the kernels'
+    side is more than ONOFF_VS_FP32 times farther from fp32 than the
+    torch side."""
     for part in ("prefill_logits", "decode_step_logits"):
         r, v = res[part], res["vs_fp32"][part]
-        if (r["max_abs_over_scale"] > ONOFF_MAX_TOL
-                or r["mean_abs_over_scale"] > ONOFF_MEAN_TOL):
-            raise AssertionError(f"llama kernels on vs off, {part}: {r}")
+        if not within(r, res["tol"]):
+            raise AssertionError(f"{res['phase']}, {part}: {r}")
         for key in ("max_abs_over_scale", "mean_abs_over_scale"):
             if v["on"][key] > ONOFF_VS_FP32 * v["off"][key]:
-                raise AssertionError(f"llama kernels on are farther from "
-                                     f"fp32 than off, {part}: {v}")
+                raise AssertionError(f"{res['phase']}: kernels on are "
+                                     f"farther from fp32 than off, "
+                                     f"{part}: {v}")
 
 
 def llama_ref64(graph, ids, group: int = 128) -> np.ndarray:
@@ -3043,6 +3105,551 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
             or not res["rerun_bit_equal"] or not res["tokens_equal"]):
         raise AssertionError(f"llama fp32 card vs CPU: {res}")
     return res
+
+
+# ---- the attention lineages (GPT-2, sliding windows, softcap, ALiBi) ----
+# GPT-2 small (GPT_PRESETS["small"]: 12 x 768, 12 heads, 1024 positions)
+GPT2 = dict(variant="small", seq_len=1024, vocab_size=50257, seed=0)
+GPT2_PROMPTS = (32, 960)   # + 64 new tokens within the 1024 positions
+# llama "base" with every layer sliding over the last 512 positions
+# (mistral-style); prompts that put every admission wave on the 2048 rung
+SWA = dict(LLAMA, sliding_window=512)
+SWA_PROMPTS = (1100, 1900)
+# the gemma2-ish llama at llama-base width and BLOOM at bloom-560m widths
+# (1024, 16 heads, vocab 250880), 2 layers each
+GEMMA2ISH = dict(LLAMA, depth=2, attn_scale=0.1, logit_softcap=50.0,
+                 sliding_window=512, sliding_pattern="alternate")
+BLOOM560 = dict(variant="nano", depth=2, width=1024, num_heads=16,
+                vocab_size=250880, seq_len=2048, seed=0)
+# the encoders in bf16 int8w: ViT-B/16-224 and BERT-base-128, batch 8
+VIT_B16 = dict(variant="base", batch=8, image_size=224, seed=0)
+BERT_BASE = dict(variant="base", batch=8, seq_len=128, seed=0)
+# each lineage's logits limits (max / mean over scale): kernels on vs off
+# (gpt2, swa), bf16 int4w vs fp32 (gemma2ish, bloom: no kernel but
+# matmul_int4w on their path) and int8w kernels on vs off (vit_b16,
+# bert_base). Each lies between the sound readings on an H100 and the
+# least reading of a fault put in place of a kernel
+# (scripts/torch_onoff_control.py --lineages; PERF.md): sound / least
+# fault, gpt2 0.016 / 0.0025 and 0.150 / 0.024 (one key past the
+# diagonal); swa 0.091 / 0.0132 and 0.207 / 0.039 (the same, in the
+# band); gemma2ish 0.028 / 0.0041 and 0.98 / 0.18, bloom 0.014 / 0.0021
+# and 0.77 / 0.12 (a lost K group); vit_b16 0.012 / 0.0020 and 0.32 /
+# 0.064, bert_base 0.015 / 0.0056 and 0.86 / 0.36 (a lost K tile)
+LINEAGE_TOL = {"gpt2": (0.05, 0.008),
+               "swa": (ONOFF_MAX_TOL, ONOFF_MEAN_TOL),
+               "gemma2ish": (ONOFF_MAX_TOL, ONOFF_MEAN_TOL),
+               "bloom": (ONOFF_MAX_TOL, ONOFF_MEAN_TOL),
+               "vit_b16": (ONOFF_MAX_TOL, ONOFF_MEAN_TOL),
+               "bert_base": (ONOFF_MAX_TOL, ONOFF_MEAN_TOL)}
+# the band gate's sweep (kernels/attention.flash_band_profitable)
+BAND_SWEEP_L = (512, 1024, 1536, 2048, 4096)
+BAND_SWEEP_SW = (256, 512, 1024)
+
+
+def kernels_on(device):
+    """use_kernels of a kernels-on engine: the default on the card, the
+    plain versions on the CPU (the rehearsals)."""
+    return None if device.type == "cuda" else True
+
+
+def lm_engines(device, build, kw, configs) -> tuple:
+    """Engines of one seeded graph of zoo.<build>(**kw), built once and
+    loaded per (compute, quant, use_kernels) of `configs` (the first load
+    expands and fuses it in place; a later load finds nothing left to
+    rewrite and lowers the same ops and weights). Returns (engines,
+    graph build s, load s per engine)."""
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch import zoo
+
+    t0 = time.perf_counter()
+    graph = getattr(zoo, build)(**kw)[0]
+    build_s = time.perf_counter() - t0
+    engines, loads = [], []
+    for compute, quant, uk in configs:
+        t = time.perf_counter()
+        e = Engine(EngineConfig(compute_dtype=compute, quant=quant,
+                                int4_group=128, device=str(device),
+                                use_kernels=uk))
+        engines.append(e.load_model(None, graph=graph))
+        loads.append(time.perf_counter() - t)
+    return engines, build_s, loads
+
+
+def attn_layers(engine) -> int:
+    return sum(impl.type in ("nn.MultiheadAttention", "si.RotaryAttention")
+               for impl in engine.program.impls)
+
+
+def service_vs_solo(engine, run, n=4, min_len=0, phase="service_vs_solo",
+                    slots=SERVICE["slots"]):
+    """The service's tokens for `n` of its prompts (the first longer
+    than `min_len`: the service prefilled them at the window, as a solo
+    decode does) against a solo CachedDecoder.generate of each with the
+    service's decoder settings (KV bf16, scratch blocks, the decode
+    kernel where kernel_ok allows it, blocks of the service's horizon 1)
+    over a batch of the service's `slots` rows, every row that prompt:
+    the products then have the service's shapes. At batch 1 the f32
+    cuBLAS matmul of the scratch part's scores sums in another order
+    (3.8e-6 apart) and one GPT-2 request parts 36 tokens in, on an
+    exact tie of two bf16 logits (scripts/torch_solo_drift.py; PERF.md).
+    Fails unless every token is equal, in every row."""
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True)
+    if dec.kernel_ok:
+        dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                            scratch_blocks=True, decode_attn="kernel")
+    picked = [i for i, p in enumerate(run["prompts"])
+              if len(p) > min_len][:n]
+    rows = []
+    for i in picked:
+        p = np.asarray(run["prompts"][i])
+        want = run["results"][i]
+        got = dec.generate(np.repeat(p[None], slots, axis=0),
+                           steps=len(want) - len(p), block=1)
+        same = bool((got == got[0]).all())
+        diff = np.nonzero(got[0] != want)[0]
+        rows.append({"request": i, "prompt_len": len(p),
+                     "equal": bool(not diff.size), "rows_agree": same,
+                     "first_diff": int(diff[0]) if diff.size else None})
+    res = {"phase": phase, "batch": slots, "requests": rows,
+           "kernel": dec.kernel_ok}
+    emit(res)
+    if len(rows) < n or not all(r["equal"] and r["rows_agree"]
+                                for r in rows):
+        raise AssertionError(f"{phase}: service tokens differ from a solo "
+                             f"decode: {rows}")
+    return res
+
+
+def lm_fp32_card_vs_cpu(device, build, kw, prompt_len, steps=8, seed=0,
+                        phase="lm_fp32_card_vs_cpu") -> dict:
+    """fp32 int4w zoo.<build>(**kw) on `device` against the port on the
+    CPU (plain versions): logits of a full-window forward within
+    FP32_TOL * scale (TF32 off) and greedy tokens of a scratch-block
+    decode (the decode kernel where kernel_ok allows it) equal. The
+    flash gates are lowered to the window so the forward takes the
+    kernels where the op allows them."""
+    import torch
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    from simpleinfer_tpu_torch import Engine, EngineConfig
+    from simpleinfer_tpu_torch import zoo
+
+    window = kw["seq_len"]
+    graph = getattr(zoo, build)(**kw)[0]
+    engines = [Engine(EngineConfig(compute_dtype="float32", quant="int4w",
+                                   device=str(dev), use_kernels=uk)
+                      ).load_model(None, graph=graph)
+               for dev, uk in ((device, None), (torch.device("cpu"), True))]
+    rng = np.random.default_rng(seed)
+    vocab = vocab_of(engines[0])
+    ids = rng.integers(0, vocab, (1, window)).astype(np.float32)
+    prompt = ids[:, :prompt_len].astype(np.int64)
+    gates = {"SI_FLASH_MIN_LK": str(window),
+             "SI_FLASH_BAND_MIN_LK": str(window)}
+    prev = {k: os.environ.get(k) for k in gates}
+    os.environ.update(gates)
+    try:
+        outs, toks = [], []
+        for e in engines:
+            outs.append(e.run({e.input_names[0]: ids})[e.output_names[0]])
+            dec = CachedDecoder(e, scratch_blocks=True)
+            if dec.kernel_ok:
+                dec = CachedDecoder(e, scratch_blocks=True,
+                                    decode_attn="kernel")
+            toks.append(dec.generate(prompt, steps=steps, block=4))
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    got, cpu = outs
+    scale = max(1.0, float(np.abs(cpu).max()))
+    res = {"phase": phase, "shape": list(got.shape),
+           "max_abs_err": float(np.abs(got - cpu).max()), "scale": scale,
+           "tol": f"{FP32_TOL}*scale", "prompt_len": prompt_len,
+           "steps": steps, "tokens_equal": bool(np.array_equal(*toks))}
+    emit(res)
+    if res["max_abs_err"] > FP32_TOL * scale or not res["tokens_equal"]:
+        raise AssertionError(f"{phase}: {res}")
+    return res
+
+
+def band_pairs(length, sw) -> int:
+    """(query, key) pairs a causal band of width sw covers over L."""
+    sw = min(sw, length)
+    return sw * (sw + 1) // 2 + (length - sw) * sw
+
+
+def band_bound(b, h, length, d, sw, item=2) -> tuple:
+    """Least time of a banded attention on the card: q, k, v read and o
+    written once, or 4 * D flops per (query, key) pair of the band."""
+    t_b = 4 * b * h * length * d * item / HBM_BYTES_PER_S * 1e3
+    t_o = 4.0 * b * h * d * band_pairs(length, sw) / PEAK_FLOPS[
+        "bfloat16"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def band_times(device, b, h, length, d, sw, flush, gen, iters=3) -> dict:
+    """flash_attention's banded kernel against the port's banded torch
+    path (ops/attention.causal_context with kernels off), its plain
+    version and SDPA with the band as a bool mask, at [b, h, L, d] bf16
+    (CUDA events, the L2 flushed), beside the band's bound."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.ops.attention import causal_context
+
+    q, k, v = (torch.randn(b, h, length, d, generator=gen, device=device)
+               .bfloat16() for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    idx = torch.arange(length, device=device)
+    band = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - sw)
+    t = {"ms": _time_ms(device, lambda: kattn.flash_attention(
+             q, k, v, causal=True, scale=scale, sliding_window=sw),
+             iters, flush),
+         "torch_ms": _time_ms(device, lambda: causal_context(
+             q, k, v, scale, False, sliding_window=sw), iters, flush),
+         "plain_ms": _time_ms(device, lambda: kattn.flash_attention_ref(
+             q, k, v, causal=True, scale=scale, sliding_window=sw),
+             iters, flush),
+         "library_ms": _time_ms(
+             device, lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=band, scale=scale), iters, flush)}
+    t["bound_ms"], t["bound_by"] = band_bound(b, h, length, d, sw)
+    del q, k, v, band
+    torch.cuda.empty_cache()
+    return t
+
+
+def band_gate_sweep(device, rows=4, heads=32, d=64, lengths=BAND_SWEEP_L,
+                    windows=BAND_SWEEP_SW, seed=21) -> dict:
+    """The band gate on the card: at [rows, heads, L, d] bf16 (the
+    llama-base head shapes) for each L and band sw < L, the banded
+    kernel against the port's banded torch path it replaces below the
+    gate, SDPA with the band mask and the bound. The readings give the
+    gate: the least L from which the kernel is faster at every longer L
+    and band measured (`min_lk`; kernels/attention.flash_band_profitable
+    takes every band from its Lk on)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    sweep = []
+    for length in lengths:
+        for sw in windows:
+            if sw >= length:
+                continue
+            t = band_times(device, rows, heads, length, d, sw, flush, gen)
+            t.update(L=length, sw=sw, speedup=t["torch_ms"] / t["ms"])
+            sweep.append(t)
+            emit({"phase": "band_gate_sweep_row", **t})
+    min_lk = None
+    for length in sorted(lengths, reverse=True):
+        if not all(t["speedup"] > 1.0 for t in sweep if t["L"] == length):
+            break
+        min_lk = length
+    res = {"phase": "band_gate_sweep", "shape": [rows, heads, "L", d],
+           "dtype": "bfloat16", "sweep": sweep, "crossover_min_lk": min_lk,
+           "gate_min_lk": kattn.FLASH_BAND_MIN_LK}
+    emit(res)
+    return res
+
+
+def band_wave_time(device, rec, sw, layers, seed=23) -> dict:
+    """The banded kernel per admission wave at the recorded banded shape
+    with the most rows (one launch per layer), beside the port's banded
+    torch path, its plain version, SDPA with the band mask and the
+    band's bound."""
+    import torch
+
+    keys = [k for k in rec.count("flash_attention") if k[6] == sw]
+    b, h, length, d = max(keys, key=lambda k: k[0])[:4]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    one = band_times(device, b, h, length, d, sw, flush, gen)
+    res = {k: (v * layers if k == "ms" or k.endswith("_ms") else v)
+           for k, v in one.items()}
+    res.update(shape=[b, h, length, d], sliding_window=sw,
+               launches_per_wave=layers)
+    emit({"phase": "kernel_time_flash_banded", "unit": "one admission wave",
+          **res, "per_launch": one})
+    return res
+
+
+def gpt2_phase(device, kernels: dict, cfg=GPT2, prompts=GPT2_PROMPTS,
+               n_requests=N_REQUESTS, onoff_lens=(1000, 900),
+               fp32_kw=dict(depth=2, seq_len=256), solo_min_len=256,
+               max_new=MAX_NEW):
+    """GPT-2 small bf16 int4w served: GenerationService(slots=16, KV
+    bf16) for `n_requests` greedy requests (the launches of
+    matmul_int4w, the causal flash kernel and decode_attention, each
+    above 0); each kernel against its plain version at the recorded
+    shapes and timed there; the service's tokens for 4 prompts against
+    a solo decode; kernels on vs off, each against an fp32 yardstick;
+    fp32 on the card vs the CPU port at depth 2."""
+    import torch
+
+    (on, off, ref), build_s, loads = lm_engines(
+        device, "build_gpt", cfg, [
+            ("bfloat16", "int4w", kernels_on(device)),
+            ("bfloat16", "int4w", False),
+            ("float32", "int4w", kernels_on(device))])
+    layers = attn_layers(on)
+    emit({"phase": "gpt2_engine", "config": cfg, "layers": layers,
+          "graph_build_s": build_s, "load_s": loads})
+    run = service_run(on, device, n_requests=n_requests,
+                      prompt_range=prompts, max_new=max_new,
+                      phase="gpt2_service")
+    rec = run["recorder"]
+    worst = llama_kernel_checks(device, main_shapes_of(rec), ragged=False,
+                                phase="gpt2_kernel_vs_plain")
+    if device.type == "cuda":
+        times = time_llama_kernels(device, rec, layers, prefix="gpt2_")
+        for name in LM_KERNELS:
+            kernels.setdefault(name, {"name": name})["gpt2"] = {
+                "launches": run["res"]["launches"][name],
+                "max_abs_err": worst[name], **{
+                    k: times[name][k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "launches_per_step",
+                        "launches_per_wave") if k in times[name]}}
+    service_vs_solo(on, run, min_len=solo_min_len,
+                    phase="gpt2_service_vs_solo")
+    check_onoff(onoff(on, off, device, ref, prompt_lens=onoff_lens,
+                      phase="gpt2_kernels_on_vs_off",
+                      tol=LINEAGE_TOL["gpt2"]))
+    del on, off, ref, run, rec
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    lm_fp32_card_vs_cpu(device, "build_gpt", {**cfg, **fp32_kw},
+                        prompt_len=fp32_kw["seq_len"] // 2,
+                        phase="gpt2_fp32_card_vs_cpu")
+
+
+def swa_cache_bytes(engine, slots=SERVICE["slots"]) -> dict:
+    """KV bytes of the service's pool with ring caches against the same
+    pool at full windows."""
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True)
+    full = 0
+    for _, info in dec._mha_ops:
+        _, kvh, d = dec._geometry(info)
+        full += 2 * slots * kvh * dec._window * d * 2
+    rings = [dec._op_ring(info) for _, info in dec._mha_ops]
+    res = {"phase": "swa_cache_bytes", "slots": slots,
+           "ring_slots": rings[0], "window": dec._window,
+           "ring_bytes": dec.cache_nbytes(slots), "full_window_bytes": full,
+           "ratio": dec.cache_nbytes(slots) / full}
+    emit(res)
+    return res
+
+
+def swa_phase(device, kernels: dict, cfg=SWA, prompts=SWA_PROMPTS,
+              n_requests=N_REQUESTS, onoff_lens=(2000, 1900), sweep=True,
+              max_new=MAX_NEW):
+    """llama "base" with every layer sliding over 512 positions, bf16
+    int4w, served as GPT-2 is, prompts that put every admission wave on
+    the 2048 rung: the banded flash kernel's launches (one per layer a
+    wave, where flash_band_profitable takes the rung), no
+    decode_attention (kernel_ok is false); the ring caches' bytes; the
+    wave's banded kernel timed against the torch banded path; the
+    service's tokens against a solo decode; kernels on vs off, each
+    against fp32; then the band gate's sweep."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+
+    (on, off, ref), build_s, loads = lm_engines(
+        device, "build_llama", cfg, [
+            ("bfloat16", "int4w", kernels_on(device)),
+            ("bfloat16", "int4w", False),
+            ("float32", "int4w", kernels_on(device))])
+    layers = attn_layers(on)
+    sw = cfg["sliding_window"]
+    emit({"phase": "swa_engine", "config": cfg, "layers": layers,
+          "graph_build_s": build_s, "load_s": loads})
+    swa_cache_bytes(on)
+    run = service_run(on, device, n_requests=n_requests,
+                      prompt_range=prompts, max_new=max_new,
+                      phase="swa_service",
+                      expect=("matmul_int4w",),
+                      absent=("decode_attention",))
+    rec = run["recorder"]
+    res = run["res"]
+    width = cfg["seq_len"]
+    banded = kattn.flash_band_profitable(width, width, sw)
+    flash_keys = rec.count("flash_attention")
+    launches = res["launches"]["flash_attention"]
+    check = {"phase": "swa_banded_launches", "gate_takes_rung": banded,
+             "flash_keys": [[*k, c] for k, c in flash_keys.items()],
+             "launches": launches, "prefill_waves": res["prefill_waves"],
+             "expected": layers * res["prefill_waves"] if banded else 0}
+    emit(check)
+    if device.type == "cuda" and (launches != check["expected"] or any(
+            k[6] != sw or k[2] != width for k in flash_keys)):
+        raise AssertionError(f"swa: banded flash launches {check}")
+    worst = llama_kernel_checks(device, main_shapes_of(rec), ragged=False,
+                                phase="swa_kernel_vs_plain")
+    if device.type == "cuda" and banded:
+        wave = band_wave_time(device, rec, sw, layers)
+        kernels.setdefault("flash_attention", {"name": "flash_attention"})[
+            "banded"] = {"launches": launches,
+                         "max_abs_err": worst["flash_attention"], **wave}
+    service_vs_solo(on, run, phase="swa_service_vs_solo")
+    check_onoff(onoff(on, off, device, ref, prompt_lens=onoff_lens,
+                      phase="swa_kernels_on_vs_off",
+                      tol=LINEAGE_TOL["swa"]))
+    del on, off, ref, run, rec
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        if sweep:
+            band_gate_sweep(device)
+
+
+def variant_vs_fp32(eng, ref, device, prompt_lens, name) -> dict:
+    """A variant's bf16 engine against its fp32 one: the prefill's last
+    logits and a decode step's (lm_logits), with LINEAGE_TOL[name]."""
+    tokens, lengths = lm_prompts_window(eng, prompt_lens)
+    last, step, kernel = lm_logits(eng, device, tokens, lengths, True)
+    t_last, t_step, _ = lm_logits(ref, device, tokens, lengths, True)
+    return {"phase": f"{name}_bf16_vs_fp32", "decode_kernel": kernel,
+            "prefill_logits": compare_logits(last, t_last),
+            "decode_step_logits": compare_logits(step, t_step),
+            "tol": list(LINEAGE_TOL[name])}
+
+
+def lm_variant(device, name, build, kw, fp32_kw, prompt_lens, n_requests=4,
+               prompt_range=(100, 1500), max_new=16) -> None:
+    """A 2-layer variant at its model's width, bf16 int4w: its prefill
+    and decode-step logits against an fp32 engine of the same weights
+    (within LINEAGE_TOL[name]), a short service run that must launch
+    no decode_attention (kernel_ok is false for softcapped, sliding and
+    ALiBi ops), then fp32 on the card vs the CPU port."""
+    import torch
+
+    (eng, ref), build_s, loads = lm_engines(
+        device, build, kw, [("bfloat16", "int4w", kernels_on(device)),
+                            ("float32", "int4w", kernels_on(device))])
+    res = variant_vs_fp32(eng, ref, device, prompt_lens, name)
+    res.update(config=kw, graph_build_s=build_s, load_s=loads)
+    emit(res)
+    if res["decode_kernel"] or not all(
+            within(res[part], res["tol"])
+            for part in ("prefill_logits", "decode_step_logits")):
+        raise AssertionError(f"{name} bf16 vs fp32: {res}")
+    service_run(eng, device, n_requests=n_requests,
+                prompt_range=prompt_range, max_new=max_new,
+                phase=f"{name}_service", expect=("matmul_int4w",),
+                absent=("decode_attention",))
+    del eng, ref
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    lm_fp32_card_vs_cpu(device, build, {**kw, "seq_len": fp32_kw["seq_len"]},
+                        prompt_len=fp32_kw["prompt_len"],
+                        phase=f"{name}_fp32_card_vs_cpu")
+
+
+def encoder_onoff(device, name, build, kw, feed) -> dict:
+    """A bf16 int8w encoder (ViT / BERT) with kernels on against one with
+    use_kernels=False: one forward's logits (within LINEAGE_TOL[name]),
+    matmul_int8w's launches in that forward (counts set to 0
+    just before: one per nn.Linear) and the kernel against its plain
+    version at the forward's shapes."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    (on, off), build_s, loads = lm_engines(
+        device, build, kw, [("bfloat16", "int8w", kernels_on(device)),
+                            ("bfloat16", "int8w", False)])
+    linears = sum(impl.type == "nn.Linear" for impl in on.program.impls)
+    with Recorder({"matmul_int8w": kmm}, keep={
+            "matmul_int8w": lambda x, w_q, *a, **k_: (
+                int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))}) as rec:
+        kmm.launches = 0
+        got = on.run({on.input_names[0]: feed})[on.output_names[0]]
+        launches = kmm.launches
+    want = off.run({off.input_names[0]: feed})[off.output_names[0]]
+    res = {"phase": f"{name}_kernels_on_vs_off", "config": kw,
+           "graph_build_s": build_s, "load_s": loads,
+           "linears": linears, "matmul_int8w_launches": launches,
+           "matmul_int8w_calls": len(rec.calls["matmul_int8w"]),
+           "logits": compare_logits(torch.from_numpy(got),
+                                    torch.from_numpy(want)),
+           "tol": list(LINEAGE_TOL[name])}
+    emit(res)
+    if (not within(res["logits"], res["tol"])
+            or res["matmul_int8w_calls"] != linears
+            or (device.type == "cuda" and launches != linears)):
+        raise AssertionError(f"{name}: {res}")
+    if device.type == "cuda":
+        kernel_vs_plain(device, list(rec.count("matmul_int8w")),
+                        ragged=False, phase=f"{name}_int8w_vs_plain")
+    return res
+
+
+def attn_variants_phase(device, gemma=GEMMA2ISH, bloom=BLOOM560,
+                        vit=VIT_B16, bert=BERT_BASE,
+                        lm_lens=(2000, 1900),
+                        gemma_fp32=dict(seq_len=1024, prompt_len=700),
+                        bloom_fp32=dict(seq_len=256, prompt_len=200),
+                        **service_kw) -> None:
+    """The gemma2-ish llama (attn_scale, softcap 50, sliding 512 on
+    alternate layers) and BLOOM (ALiBi) at their widths, 2 layers each
+    (lm_variant); ViT-B/16-224 and BERT-base-128 bf16 int8w kernels on
+    vs off (encoder_onoff)."""
+    lm_variant(device, "gemma2ish", "build_llama", gemma, gemma_fp32,
+               lm_lens, **service_kw)
+    lm_variant(device, "bloom", "build_bloom", bloom, bloom_fp32, lm_lens,
+               **service_kw)
+    feeds = encoder_feeds(vit, bert)
+    encoder_onoff(device, "vit_b16", "build_vit", vit, feeds["vit_b16"])
+    encoder_onoff(device, "bert_base", "build_bert", bert,
+                  feeds["bert_base"])
+
+
+def encoder_feeds(vit=VIT_B16, bert=BERT_BASE) -> dict:
+    """Seeded inputs of the ViT (NHWC images) and BERT (token ids)."""
+    rng = np.random.default_rng(5)
+    size = vit["image_size"]
+    return {"vit_b16": rng.standard_normal(
+                (vit["batch"], size, size, 3)).astype(np.float32) / 3,
+            "bert_base": rng.integers(0, 30522, (
+                bert["batch"], bert["seq_len"])).astype(np.float32)}
+
+
+def lineage_rehearsal(device) -> None:
+    """The gpt2, llama_swa and attn_variants phases at a tiny size (the
+    CPU tests run them with the plain versions; timings need the card)."""
+    kernels: dict = {}
+    gpt2_phase(device, kernels, cfg=dict(variant="nano", seq_len=64,
+                                         vocab_size=64, seed=0),
+               prompts=(4, 40), n_requests=5, onoff_lens=(60, 50),
+               fp32_kw=dict(depth=2, seq_len=32), solo_min_len=0,
+               max_new=6)
+    swa_phase(device, kernels, cfg=dict(variant="nano", seq_len=128,
+                                        vocab_size=64, seed=0,
+                                        sliding_window=8),
+              prompts=(90, 110), n_requests=5, onoff_lens=(120, 100),
+              sweep=False, max_new=6)
+    attn_variants_phase(
+        device,
+        gemma=dict(variant="nano", seq_len=128, vocab_size=64, seed=4,
+                   attn_scale=0.3, logit_softcap=25.0, sliding_window=8,
+                   sliding_pattern="alternate"),
+        bloom=dict(variant="nano", seq_len=128, vocab_size=64, seed=0),
+        vit=dict(variant="tiny", batch=2, image_size=32, patch_size=8,
+                 depth=2, embed_dim=32, num_heads=4, num_classes=6),
+        bert=dict(variant="tiny", batch=2, seq_len=16, vocab_size=30522,
+                  depth=2, hidden=32, num_heads=4, num_classes=4),
+        lm_lens=(100, 40), gemma_fp32=dict(seq_len=128, prompt_len=100),
+        bloom_fp32=dict(seq_len=32, prompt_len=20), prompt_range=(4, 30),
+        max_new=6)
 
 
 # ---- the detection pipeline (zoo/detect.py) ------------------------------
@@ -4273,7 +4880,7 @@ def serving_rehearsal(device, image=64, n=24, http_n=12, conns=3) -> dict:
 PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
           "segment", "serving", "serving_http", "yolo_int8", "conv_kernels",
           "resnet_int8", "llama_kernels", "llama_service", "llama_onoff",
-          "llama_fp32")
+          "llama_fp32", "gpt2", "llama_swa", "attn_variants")
 
 
 def main(argv=None) -> int:
@@ -4429,6 +5036,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "llama_fp32" in phases:
         llama_fp32_card_vs_cpu(device)
+    if "gpt2" in phases:
+        gpt2_phase(device, kernels)
+        torch.cuda.empty_cache()
+    if "llama_swa" in phases:
+        swa_phase(device, kernels)
+        torch.cuda.empty_cache()
+    if "attn_variants" in phases:
+        attn_variants_phase(device)
+        torch.cuda.empty_cache()
 
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     print(info["nvidia_smi"], flush=True)

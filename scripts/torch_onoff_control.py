@@ -6,6 +6,7 @@ limits tell a kernel that is wrong from bf16 and int8 noise?
     python3 scripts/torch_onoff_control.py --int8   # yolov5l int8 + C3
     python3 scripts/torch_onoff_control.py --resnet # ResNet-50 int8
     python3 scripts/torch_onoff_control.py --detect # YOLOv8s, UNet int8w
+    python3 scripts/torch_onoff_control.py --lineages  # GPT-2 ... BERT
 
 Loads the llama "base" bf16 int4w engine (kernels on), the same graph
 with use_kernels=False, and the fp32 yardstick, as chip_smoke.py does,
@@ -53,6 +54,26 @@ use_kernels=False, sound and with:
 - int8w_cls_drop_k_tile: the same, only in the class-score convs (N
   the model's class count: YOLOv8s's three cls-branch 1x1s, UNet's
   head), the fault the whole-row scale would hide (a fault).
+
+With --lineages: the attention lineages' comparisons (chip_smoke.py's
+gpt2, llama_swa and attn_variants phases, each against its
+LINEAGE_TOL): GPT-2 small and the sliding llama kernels on vs off, the
+gemma2-ish llama and BLOOM bf16 int4w vs fp32, ViT-B/16 and BERT-base
+int8w kernels on vs off, sound and with these stand-ins on the bf16
+side (the fp32 yardsticks keep the real kernels):
+
+- int4w_plain / int8w_plain: the weight-only matmul is its plain
+  version (f32 dequantized products and sums; not a fault);
+- flash_plain: flash_attention is its plain version (flash_bf16_p;
+  not a fault);
+- decode_plain: decode_attention is its plain version (not a fault);
+- int4w_drop_k_group: matmul_int4w loses the last group (128) of K
+  (a fault);
+- int4w_nibbles_swapped, int8w_drop_k_tile: as above (faults);
+- flash_causal_off_by_one: as above, inside the band where there is
+  one (a fault);
+- decode_drop_last_key: decode_attention loses each row's newest
+  cache position (a fault).
 
 Prints one JSON line of readings per run, each with whether
 chip_smoke's check fails it, then a summary line. Needs a CUDA card.
@@ -104,6 +125,8 @@ def flash_causal_off_by_one(orig):
         lq, lk = s.shape[-2], s.shape[-1]
         keep = torch.ones((lq, lk), dtype=torch.bool,
                           device=s.device).tril(diagonal=1)
+        if sliding_window is not None:
+            keep &= torch.ones_like(keep).triu(diagonal=1 - sliding_window)
         s = s.masked_fill(~keep, float("-inf"))
         return torch.matmul(torch.softmax(s, -1).to(q.dtype), v)
     return fn
@@ -126,6 +149,51 @@ def int4w_nibbles_swapped(orig):
                                             scale=wq4.scale,
                                             group=wq4.group, k=wq4.k)
         return orig(x, swapped[key], bias, activation, out_dtype=out_dtype)
+    return fn
+
+
+def int4w_plain(orig):
+    import torch
+    from simpleinfer_tpu_torch.kernels.matmul import matmul_int4w_ref
+
+    def fn(x, wq4, bias=None, activation=None, *, out_dtype=None):
+        if x.dtype != torch.bfloat16:
+            return orig(x, wq4, bias, activation, out_dtype=out_dtype)
+        return matmul_int4w_ref(x, wq4, bias, activation,
+                                out_dtype or x.dtype)
+    return fn
+
+
+def int4w_drop_k_group(orig):
+    import torch
+
+    def fn(x, wq4, bias=None, activation=None, *, out_dtype=None):
+        if x.dtype == torch.bfloat16:
+            x = x.clone()
+            x[:, -wq4.group:] = 0
+        return orig(x, wq4, bias, activation, out_dtype=out_dtype)
+    return fn
+
+
+def decode_plain(orig):
+    import torch
+    from simpleinfer_tpu_torch.kernels.decode_attn import \
+        decode_attention_ref
+
+    def fn(q, k_leaf, v_leaf, lengths, *, scale, **kw):
+        if q.dtype != torch.bfloat16:
+            return orig(q, k_leaf, v_leaf, lengths, scale=scale, **kw)
+        return decode_attention_ref(q, k_leaf, v_leaf, lengths, scale=scale)
+    return fn
+
+
+def decode_drop_last_key(orig):
+    import torch
+
+    def fn(q, k_leaf, v_leaf, lengths, *, scale, **kw):
+        if q.dtype == torch.bfloat16:
+            lengths = torch.clamp(torch.as_tensor(lengths) - 1, min=0)
+        return orig(q, k_leaf, v_leaf, lengths, scale=scale, **kw)
     return fn
 
 
@@ -224,6 +292,24 @@ CONTROLS = {"int4w_bf16_dequant": ("matmul", "matmul_int4w",
                                       int4w_nibbles_swapped)}
 
 
+INT4W_CONTROLS = {"int4w_plain": ("matmul", "matmul_int4w", int4w_plain),
+                  "int4w_drop_k_group": ("matmul", "matmul_int4w",
+                                         int4w_drop_k_group),
+                  "int4w_nibbles_swapped": ("matmul", "matmul_int4w",
+                                            int4w_nibbles_swapped)}
+FLASH_CONTROLS = {"flash_plain": ("attention", "flash_attention",
+                                  flash_bf16_p),
+                  "flash_causal_off_by_one": ("attention", "flash_attention",
+                                              flash_causal_off_by_one)}
+DECODE_CONTROLS = {"decode_plain": ("decode_attn", "decode_attention",
+                                    decode_plain),
+                   "decode_drop_last_key": ("decode_attn", "decode_attention",
+                                            decode_drop_last_key)}
+INT8W_CONTROLS = {"int8w_plain": ("matmul", "matmul_int8w", int8w_plain),
+                  "int8w_drop_k_tile": ("matmul", "matmul_int8w",
+                                        int8w_drop_k_tile)}
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -246,6 +332,12 @@ def main() -> int:
         print(json.dumps({"limits": {"on_vs_off": cs.RESNET_ONOFF_TOL},
                           "summary": summary}), flush=True)
         return 0 if not summary["sound"]["caught"] else 1
+    if "--lineages" in sys.argv[1:]:
+        summary = run_lineage_controls(device)
+        print(json.dumps({"limits": cs.LINEAGE_TOL, "summary": summary}),
+              flush=True)
+        return 0 if not any(summary[m]["sound"]["caught"]
+                            for m in summary) else 1
     if "--detect" in sys.argv[1:]:
         summary = run_detect_controls(device)
         print(json.dumps({"limits": {"yolov8s": cs.V8_ONOFF_TOL,
@@ -275,24 +367,12 @@ def main() -> int:
 def run_controls(on, off, ref, device, **onoff_kw) -> dict:
     """Phase 7's readings, sound and under each control, and whether
     check_onoff fails each."""
-    import importlib
-
     import chip_smoke as cs
 
     summary = {}
     for name in ("sound", *CONTROLS):
-        restore = None
-        if name != "sound":
-            mod_name, attr, make = CONTROLS[name]
-            mod = importlib.import_module(
-                f"simpleinfer_tpu_torch.kernels.{mod_name}")
-            restore = (mod, attr, getattr(mod, attr))
-            setattr(mod, attr, make(restore[2]))
-        try:
-            res = cs.onoff(on, off, device, ref, **onoff_kw)
-        finally:
-            if restore:
-                setattr(*restore)
+        res = under(CONTROLS.get(name),
+                    lambda: cs.onoff(on, off, device, ref, **onoff_kw))
         try:
             cs.check_onoff(res)
             failed = None
@@ -313,29 +393,124 @@ def run_controls(on, off, ref, device, **onoff_kw) -> dict:
     return summary
 
 
+def under(control, fn):
+    """fn() with `control` (an entry of the tables above, or None) in
+    place of its kernel wrapper."""
+    import importlib
+
+    if control is None:
+        return fn()
+    mod_name, attr, make = control
+    mod = importlib.import_module(f"simpleinfer_tpu_torch.kernels.{mod_name}")
+    orig = getattr(mod, attr)
+    setattr(mod, attr, make(orig))
+    try:
+        return fn()
+    finally:
+        setattr(mod, attr, orig)
+
+
+def run_lineage_controls(device) -> dict:
+    """Each lineage comparison of chip_smoke.py's gpt2, llama_swa and
+    attn_variants phases, sound and under each control its path can
+    see, and whether the phase's check fails it."""
+    import torch
+
+    import chip_smoke as cs
+
+    def failed_by(check):
+        try:
+            check()
+            return None
+        except AssertionError as e:
+            return str(e)[:200]
+
+    def brief(res, parts):
+        return {part: [res[part]["max_abs_over_scale"],
+                       res[part]["mean_abs_over_scale"]] for part in parts}
+
+    summary = {}
+    lm_parts = ("prefill_logits", "decode_step_logits")
+    for model, build, cfg, controls in (
+            ("gpt2", "build_gpt", cs.GPT2,
+             {**INT4W_CONTROLS, **FLASH_CONTROLS, **DECODE_CONTROLS}),
+            ("swa", "build_llama", cs.SWA,
+             {**INT4W_CONTROLS, **FLASH_CONTROLS})):
+        (on, off, ref), _, _ = cs.lm_engines(device, build, cfg, [
+            ("bfloat16", "int4w", None), ("bfloat16", "int4w", False),
+            ("float32", "int4w", None)])
+        lens = (1000, 900) if model == "gpt2" else (2000, 1900)
+        summary[model] = {}
+        for name in ("sound", *controls):
+            res = under(controls.get(name), lambda: cs.onoff(
+                on, off, device, ref, prompt_lens=lens,
+                phase=f"{model}_{name}", tol=cs.LINEAGE_TOL[model]))
+            failed = failed_by(lambda: cs.check_onoff(res))
+            v = res["vs_fp32"]
+            summary[model][name] = {
+                "caught": failed is not None, **brief(res, lm_parts),
+                "vs_fp32_ratio": {part: [
+                    v[part]["on"][k] / v[part]["off"][k] for k in (
+                        "max_abs_over_scale", "mean_abs_over_scale")]
+                    for part in lm_parts}}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
+        del on, off, ref
+        torch.cuda.empty_cache()
+    for model, build, cfg in (("gemma2ish", "build_llama", cs.GEMMA2ISH),
+                              ("bloom", "build_bloom", cs.BLOOM560)):
+        (eng, ref), _, _ = cs.lm_engines(device, build, cfg, [
+            ("bfloat16", "int4w", None), ("float32", "int4w", None)])
+        summary[model] = {}
+        for name in ("sound", *INT4W_CONTROLS):
+            res = under(INT4W_CONTROLS.get(name), lambda: cs.variant_vs_fp32(
+                eng, ref, device, (2000, 1900), model))
+            failed = None if all(cs.within(res[part], res["tol"])
+                                 for part in lm_parts) else "past the limit"
+            summary[model][name] = {"caught": failed is not None,
+                                    **brief(res, lm_parts)}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
+        del eng, ref
+        torch.cuda.empty_cache()
+    feeds = cs.encoder_feeds(cs.VIT_B16, cs.BERT_BASE)
+    for model, build, cfg in (("vit_b16", "build_vit", cs.VIT_B16),
+                              ("bert_base", "build_bert", cs.BERT_BASE)):
+        (on, off), _, _ = cs.lm_engines(device, build, cfg, [
+            ("bfloat16", "int8w", None), ("bfloat16", "int8w", False)])
+        feed = {on.input_names[0]: feeds[model]}
+        want = torch.from_numpy(off.run(feed)[off.output_names[0]])
+        summary[model] = {}
+        for name in ("sound", *INT8W_CONTROLS):
+            got = under(INT8W_CONTROLS.get(name), lambda: torch.from_numpy(
+                on.run(feed)[on.output_names[0]]))
+            r = cs.compare_logits(got, want)
+            failed = None if cs.within(r, cs.LINEAGE_TOL[model]) else \
+                "past the limit"
+            summary[model][name] = {
+                "caught": failed is not None,
+                "logits": [r["max_abs_over_scale"], r["mean_abs_over_scale"]]}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
+        del on, off
+        torch.cuda.empty_cache()
+    return summary
+
+
 def run_int8_controls(on, off, out_name, feeds, controls=INT8_CONTROLS,
                       resnet=False) -> dict:
     """The int8 phase's on-vs-off readings, sound and under each of
     `controls`, and whether chip_smoke.check_int8_onoff fails each (with
     resnet=True: the resnet_int8 phase's logits and check_resnet_onoff)."""
-    import importlib
-
     import chip_smoke as cs
 
     summary = {}
     for name in ("sound", *controls):
-        restore = None
-        if name != "sound":
-            mod_name, attr, make = controls[name]
-            mod = importlib.import_module(
-                f"simpleinfer_tpu_torch.kernels.{mod_name}")
-            restore = (mod, attr, getattr(mod, attr))
-            setattr(mod, attr, make(restore[2]))
-        try:
-            outs = [on.run(f)[out_name] for f in feeds]
-        finally:
-            if restore:
-                setattr(*restore)
+        outs = under(controls.get(name),
+                     lambda: [on.run(f)[out_name] for f in feeds])
         if resnet:
             r = cs.resnet_onoff(off, out_name, feeds, outs)
             res = {"logits": r}
@@ -363,8 +538,6 @@ def run_detect_controls(device) -> dict:
     """chip_smoke's YOLOv8s and UNet on-vs-off readings, sound and under
     each of detect_controls, and whether chip_smoke.check_parts fails
     each."""
-    import importlib
-
     import numpy as np
 
     import chip_smoke as cs
@@ -404,18 +577,7 @@ def run_detect_controls(device) -> dict:
         controls = detect_controls(classes)
         summary[model] = {}
         for name in ("sound", *controls):
-            restore = None
-            if name != "sound":
-                mod_name, attr, make = controls[name]
-                mod = importlib.import_module(
-                    f"simpleinfer_tpu_torch.kernels.{mod_name}")
-                restore = (mod, attr, getattr(mod, attr))
-                setattr(mod, attr, make(restore[2]))
-            try:
-                got = run()
-            finally:
-                if restore:
-                    setattr(*restore)
+            got = under(controls.get(name), run)
             res = cs.parts_onoff(got, want, tol)
             try:
                 if not np.isfinite(got).all():

@@ -21,7 +21,10 @@ image I/O and the native host library (host.py); and CNN serving:
 serving.BatchingService (buckets, the pipelined dispatch, engine pools),
 the HTTP front end serving.InferenceServer, and the command line
 (`python -m simpleinfer_tpu_torch dump|detect|classify|segment|calibrate|
-serve`, tools.py).
+serve`, tools.py); and the attention lineages: nn.MultiheadAttention,
+F.scaled_dot_product_attention, torch.matmul / bmm / select, sliding
+windows (ring caches, the banded flash kernel), logit softcap and ALiBi,
+the GPT / BLOOM / NeoX / ViT / BERT builders and greedy_generate.
 """
 from .config import EngineConfig
 from .engine import Engine, EngineStateError, initialize_context

@@ -7,7 +7,9 @@ QuantizedTensor and Quantized4Tensor — and returns the port's weights
 for the same graph, ready to hand to the port's `Program.fn` (or to an
 Engine's place_weights). Both packages then run on the SAME quantized
 bytes. Keys line up one to one (both packages keep HWIO conv weights,
-per-output-channel scales, the llama ops' wq/wk/wv/wo, wqn/wkn, gamma
+per-output-channel scales, the attention ops' wq/wk/wv/wo and
+bq/bk/bv/bo (si.RotaryAttention and nn.MultiheadAttention alike, dense,
+int8w or int4w), wqn/wkn, gamma
 and weight, the static-int8 `act_scale` / `out_scale` entries that JAX's
 own Engine.calibrate installs — scalars or per-channel vectors, with the
 folded weights they go with — and the si.FusedC3 keys with its s8 taps
@@ -15,7 +17,8 @@ folded weights they go with — and the si.FusedC3 keys with its s8 taps
 `scale` / `shift`, GroupNorm / LayerNorm `gamma` / `beta`, the flipped
 HWIO ConvTranspose2d `weight`, PReLU `slope` and pnnx.Attribute
 `value`), so a JAX program runs in the port on the same bytes and
-scales; the exceptions:
+scales (an ALiBi op's slopes are no weight: both lowerings take them
+from the graph's alibi_slopes attr or its head count); the exceptions:
 - the Detect decode tables: per level (`gridc{i}`, `anchorc{i}`) in the
   JAX package, row-concatenated (`grid`, `anchor`) in the port;
 - the block-Toeplitz stem packs `bt_in{g}` of the JAX package's W-packed

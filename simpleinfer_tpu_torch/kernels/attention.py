@@ -19,9 +19,10 @@ the input dtype before P·V, as in the JAX oracle. A query row with no
 live key gives 0 in both (the JAX oracle's softmax gives NaN there).
 
 The dispatch gates `flash_profitable` / `flash_band_profitable` keep
-the JAX package's env knobs and thresholds, but for the causal Lk,
-which was measured on the H100 (`FLASH_MIN_LK`); the others were
-measured on a TPU and are still to be re-measured.
+the JAX package's env knobs. The causal Lk (`FLASH_MIN_LK`) and the band
+gate's Lk (`FLASH_BAND_MIN_LK`, with no limit on the band's width) were
+measured on the H100; the non-causal Lk (4096) and the Lq (256) are
+still the JAX package's TPU values.
 
 `launches` counts kernel launches.
 """
@@ -64,17 +65,25 @@ def flash_profitable(lq: int, lk: int, causal: bool = True) -> bool:
     return lk >= min_lk and lq >= min_lq
 
 
+# the band gate: Lk >= FLASH_BAND_MIN_LK, at any band. On an H100 the
+# banded kernel beats the port's banded torch path (which builds all L^2
+# scores) at every L from 512 to 4096 and every band from 256 to 1024
+# below L, by 15x to 134x (chip_smoke.band_gate_sweep, [4, 32, L, 64]
+# bf16); the JAX package's TPU gate was Lk >= 1536 and a band of at most
+# Lk / 4
+FLASH_BAND_MIN_LK = 512
+
+
 def flash_band_profitable(lq: int, lk: int,
                           sliding_window: int | None) -> bool:
-    """Dispatch gate for the banded kernel: Lk >= 1536, a band of at
-    most Lk/4, Lq >= 256 (the JAX package's thresholds);
-    SI_FLASH_BAND_MIN_LK / SI_FLASH_BAND_MIN_LQ override them."""
+    """Dispatch gate for the banded kernel: a band, Lk >=
+    FLASH_BAND_MIN_LK and Lq >= 256; SI_FLASH_BAND_MIN_LK /
+    SI_FLASH_BAND_MIN_LQ override the lengths, read at call time."""
     if sliding_window is None:
         return False
-    min_lk = int(os.environ.get("SI_FLASH_BAND_MIN_LK", "1536"))
+    min_lk = int(os.environ.get("SI_FLASH_BAND_MIN_LK", FLASH_BAND_MIN_LK))
     min_lq = int(os.environ.get("SI_FLASH_BAND_MIN_LQ", "256"))
-    return (lk >= min_lk and lq >= min_lq
-            and sliding_window * 4 <= lk)
+    return lk >= min_lk and lq >= min_lq
 
 
 def _check_args(q, k, causal, sliding_window):

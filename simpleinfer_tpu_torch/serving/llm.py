@@ -14,6 +14,13 @@ from the last block's final tokens, before the last block's tokens are
 fetched, so the fetch and the host's bookkeeping overlap the card's
 work. A request holds its row until done (no preemption).
 
+Both attention lineages serve: nn.MultiheadAttention (GPT) and
+si.RotaryAttention (llama; sliding windows, whose pool caches are rings
+sized to the window, with a decode horizon of at most
+CachedDecoder.RING_HEADROOM; gemma2's softcap; BLOOM's ALiBi). Sliding,
+softcapped and ALiBi models decode on torch under decode_attn="auto"
+(CachedDecoder.kernel_ok), as in the JAX package.
+
 Not ported yet: TieredGenerationService, adaptive_horizon, cancel /
 deadlines / priorities, the kv_prefix ladder and sample caps (JAX's
 `decode_attn="auto"` with kv_prefix_ladder=None is what "auto" does
@@ -118,7 +125,10 @@ class GenerationService:
         "kernel" (every block runs the per-row decode kernel) or "auto"
         (the kernel at slots >= KERNEL_MIN_SLOTS when the decoder allows
         it, else torch). prefill_ladder: admission bucket widths; "auto"
-        = {64, 256, 1024} below the window plus the window itself."""
+        = {64, 256, 1024} below the window plus the window itself. Over
+        ring caches decode_horizon is at most
+        CachedDecoder.RING_HEADROOM: the JAX service fails at its first
+        decode block past it, this one when it is built."""
         if decode_attn not in ("torch", "kernel", "auto"):
             raise ValueError(f"decode_attn must be 'torch', 'kernel' or "
                              f"'auto', got {decode_attn!r}")
@@ -128,6 +138,11 @@ class GenerationService:
         self._attn_auto = (decode_attn == "auto"
                            and slots >= self.KERNEL_MIN_SLOTS
                            and self._dec.kernel_ok)
+        if self._dec._has_ring and decode_horizon > self._dec.RING_HEADROOM:
+            raise ValueError(
+                f"decode blocks over ring-stored sliding caches are "
+                f"limited to {self._dec.RING_HEADROOM} steps, got "
+                f"decode_horizon {decode_horizon}")
         window = self._dec._window
         if isinstance(prefill_ladder, str):
             if prefill_ladder != "auto":

@@ -1,12 +1,16 @@
-"""Programmatic pnnx graph builders: the YOLOv5, YOLOv8, llama and CNN
-classification / segmentation families, ported subset.
+"""Programmatic pnnx graph builders: the YOLOv5, YOLOv8, CNN
+classification / segmentation, transformer (ViT, BERT) and causal-LM
+(GPT, NeoX, BLOOM, llama) families, ported subset.
 
 A copy of `GraphBuilder` (the layers those families use), `build_yolov5`,
 `build_yolov8`, `build_resnet18`, `build_resnet50`, `build_mobilenet_like`,
-`build_densenet`, `build_unet`, `LLAMA_PRESETS` and `build_llama` from
-simpleinfer_tpu/zoo/builders.py (numpy only), so the port builds the
-same graphs with the same seeded weights (the same RNG calls in the same
-order) without importing the JAX package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
+`build_densenet`, `build_unet`, `VIT_PRESETS` / `build_vit`,
+`BERT_PRESETS` / `build_bert`, `GPT_PRESETS` / `build_gpt`,
+`NEOX_PRESETS` / `build_neox`, `BLOOM_PRESETS` / `build_bloom` and
+`LLAMA_PRESETS` / `build_llama` from simpleinfer_tpu/zoo/builders.py
+(numpy only), so the port builds the same graphs with the same seeded
+weights (the same RNG calls in the same order) without importing the JAX
+package. The YOLOv5 Detect attrs follow the pnnx numbering (strides in
 ``pnnx_5``, anchor grids in ``pnnx_{4,2,0}``, grids in ``pnnx_{6,3,1}``,
 head convs in ``m.{0,1,2}.weight/bias``).
 
@@ -243,9 +247,10 @@ class GraphBuilder:
         """Llama-style causal self-attention (si.RotaryAttention
         composite, ops/attention.py): RoPE + GQA, intrinsic causal mask,
         llama checkpoint weight layout; head_dim decouples the per-head
-        width and qk_norm adds per-head q/k RMSNorm (qwen3-family). The
-        graph carries sliding_window / logit_softcap / alibi as the JAX
-        builder does; the port's lowering raises on them."""
+        width and qk_norm adds per-head q/k RMSNorm (qwen3-family);
+        sliding_window bands the mask (mistral), logit_softcap caps the
+        logits (gemma2) and alibi replaces RoPE by linear key-position
+        slopes (BLOOM / MPT)."""
         e = self.shape[x][-1]
         kv = num_kv_heads or num_heads
         d = head_dim or e // num_heads
@@ -321,6 +326,22 @@ class GraphBuilder:
                           params=dict(dims=list(dims)))
         s = self.shape[x]
         self.shape[out] = [s[d] for d in dims]
+        return out
+
+    def layer_norm(self, x: str, nd: int = 1, affine: bool = True) -> str:
+        """LayerNorm over the trailing `nd` logical dims."""
+        shape = self.shape[x][-nd:]
+        name = self._name("ln")
+        attrs = {}
+        if affine:
+            attrs["weight"] = (1.0 + 0.1 * self.rng.standard_normal(shape)
+                               ).astype(np.float32)
+            attrs["bias"] = (self.rng.standard_normal(shape)
+                             .astype(np.float32) * 0.1)
+        (out,) = self._op("nn.LayerNorm", name, [x], params=dict(
+            elementwise_affine=affine, eps=1e-6,
+            normalized_shape=[int(d) for d in shape]), attrs=attrs)
+        self.shape[out] = list(self.shape[x])
         return out
 
     def conv_transpose(self, x: str, out_c: int, k: int = 2,
@@ -403,10 +424,41 @@ class GraphBuilder:
         self.shape[out] = [int(d) for d in shape]
         return out
 
+    def select(self, x: str, dim: int, index: int) -> str:
+        (out,) = self._op("torch.select", self._name("sel"), [x],
+                          params=dict(dim=dim, index=index))
+        s = list(self.shape[x])
+        del s[dim]
+        self.shape[out] = s
+        return out
+
     def expand(self, x: str, shape: list) -> str:
         (out,) = self._op("Tensor.expand", self._name("exp"), [x],
                           params=dict(shape=[int(d) for d in shape]))
         self.shape[out] = [int(d) for d in shape]
+        return out
+
+    def mha(self, x: str, num_heads: int, mask: str | None = None) -> str:
+        """Self-attention nn.MultiheadAttention (batch_first, packed
+        in_proj) on [N, L, E]; optional additive attn_mask operand (a
+        causal upper triangle from attr_const)."""
+        e = self.shape[x][-1]
+        name = self._name("mha")
+        attrs = {
+            "in_proj_weight": self._rand((3 * e, e), fan_in=e),
+            "in_proj_bias": (self.rng.standard_normal(3 * e)
+                             .astype(np.float32) * 0.02),
+            "out_proj.weight": self._rand((e, e), fan_in=e),
+            "out_proj.bias": (self.rng.standard_normal(e)
+                              .astype(np.float32) * 0.02),
+        }
+        inputs = [x] if mask is None else [x, mask]
+        (out,) = self._op("nn.MultiheadAttention", name, inputs,
+                          params=dict(
+            embed_dim=e, num_heads=num_heads, batch_first=True,
+            add_zero_attn=False, add_bias_kv=False, bias=True),
+            attrs=attrs)
+        self.shape[out] = list(self.shape[x])
         return out
 
     def tanh(self, x: str) -> str:
@@ -811,6 +863,272 @@ def build_densenet(variant: str | tuple = "121", batch: int = 1,
     b.output(x)
     return b.build(), "0", x
 
+
+
+NEOX_PRESETS = {
+    # (depth, width, heads)
+    "nano": (2, 64, 4),
+    "micro": (4, 128, 4),
+    "small": (6, 256, 8),
+}
+
+
+def build_neox(variant: str = "nano", batch: int = 1, seq_len: int = 64,
+               vocab_size: int = 128, depth: int | None = None,
+               width: int | None = None, num_heads: int | None = None,
+               rotary_pct: float = 0.25, rope_theta: float = 10000.0,
+               shared_ln: bool = False, head_bias: bool = False,
+               seed: int = 0) -> tuple:
+    """GPT-NeoX/Pythia-style causal LM; with shared_ln=True,
+    head_bias=True, rotary_pct=0.5 it is the phi-2 block. The lineage
+    the llama builder cannot express: LayerNorm (not RMSNorm), PARALLEL
+    attention+MLP residual (x + attn(ln1(x)) + mlp(ln2(x)); phi shares
+    one ln), PARTIAL rotary (HF rotary_pct / partial_rotary_factor —
+    only the first rotary_dim of each head rotates), biased q/k/v/o,
+    GELU MLP. Superset family: the CPU reference has no autoregressive
+    workload at all; drivable by greedy_generate and CachedDecoder
+    unchanged (the decode step is plan-driven, and rotary_dim flows
+    through decode_info)."""
+    if variant not in NEOX_PRESETS:
+        raise ValueError(f"variant must be one of {list(NEOX_PRESETS)}")
+    d0, w0, h0 = NEOX_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    w = w0 if width is None else width
+    heads = h0 if num_heads is None else num_heads
+    d = w // heads
+    rot = max(2, int(d * rotary_pct) // 2 * 2)
+
+    b = GraphBuilder(seed)
+    ids = b.input([batch, seq_len], name="0")
+    x = b.embedding(ids, vocab_size, w)
+    for _ in range(depth):
+        ln1 = b.layer_norm(x)
+        attn = b.rotary_attention(ln1, heads, rope_theta=rope_theta,
+                                  bias=True, rotary_dim=rot)
+        ln2 = ln1 if shared_ln else b.layer_norm(x)
+        h = b.gelu(b.linear(ln2, 4 * w))
+        mlp = b.linear(h, w)
+        x = b.add(b.add(x, attn), mlp)
+    x = b.layer_norm(x)
+    logits = b.linear(x, vocab_size, bias=head_bias)
+    b.output(logits)
+    return b.build(), "0", logits
+
+
+BLOOM_PRESETS = {
+    # (depth, width, heads)
+    "nano": (2, 64, 4),
+    "micro": (4, 128, 8),
+    "small": (6, 256, 8),
+}
+
+
+def build_bloom(variant: str = "nano", batch: int = 1, seq_len: int = 64,
+                vocab_size: int = 128, depth: int | None = None,
+                width: int | None = None, num_heads: int | None = None,
+                seed: int = 0) -> tuple:
+    """BLOOM-style causal LM — the ALiBi lineage: NO position
+    embeddings of any kind; attention logits carry a per-head linear
+    key-position bias instead (si.RotaryAttention alibi=1,
+    ops/attention.alibi_slopes). Block wiring per HF BloomModel:
+    embedding -> embedding LayerNorm -> sequential pre-LN blocks
+    (biased fused-qkv attention with dense bias, tanh-GELU 4x MLP) ->
+    final LayerNorm -> tied-style vocab head. Superset family: the CPU
+    reference has no autoregressive workload at all; drivable by
+    greedy_generate / CachedDecoder / GenerationService unchanged
+    (alibi flows through decode_info to the non-rotary decode paths).
+    """
+    if variant not in BLOOM_PRESETS:
+        raise ValueError(f"variant must be one of {list(BLOOM_PRESETS)}")
+    d0, w0, h0 = BLOOM_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    w = w0 if width is None else width
+    heads = h0 if num_heads is None else num_heads
+
+    b = GraphBuilder(seed)
+    ids = b.input([batch, seq_len], name="0")
+    x = b.embedding(ids, vocab_size, w)
+    x = b.layer_norm(x)          # word_embeddings_layernorm
+    for _ in range(depth):
+        y = b.layer_norm(x)
+        attn = b.rotary_attention(y, heads, bias=True, o_bias=True,
+                                  alibi=True)
+        x = b.add(x, attn)
+        y = b.layer_norm(x)
+        h = b.gelu(b.linear(y, 4 * w), approximate="tanh")
+        x = b.add(x, b.linear(h, w))
+    x = b.layer_norm(x)
+    logits = b.linear(x, vocab_size, bias=False)
+    b.output(logits)
+    return b.build(), "0", logits
+
+
+VIT_PRESETS = {
+    # depth, embed_dim, heads (vit paper table 1 / timm vit_*_patch16)
+    "tiny": (12, 192, 3),
+    "small": (12, 384, 6),
+    "base": (12, 768, 12),
+}
+
+
+def build_vit(variant: str = "tiny", batch: int = 1, image_size: int = 224,
+              patch_size: int = 16, num_classes: int = 1000,
+              depth: int | None = None, embed_dim: int | None = None,
+              num_heads: int | None = None, seed: int = 0) -> tuple:
+    """Vision Transformer classifier (superset family — the reference is
+    CNN-only, SURVEY.md §2.3 / layer_registry.cpp:34-48).
+
+    Emits the op sequence a pnnx export of timm/torchvision ViT produces:
+    patch-embed Conv2d(p, p, s=p) -> reshape [N, E, L] -> transpose(1,2)
+    -> cat(expanded cls-token pnnx.Attribute, x) -> + pos-embed
+    pnnx.Attribute (broadcast Expression add) -> depth x [pre-LN
+    nn.MultiheadAttention block + pre-LN Linear/GELU/Linear MLP, residual
+    adds] -> final LayerNorm -> torch.select cls token -> Linear head.
+    """
+    if variant not in VIT_PRESETS:
+        raise ValueError(f"variant must be one of {list(VIT_PRESETS)}")
+    d0, e0, h0 = VIT_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    e = e0 if embed_dim is None else embed_dim
+    heads = h0 if num_heads is None else num_heads
+    if image_size % patch_size:
+        raise ValueError("image_size must be a multiple of patch_size")
+    n_patch = (image_size // patch_size) ** 2
+
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+    x = b.conv(x, e, patch_size, patch_size, 0)          # [N, E, H/p, W/p]
+    x = b.reshape(x, [batch, e, n_patch])                # [N, E, L]
+    x = b.transpose(x, 1, 2)                             # [N, L, E]
+    cls = b.attr_const(b._rand((1, 1, e)) * 0.02)
+    cls = b.expand(cls, [batch, 1, e])
+    x = b.cat([cls, x], dim=1)                           # [N, L+1, E]
+    pos = b.attr_const(b._rand((1, n_patch + 1, e)) * 0.02)
+    x = b.add(x, pos)
+
+    for _ in range(depth):
+        y = b.layer_norm(x)
+        y = b.mha(y, heads)
+        x = b.add(x, y)
+        y = b.layer_norm(x)
+        y = b.linear(y, 4 * e)
+        y = b.gelu(y)
+        y = b.linear(y, e)
+        x = b.add(x, y)
+
+    x = b.layer_norm(x)
+    x = b.select(x, dim=1, index=0)                      # cls token [N, E]
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
+BERT_PRESETS = {
+    # depth, hidden, heads (BERT paper table 1 / tiny-BERT distillations)
+    "tiny": (2, 128, 2),
+    "mini": (4, 256, 4),
+    "small": (4, 512, 8),
+    "base": (12, 768, 12),
+}
+
+
+def build_bert(variant: str = "tiny", batch: int = 1, seq_len: int = 128,
+               vocab_size: int = 30522, num_classes: int = 2,
+               depth: int | None = None, hidden: int | None = None,
+               num_heads: int | None = None, seed: int = 0) -> tuple:
+    """BERT-style text classifier (superset family — the reference is a
+    vision-only CNN engine, SURVEY.md §2.3).
+
+    The zoo's NLP workload: token-id input [N, L] -> nn.Embedding +
+    learned position embedding (pnnx.Attribute, broadcast add) ->
+    post-LN encoder stack (nn.MultiheadAttention + GELU MLP, residuals
+    NORMALIZED AFTER the add like the original BERT, vs the ViT
+    builder's pre-LN) -> [CLS] pooler (select + Linear + Tanh) ->
+    classifier head. Exercises integer gather inputs and rank-3
+    attention at NLP sequence lengths.
+    """
+    if variant not in BERT_PRESETS:
+        raise ValueError(f"variant must be one of {list(BERT_PRESETS)}")
+    d0, h0, a0 = BERT_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    h = h0 if hidden is None else hidden
+    heads = a0 if num_heads is None else num_heads
+
+    b = GraphBuilder(seed)
+    ids = b.input([batch, seq_len], name="0")
+    x = b.embedding(ids, vocab_size, h)                  # [N, L, H]
+    pos = b.attr_const(b._rand((1, seq_len, h)) * 0.02)
+    x = b.add(x, pos)
+    x = b.layer_norm(x)
+
+    for _ in range(depth):
+        y = b.mha(x, heads)
+        x = b.layer_norm(b.add(x, y))                    # post-LN
+        y = b.linear(x, 4 * h)
+        y = b.gelu(y)
+        y = b.linear(y, h)
+        x = b.layer_norm(b.add(x, y))
+
+    cls = b.select(x, dim=1, index=0)                    # [CLS] [N, H]
+    pooled = b.tanh(b.linear(cls, h))
+    logits = b.linear(pooled, num_classes)
+    b.output(logits)
+    return b.build(), "0", logits
+
+
+GPT_PRESETS = {
+    # depth, width, heads (GPT-2 family ladder, scaled-down entries first)
+    "nano": (3, 48, 3),
+    "micro": (4, 128, 4),
+    "mini": (6, 192, 6),
+    "small": (12, 768, 12),
+}
+
+
+def build_gpt(variant: str = "nano", batch: int = 1, seq_len: int = 64,
+              vocab_size: int = 50257, depth: int | None = None,
+              width: int | None = None, num_heads: int | None = None,
+              seed: int = 0) -> tuple:
+    """GPT-style causal decoder LM (superset family — the reference has
+    no autoregressive workload).
+
+    Token ids [N, L] -> nn.Embedding + learned position embedding ->
+    pre-LN blocks whose nn.MultiheadAttention takes an additive causal
+    mask (pnnx.Attribute [L, L], -inf above the diagonal — the mask-
+    operand form real pnnx exports of masked attention produce) ->
+    final LayerNorm -> vocab head. Output: next-token logits [N, L, V].
+    `zoo.generate.greedy_generate` drives it autoregressively.
+    """
+    if variant not in GPT_PRESETS:
+        raise ValueError(f"variant must be one of {list(GPT_PRESETS)}")
+    d0, w0, h0 = GPT_PRESETS[variant]
+    depth = d0 if depth is None else depth
+    w = w0 if width is None else width
+    heads = h0 if num_heads is None else num_heads
+
+    b = GraphBuilder(seed)
+    ids = b.input([batch, seq_len], name="0")
+    x = b.embedding(ids, vocab_size, w)
+    pos = b.attr_const(b._rand((1, seq_len, w)) * 0.02)
+    x = b.add(x, pos)
+
+    causal = np.triu(np.full((seq_len, seq_len), -1e9, np.float32), k=1)
+    mask = b.attr_const(causal)
+
+    for _ in range(depth):
+        y = b.layer_norm(x)
+        y = b.mha(y, heads, mask=mask)
+        x = b.add(x, y)
+        y = b.layer_norm(x)
+        y = b.linear(y, 4 * w)
+        y = b.gelu(y)
+        y = b.linear(y, w)
+        x = b.add(x, y)
+
+    x = b.layer_norm(x)
+    logits = b.linear(x, vocab_size, bias=False)
+    b.output(logits)
+    return b.build(), "0", logits
 
 
 LLAMA_PRESETS = {

@@ -139,20 +139,25 @@ def test_flash_argument_rules():
     (1, 2048, True, None), (2048, 2048, True, 256), (1024, 1024, True, 256),
     (2048, 2048, True, 1024), (8192, 8192, True, 256)])
 def test_flash_gates_match_jax(lq, lk, causal, sw, monkeypatch):
-    """The port's gates are the JAX package's, but for the causal Lk
-    threshold, measured on the H100 (FLASH_MIN_LK): with the JAX
-    package's causal threshold set, they agree everywhere."""
+    """The port's gates are the JAX package's, but for the thresholds
+    measured on the H100 (FLASH_MIN_LK, FLASH_BAND_MIN_LK) and the JAX
+    band gate's limit of a band to Lk / 4, which the port drops: with
+    the JAX package's thresholds set, they agree everywhere, the JAX
+    band gate read at a band within its limit."""
+    def jax_band(lq, lk, sw):
+        return jattn.flash_band_profitable(
+            lq, lk, None if sw is None else min(sw, lk // 4))
+
     monkeypatch.setattr(tattn, "FLASH_MIN_LK", 2048)
+    monkeypatch.setattr(tattn, "FLASH_BAND_MIN_LK", 1536)
     assert tattn.flash_profitable(lq, lk, causal) == \
         jattn.flash_profitable(lq, lk, causal)
-    assert tattn.flash_band_profitable(lq, lk, sw) == \
-        jattn.flash_band_profitable(lq, lk, sw)
+    assert tattn.flash_band_profitable(lq, lk, sw) == jax_band(lq, lk, sw)
     monkeypatch.setenv("SI_FLASH_MIN_LK", "64")
     monkeypatch.setenv("SI_FLASH_BAND_MIN_LK", "64")
     assert tattn.flash_profitable(lq, lk, causal) == \
         jattn.flash_profitable(lq, lk, causal)
-    assert tattn.flash_band_profitable(lq, lk, sw) == \
-        jattn.flash_band_profitable(lq, lk, sw)
+    assert tattn.flash_band_profitable(lq, lk, sw) == jax_band(lq, lk, sw)
 
 
 @pytest.mark.parametrize("lq,lk,causal,want", [
@@ -165,6 +170,22 @@ def test_flash_gate_measured_default(lq, lk, causal, want, monkeypatch):
     monkeypatch.delenv("SI_FLASH_MIN_LK", raising=False)
     assert tattn.FLASH_MIN_LK == 256
     assert tattn.flash_profitable(lq, lk, causal) == want
+
+
+@pytest.mark.parametrize("lq,lk,sw,want", [
+    (512, 512, 256, True), (511, 511, 256, False), (2048, 2048, 512, True),
+    (2048, 2048, 2048, True), (1024, 1024, 1536, True),
+    (4096, 4096, 1024, True), (128, 512, 64, False), (2048, 2048, None,
+                                                      False)])
+def test_flash_band_gate_measured_default(lq, lk, sw, want, monkeypatch):
+    """Sliding prefill takes the banded kernel from Lk 512 at any band
+    (the H100 sweep: faster than the banded torch path at every L and
+    band measured; ops.attention.causal_context runs a band of Lk or
+    more as plain causal); Lq stays the JAX package's 256."""
+    monkeypatch.delenv("SI_FLASH_BAND_MIN_LK", raising=False)
+    monkeypatch.delenv("SI_FLASH_BAND_MIN_LQ", raising=False)
+    assert tattn.FLASH_BAND_MIN_LK == 512
+    assert tattn.flash_band_profitable(lq, lk, sw) == want
 
 
 # ---- decode attention -----------------------------------------------------

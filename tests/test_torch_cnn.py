@@ -1,7 +1,8 @@
 """The CNN classification / segmentation family in the port
 (simpleinfer_tpu_torch) against the JAX package, on the CPU: the ops of
 ops/norm.py (BatchNorm2d, GroupNorm, InstanceNorm2d), ops/extra.py and
-ops/functional.py, the five CNN builders, their goldens, the int8
+ops/functional.py, the five CNN builders, their goldens (and the vit,
+bert and gemma2-ish llama goldens through the port), the int8
 classification budget of tests/test_acceptance.py, the classification
 pipeline, and chip_smoke.py's conv_kernels and resnet_int8 phases at a
 tiny size.
@@ -432,9 +433,32 @@ def test_builder_graph_identical(name, tmp_path):
             assert open(a, "rb").read() == open(b, "rb").read(), a
 
 
+# the transformer goldens of tests/test_golden.py (their _cases): the
+# encoders' nn.MultiheadAttention / torch.select and the gemma2-ish
+# llama's attn_scale, softcap and alternate sliding layers
+GOLDEN_EXTRA = {
+    "vit": ("build_vit", dict(variant="tiny", batch=1, image_size=32,
+                              patch_size=8, num_classes=6, depth=2,
+                              embed_dim=32, num_heads=4)),
+    "bert": ("build_bert", dict(variant="tiny", batch=2, seq_len=16,
+                                vocab_size=64, num_classes=4, depth=2,
+                                hidden=32, num_heads=4)),
+    "llama_gemma2ish": ("build_llama", dict(
+        variant="nano", batch=1, seq_len=16, vocab_size=32, attn_scale=0.3,
+        logit_softcap=25.0, sliding_window=5, sliding_pattern="alternate",
+        seed=4)),
+}
+
+
 def golden_input(kw):
+    """tests/test_golden.py's input: token ids for a text model, else a
+    seeded image batch."""
+    rng = np.random.default_rng(1234)
+    if "seq_len" in kw:
+        return rng.integers(0, kw["vocab_size"], size=(
+            kw.get("batch", 1), kw["seq_len"])).astype(np.float32)
     size = kw["image_size"]
-    return np.random.default_rng(1234).standard_normal(
+    return rng.standard_normal(
         (kw.get("batch", 1), size, size, 3)).astype(np.float32) / 3
 
 
@@ -444,11 +468,11 @@ def golden_close(got, want):
     np.testing.assert_allclose(got, want, atol=5e-4 * scale, rtol=5e-4)
 
 
-@pytest.mark.parametrize("name", sorted(BUILDERS))
+@pytest.mark.parametrize("name", sorted(BUILDERS) + sorted(GOLDEN_EXTRA))
 def test_golden_through_port(name):
     """tests/golden/<name>.npz through the port (the inputs of
     tests/test_golden.py), and the port against the JAX Engine."""
-    fn, kw = BUILDERS[name]
+    fn, kw = {**BUILDERS, **GOLDEN_EXTRA}[name]
     x = golden_input(kw)
     g, in_name, out_name = getattr(tbuilders, fn)(**kw)
     got = Engine(EngineConfig(device="cpu")).load_model(

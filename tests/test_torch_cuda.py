@@ -884,3 +884,103 @@ def test_nms_rounds_checked_every_few_rounds_equals_per_round_on_card(
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[2] == want[2] >= 2
     assert int(got[1].sum()) >= 100
+
+
+# ---- the attention lineages (GPT, sliding windows, softcap, ALiBi) ----------
+LINEAGES = {
+    "gpt": ("build_gpt", dict(variant="nano", seq_len=64, vocab_size=64)),
+    "swa": ("build_llama", dict(variant="nano", seq_len=128, vocab_size=64,
+                                sliding_window=8)),
+    "gemma2ish": ("build_llama", dict(variant="nano", seq_len=128,
+                                      vocab_size=64, attn_scale=0.3,
+                                      logit_softcap=25.0, sliding_window=8,
+                                      sliding_pattern="alternate")),
+    "bloom": ("build_bloom", dict(variant="nano", seq_len=64,
+                                  vocab_size=64)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LINEAGES))
+def test_lineage_decode_card_vs_cpu(cuda, name, monkeypatch):
+    """fp32 int4w decoders of each lineage, the gates lowered so the
+    causal / banded flash kernel runs the prefill where the op allows
+    it: prefill logits on the card (kernels; the decode kernel for GPT)
+    within 1e-4 x scale of the CPU's (plain versions), greedy tokens over
+    a ring for the sliding models equal."""
+    from simpleinfer_tpu_torch import zoo
+
+    for key in ("SI_FLASH_MIN_LK", "SI_FLASH_MIN_LQ", "SI_FLASH_BAND_MIN_LK",
+                "SI_FLASH_BAND_MIN_LQ"):
+        monkeypatch.setenv(key, "32")
+    fn, kw = LINEAGES[name]
+    window = kw["seq_len"]
+    rng = np.random.default_rng(2)
+    tokens = np.zeros((2, window), np.float32)
+    lengths = np.array([window - 20, 9])
+    for i, p in enumerate(lengths):
+        tokens[i, :p] = rng.integers(0, 64, p)
+    prompt = rng.integers(0, 64, (2, window - 30))
+    logits, toks = [], []
+    for dev, uk in ((cuda, None), (torch.device("cpu"), True)):
+        eng = Engine(EngineConfig(device=str(dev), quant="int4w",
+                                  use_kernels=uk)).load_model(
+            None, graph=getattr(zoo, fn)(**kw)[0])
+        dec = CachedDecoder(eng, scratch_blocks=True,
+                            decode_attn="kernel" if name == "gpt"
+                            else "torch")
+        logits.append(dec.prefill(tokens, lengths)[0].cpu())
+        toks.append(dec.generate(prompt, steps=12, block=4))
+    scale = max(1.0, float(logits[1].abs().max()))
+    assert float((logits[0] - logits[1]).abs().max()) <= 1e-4 * scale
+    np.testing.assert_array_equal(toks[0], toks[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sw", [16, 64, 200])
+def test_banded_flash_on_projection_views(cuda, sw):
+    """The banded kernel on what a sliding prefill hands it: [N, H, L, D]
+    views of [N, L, H, D] projections, rows padded past each prompt,
+    bf16 and f32, against its plain version."""
+    rng = np.random.default_rng(sw)
+    n, length, h, d = 3, 256, 4, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (n, length, h, d)).astype(np.float32)).to(cuda, dtype)
+            .transpose(1, 2) for _ in range(3))
+        got = kattn.flash_attention(q, k, v, causal=True, sliding_window=sw)
+        ref = kattn.flash_attention_ref(q, k, v, causal=True,
+                                        sliding_window=sw)
+        torch.cuda.synchronize(cuda)
+        lim = 1e-4 * max(1.0, float(ref.float().abs().max()))
+        if dtype == torch.bfloat16:     # P's bf16 roundoff, both sides
+            lim = lim + 2.0 ** -7 * kattn.flash_attention_ref(
+                q.float(), k.float(), v.float().abs(), causal=True,
+                sliding_window=sw) + 2.0 ** -7 * ref.float().abs()
+        assert bool(((got.float() - ref.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_mha_noncausal_flash_on_card(cuda, monkeypatch):
+    """nn.MultiheadAttention past the non-causal gate (lowered here) runs
+    the flash kernel non-causally on the card and matches the CPU
+    port."""
+    from simpleinfer_tpu_torch.zoo import build_vit
+
+    monkeypatch.setenv("SI_FLASH_MIN_LK_NC", "16")
+    monkeypatch.setenv("SI_FLASH_MIN_LQ", "16")
+    kw = dict(variant="tiny", batch=2, image_size=32, patch_size=8,
+              num_classes=6, depth=2, embed_dim=32, num_heads=4)
+    x = np.random.default_rng(0).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32) / 3
+    outs = []
+    before = kattn.launches
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(EngineConfig(device=str(dev), use_kernels=True)
+                     ).load_model(None, graph=build_vit(**kw)[0])
+        with fp32_parity(True):
+            outs.append(eng.run({eng.input_names[0]: x})[
+                eng.output_names[0]])
+    assert kattn.launches - before == 2            # one per layer
+    scale = max(1.0, float(np.abs(outs[1]).max()))
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-4 * scale

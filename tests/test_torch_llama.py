@@ -277,14 +277,28 @@ def test_rotary_attention_vs_jax_lowering(extra):
 
 
 @pytest.mark.parametrize("param", ["sliding_window", "logit_softcap",
-                                   "alibi"])
+                                   "alibi", "alibi_sliding_window"])
 def test_rotary_attention_unported_options_raise(param):
+    """The options this test once held to "not ported yet" (the name is
+    kept): sliding_window, logit_softcap and alibi now lower as the JAX
+    package's do (op tolerance); alibi with a sliding window raises in
+    both packages."""
     x, attrs = _rattn_case(16, 4, 2)
-    params = dict(embed_dim=16, num_heads=4, num_kv_heads=2,
-                  **{param: 8 if param != "logit_softcap" else 30.0})
-    top = make_ops("si.RotaryAttention", params, attrs)[1]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlower(top, TCfg(device="cpu"))
+    opts = {"sliding_window": dict(sliding_window=5),
+            "logit_softcap": dict(logit_softcap=2.0),
+            "alibi": dict(alibi=1),
+            "alibi_sliding_window": dict(alibi=1, sliding_window=5)}[param]
+    params = dict(embed_dim=16, num_heads=4, num_kv_heads=2, **opts)
+    if param == "alibi_sliding_window":
+        jop, top = make_ops("si.RotaryAttention", params, attrs)
+        for lower, op, cfg in ((jlower, jop, JCfg()),
+                               (tlower, top, TCfg(device="cpu"))):
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                lower(op, cfg)
+        return
+    got, want = run_both("si.RotaryAttention", x, params, attrs)
+    np.testing.assert_allclose(got, want, atol=OP_TOL * max(
+        1.0, float(np.abs(want).max())), rtol=OP_TOL)
 
 
 @pytest.mark.parametrize("type_,params,attrs", [
