@@ -181,7 +181,43 @@ Phases, each printing JSON lines:
    short service run with no decode_attention launch, fp32 on the card
    vs the CPU port; ViT-B/16-224 and BERT-base-128 bf16 int8w kernels
    on vs off with matmul_int8w's launches a forward (one per
-   nn.Linear) and the kernel against its plain version there.
+   nn.Linear) and the kernel against its plain version there;
+14. `gen_http`: the llama "base" engine of the llama phases (loaded once,
+   kept) behind TieredGenerationService (tiers of 8 slots at windows 512
+   and 2048, horizon 8, KV bf16, the kv-prefix ladder and the sampler
+   cap in their auto modes) and InferenceServer(None, gen_service=...)
+   on an ephemeral port: 48 seeded requests (prompts 32-1900, 64 new,
+   mixed priorities) from 16 client threads — 24 greedy over SSE, 12
+   top-k sampled (JSON), 6 nucleus (SSE), 3 clients that hang up after
+   8 tokens, 3 with a deadline they cannot meet: TTFT, decode and output
+   tokens/s, each tier's requests and its cache bytes against one
+   full-window pool, the launches of matmul_int4w, flash_attention and
+   decode_attention (each above 0), the decode kernel's max_len values,
+   the dispatches by sampler and by rung, the scheduler's host time a
+   block; fails unless every greedy reply equals the decode of its
+   admission wave outside the service (gen_replay, which first checks
+   that every recorded rung covered its live rows' appends), every
+   hang-up's row was freed before its max_new and every expired request
+   ended as specified. The same requests in process on the tiers (their
+   schedulers waiting for the card outside the shared host lock, then
+   under it), then on one 16-slot pool with adaptive_horizon off and on
+   (its greedy replies replayed too); the decode kernel against its plain version with
+   each rung as max_len (rows under and past it); the rung sweep (young
+   and aged pools of 16: torch cut to the rung, the kernel with the rung
+   as max_len, the kernel over the window);
+15. `speculative`: SpeculativeDecoder(target = that engine, k 4) on 16
+   prompts with two drafts (the target itself, llama "small" at vocab
+   32000 and window 2048, random weights), each decoding through the
+   decode kernel: tokens/s against CachedDecoder.generate, acceptance,
+   agreement with the target's greedy stream (each first difference with
+   its top-2 logit gap, not a failure in bf16), the verify chunks'
+   matmul_int4w launches and time at M = 64 beside torch.matmul and the
+   bound, matmul_int4w at the fused q|k|v width; fuse_qkv on vs off (a
+   decode step's wall and card time, launches, the fused bytes); the
+   capped sampler (sample_cap="auto"'s cap) against the exact one, in a
+   decode step and alone on [16, 32000] logits; in fp32
+   (TF32 off) at depth 2 the speculative output must equal target-only
+   greedy for both drafts.
 
 The line before the last two is the card's nvidia-smi name and power
 limit, then {"kernels": [...]}, then {"ok": true, "device": {...}}. Any
@@ -2254,8 +2290,8 @@ def llama_kernel_checks(device, main_shapes=None, seed=3, ragged=True,
 
     # decode_attention: (N, KV, G, L, D, q dtype, cache, lengths,
     # max_len, main?)
-    dcases = [(n, kv, g, l, d, qd, c, lens, None, True)
-              for (n, kv, g, l, d, qd, c, lens) in main_shapes.get(
+    dcases = [(n, kv, g, l, d, qd, c, lens, (ml[0] if ml else None), True)
+              for (n, kv, g, l, d, qd, c, lens, *ml) in main_shapes.get(
                   "decode_attention", [])]
     for c in ("bfloat16", "float32", "int8") if ragged else ():
         for qd in ("bfloat16", "float32"):
@@ -2362,14 +2398,17 @@ def flash_gate_sweep(device, rows=12, heads=32, d=64,
 
 
 def llama_engine(device, compute="bfloat16", quant="int4w", use_kernels=None,
-                 **kw):
+                 graph=None, **kw):
     """A llama Engine on `device` (seeded random weights); returns
-    (engine, seconds to build the graph, seconds to load)."""
+    (engine, seconds to build the graph, seconds to load). `graph`: a
+    graph an earlier engine loaded (lm_engines' rule: nothing is left to
+    expand or fuse), built anew from LLAMA and kw when not given."""
     from simpleinfer_tpu_torch import Engine, EngineConfig
     from simpleinfer_tpu_torch.zoo import build_llama
 
     t0 = time.perf_counter()
-    graph, _, _ = build_llama(**{**LLAMA, **kw})
+    if graph is None:
+        graph, _, _ = build_llama(**{**LLAMA, **kw})
     t1 = time.perf_counter()
     eng = Engine(EngineConfig(compute_dtype=compute, quant=quant,
                               int4_group=128, device=str(device),
@@ -2691,6 +2730,51 @@ def median_lengths(rec):
     return lens[order[len(order) // 2]]
 
 
+def int4w_unit_times(device, gen, flush, keys_per_unit, iters) -> tuple:
+    """matmul_int4w at each recorded (M, K, N, x dtype, out dtype, bias,
+    activation) key, weighted by its launches per unit (a decode step, a
+    prefill wave, a verify chunk): the kernel, its plain version,
+    torch.matmul on the weight dequantized to bf16 and the bound (CUDA
+    events, the L2 flushed). Returns (the unit's totals, a row per
+    key)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+
+    peak = PEAK_FLOPS["bfloat16"]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, launches=0)
+    rows = []
+    for key, per in sorted(keys_per_unit.items(), key=str):
+        m, k, n, xd, od, has_b, act = key
+        x, q, bias = _int4_case(gen, device, m, k, n, getattr(torch, xd))
+        b = bias.to(x.dtype) if has_b else None
+        od_t = getattr(torch, od)
+        w_deq = q.dequantize(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        nbytes = (x.numel() * x.element_size() + q.packed.numel()
+                  + q.scale.numel() * 4 + m * n * od_t.itemsize
+                  + (n * b.element_size() if b is not None else 0))
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = 2.0 * m * n * k / peak * 1e3
+        t = {"ms": _time_ms(device, lambda: kmm.matmul_int4w(
+                 x, q, b, act, out_dtype=od_t), iters, flush),
+             "plain_ms": _time_ms(device, lambda: kmm.matmul_int4w_ref(
+                 x, q, b, act, out_dtype=od_t), iters, flush),
+             "library_ms": _time_ms(device, lambda: torch.matmul(
+                 xb, w_deq), iters, flush),
+             "bound_ms": max(t_b, t_o)}
+        rows.append({"shape": [m, k, n], "out": od, "per_unit": per, **t})
+        for kk, v in t.items():
+            tot[kk] += per * v
+        tot["bytes_ms"] += per * t_b
+        tot["ops_ms"] += per * t_o
+        tot["launches"] += per
+        del x, q, bias, w_deq, xb
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
+        else "operations"
+    return tot, rows
+
+
 def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
                        seed=5, prefix="") -> dict:
     """Each kernel's time at the main path's shapes beside its plain
@@ -2709,7 +2793,6 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     import torch.nn.functional as F
     from simpleinfer_tpu_torch.kernels import attention as kattn
     from simpleinfer_tpu_torch.kernels import decode_attn as kdec
-    from simpleinfer_tpu_torch.kernels import matmul as kmm
 
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
@@ -2717,41 +2800,7 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     peak = PEAK_FLOPS["bfloat16"]
 
     def int4w_sum(keys_per_unit, iters):
-        """matmul_int4w at each recorded (shape, dtypes) key, weighted by
-        its launches per unit (a decode step or a prefill wave)."""
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, ops_ms=0.0, launches=0)
-        rows = []
-        for key, per in sorted(keys_per_unit.items(), key=str):
-            m, k, n, xd, od, has_b, act = key
-            x, q, bias = _int4_case(gen, device, m, k, n, getattr(torch, xd))
-            b = bias.to(x.dtype) if has_b else None
-            od_t = getattr(torch, od)
-            w_deq = q.dequantize(torch.bfloat16)
-            xb = x.to(torch.bfloat16)
-            nbytes = (x.numel() * x.element_size() + q.packed.numel()
-                      + q.scale.numel() * 4 + m * n * od_t.itemsize
-                      + (n * b.element_size() if b is not None else 0))
-            t_b = nbytes / HBM_BYTES_PER_S * 1e3
-            t_o = 2.0 * m * n * k / peak * 1e3
-            t = {"ms": _time_ms(device, lambda: kmm.matmul_int4w(
-                     x, q, b, act, out_dtype=od_t), iters, flush),
-                 "plain_ms": _time_ms(device, lambda: kmm.matmul_int4w_ref(
-                     x, q, b, act, out_dtype=od_t), iters, flush),
-                 "library_ms": _time_ms(device, lambda: torch.matmul(
-                     xb, w_deq), iters, flush),
-                 "bound_ms": max(t_b, t_o)}
-            rows.append({"shape": [m, k, n], "out": od, "per_unit": per,
-                         **t})
-            for kk, v in t.items():
-                tot[kk] += per * v
-            tot["bytes_ms"] += per * t_b
-            tot["ops_ms"] += per * t_o
-            tot["launches"] += per
-            del x, q, bias, w_deq, xb
-        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
-            else "operations"
-        return tot, rows
+        return int4w_unit_times(device, gen, flush, keys_per_unit, iters)
 
     # matmul_int4w per decode step: decode steps = decode launches /
     # layers; a prefill's gathered last rows add a few M = slots calls of
@@ -3651,6 +3700,1124 @@ def lineage_rehearsal(device) -> None:
         bloom_fp32=dict(seq_len=32, prompt_len=20), prompt_range=(4, 30),
         max_new=6)
 
+
+# ---- LLM serving over HTTP, and speculative decoding ---------------------
+# the tiered service of gen_http: (slots, window) pools, the scheduler's
+# horizon, KV bf16, the rung ladder and sampler cap in their auto modes
+GEN_HTTP = dict(tiers=((8, 512), (8, None)), decode_horizon=8,
+                kv_dtype="bfloat16", kv_prefix_ladder="auto",
+                sample_cap="auto")
+# the 48 requests of gen_http by kind: greedy (SSE), top-k sampled (the
+# capped sampler; JSON), nucleus (the exact sampler; SSE), clients that
+# hang up after GEN_HANGUP_AFTER tokens (SSE) and requests with a
+# deadline they cannot meet (JSON)
+GEN_MIX = (("greedy", 24), ("topk", 12), ("topp", 6), ("hangup", 3),
+           ("expire", 3))
+GEN_KIND_KW = {"topk": dict(temperature=0.8, top_k=40),
+               "topp": dict(temperature=0.8, top_p=0.9),
+               "expire": dict(timeout_s=0.02)}
+GEN_SSE = ("greedy", "topp", "hangup")
+GEN_PRIORITIES = (-1, 0, 0, 1, 2)
+GEN_HANGUP_AFTER = 8
+GEN_CLIENTS = 16
+# the rung sweep's pools (16 slots, window 2048): (lengths low, high, the
+# rung over them): young, mid and aged
+RUNG_POOLS = {"young": (32, 200, 256), "mid": (300, 480, 512),
+              "aged": (700, 1000, 1024)}
+# speculative decoding: 16 prompts of SPEC_PROMPT tokens, SPEC_STEPS new,
+# k tokens a round; the weak draft is llama "small" at the target's
+# vocabulary and window
+SPEC = dict(k=4, prompts=16, prompt_len=256, steps=64)
+SPEC_DRAFT = dict(LLAMA, variant="small")
+SPEC_FP32 = dict(depth=2, seq_len=512, prompt_len=128, steps=48)
+
+
+def gen_requests(vocab, prompt_range=PROMPT_RANGE, max_new=MAX_NEW,
+                 mix=GEN_MIX, seed=0) -> list:
+    """gen_http's requests, seeded: prompt lengths uniform in
+    `prompt_range`, kinds in `mix` shuffled, priorities from
+    GEN_PRIORITIES. Each: {i, kind, prompt, max_new, kw (submit's
+    keywords), stream}."""
+    rng = np.random.default_rng(seed)
+    kinds = [k for k, n in mix for _ in range(n)]
+    rng.shuffle(kinds)
+    out = []
+    for i, kind in enumerate(kinds):
+        p = rng.integers(0, vocab, int(rng.integers(prompt_range[0],
+                                                    prompt_range[1] + 1)))
+        out.append({"i": i, "kind": kind, "prompt": p.tolist(),
+                    "max_new": max_new, "stream": kind in GEN_SSE,
+                    "kw": dict(GEN_KIND_KW.get(kind, {}), priority=int(
+                        rng.choice(GEN_PRIORITIES)))})
+    return out
+
+
+def _sse_request(host, port, body: dict, hang_up_after=None) -> dict:
+    """POST /v1/generate with "stream": true over a raw socket: the token
+    events as they come (the first one's time), then the done or error
+    event; with `hang_up_after` the socket is closed after that many
+    tokens."""
+    import socket
+
+    data = json.dumps({**body, "stream": True}).encode()
+    t0 = time.perf_counter()
+    sock = socket.create_connection((host, port), timeout=900)
+    out = {"tokens": [], "ttft_s": None, "status": None}
+    try:
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(data)).encode() + b"\r\n\r\n" + data)
+        reader = sock.makefile("rb")
+        out["status"] = int(reader.readline().split()[1])
+        while reader.readline() not in (b"\r\n", b"\n", b""):
+            pass
+        for line in reader:
+            if not line.startswith(b"data: "):
+                continue
+            ev = json.loads(line[6:])
+            if "token" in ev:
+                if out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+                out["tokens"].append(ev["token"])
+                if hang_up_after and len(out["tokens"]) >= hang_up_after:
+                    out["hung_up"] = True
+                    break
+            else:
+                out["final"] = ev
+                break
+        reader.close()
+    finally:
+        sock.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _json_request(host, port, body: dict) -> dict:
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(host, port, timeout=900)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out = {"status": r.status, "final": json.loads(r.read())}
+    finally:
+        conn.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def gen_load(reqs, call, clients=GEN_CLIENTS) -> tuple:
+    """Run `call(req)` for every request from `clients` threads (each
+    takes the next request as it finishes one); returns (results in
+    request order, wall seconds)."""
+    import queue
+    import threading
+
+    todo = queue.Queue()
+    for r in reqs:
+        todo.put(r)
+    results = [None] * len(reqs)
+
+    def worker():
+        while True:
+            try:
+                r = todo.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                results[r["i"]] = call(r)
+            except BaseException as e:        # surfaced by the checks
+                results[r["i"]] = {"error": repr(e)}
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1200)
+    return results, time.perf_counter() - t0
+
+
+def http_call(host, port):
+    """gen_load's call over HTTP: SSE or JSON by the request's kind."""
+    def call(r):
+        body = {"prompt": r["prompt"], "max_new": r["max_new"], **r["kw"]}
+        if r["stream"]:
+            return _sse_request(host, port, body, GEN_HANGUP_AFTER
+                                if r["kind"] == "hangup" else None)
+        return _json_request(host, port, body)
+    return call
+
+
+def inproc_call(svc):
+    """gen_load's call in process: submit_stream (a hang-up cancels after
+    GEN_HANGUP_AFTER tokens) or submit, the same results as http_call's
+    (a deadline's TimeoutError as the server's 500 reply)."""
+    def call(r):
+        t0 = time.perf_counter()
+        out = {"tokens": [], "ttft_s": None, "status": 200}
+        try:
+            if r["stream"]:
+                h = svc.submit_stream(r["prompt"], r["max_new"], **r["kw"])
+                for tok in h:
+                    if out["ttft_s"] is None:
+                        out["ttft_s"] = time.perf_counter() - t0
+                    out["tokens"].append(tok)
+                    if r["kind"] == "hangup" and \
+                            len(out["tokens"]) >= GEN_HANGUP_AFTER:
+                        svc.cancel(h.future)
+                        out["hung_up"] = True
+                        break
+                ids = h.result(timeout=900)
+            else:
+                ids = svc.submit(r["prompt"], r["max_new"],
+                                 **r["kw"]).result(timeout=900)
+            out["final"] = {"ids": np.asarray(ids).tolist(),
+                            "prompt_len": len(r["prompt"])}
+        except TimeoutError as e:
+            out["status"] = 500
+            out["final"] = {"error": f"TimeoutError: {e}"}
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    return call
+
+
+class GenProbe:
+    """Instruments a TieredGenerationService's tiers for one run: each
+    decode_block dispatch (its k, rung, cap and attention route, its
+    host enqueue time and each row's request and fed position, for the
+    replay), each admission wave (its inputs, synchronised for its
+    time), each finished request (its end, cancelled or past its
+    deadline), each scheduler thread's CPU time and its wall time in
+    _fetch (the wait for the card, and for the host lock after it where
+    the fetch lets the lock go)."""
+
+    def __init__(self, tsvc, device, block_delay_s=0.0):
+        import torch
+
+        self.device = device
+        self.tsvc = tsvc
+        self.dispatch, self.waves, self.finished = [], [], []
+        self.cpu_s = [0.0] * len(tsvc.services)
+        self.fetch_s = [0.0] * len(tsvc.services)
+        for t, svc in enumerate(tsvc.services):
+            dec = svc._dec
+            block, install = dec.decode_block, dec.prefill_install
+            finish, loop, fetch = svc._finish, svc._loop_inner, svc._fetch
+
+            def spy_block(*a, _t=t, _svc=svc, _f=block, **kw):
+                if block_delay_s:     # the CPU rehearsal: a card's pace
+                    time.sleep(block_delay_s)
+                t0 = time.perf_counter()
+                out = _f(*a, **kw)
+                self.dispatch.append({
+                    "tier": _t, "k": int(a[8]),
+                    "prefix": a[9] if len(a) > 9 else kw.get("kv_prefix"),
+                    "cap": kw.get("sample_cap", "default"),
+                    "attn": kw.get("attn_impl", "default"),
+                    "enqueue_s": time.perf_counter() - t0,
+                    "rows": [(r, int(p)) for r, p in zip(
+                        list(_svc._active), np.asarray(a[1]))]})
+                return out
+
+            def spy_install(tokens, lengths, seed, step, t_, k_, p_, caches,
+                            rows, _t=t, _svc=svc, _f=install, **kw):
+                t0 = time.perf_counter()
+                out = _f(tokens, lengths, seed, step, t_, k_, p_, caches,
+                         rows, **kw)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.waves.append({
+                    "tier": _t, "tokens": np.array(tokens),
+                    "lengths": np.array(lengths), "rows": np.array(rows),
+                    "reqs": [_svc._active[int(i)] for i in rows],
+                    "s": time.perf_counter() - t0})
+                return out
+
+            def spy_finish(i, active, bufs, end, req, _f=finish):
+                self.finished.append({
+                    "req": req, "end": int(end),
+                    "cancelled": bool(req.cancelled),
+                    "expired": req.deadline_s is not None
+                    and time.perf_counter() > req.deadline_s})
+                return _f(i, active, bufs, end, req)
+
+            def timed_fetch(toks, _t=t, _f=fetch):
+                t0 = time.perf_counter()
+                try:
+                    return _f(toks)
+                finally:
+                    self.fetch_s[_t] += time.perf_counter() - t0
+
+            def timed_loop(_t=t, _f=loop):
+                c0 = time.thread_time()
+                try:
+                    _f()
+                finally:
+                    self.cpu_s[_t] += time.thread_time() - c0
+
+            dec.decode_block = spy_block
+            dec.prefill_install = spy_install
+            svc._finish = spy_finish
+            svc._loop_inner = timed_loop
+            svc._fetch = timed_fetch
+
+    def detach(self) -> None:
+        """The tiers' own methods back (the replay calls the decoders)."""
+        for svc in self.tsvc.services:
+            for obj, name in ((svc._dec, "decode_block"),
+                              (svc._dec, "prefill_install"),
+                              (svc, "_finish"), (svc, "_loop_inner"),
+                              (svc, "_fetch")):
+                obj.__dict__.pop(name, None)
+
+
+def gen_service(engine, **kw):
+    from simpleinfer_tpu_torch.serving import TieredGenerationService
+
+    return TieredGenerationService(engine, **{**GEN_HTTP, **kw})
+
+
+def gen_run(engine, device, reqs, http: bool, label: str,
+            block_delay_s=0.0, fetch_under_lock=False, **svc_kw) -> dict:
+    """One load of `reqs` on a fresh warmed tiered service, over HTTP
+    (InferenceServer(None, gen_service=...) on an ephemeral port) or in
+    process (`fetch_under_lock`: each scheduler waits for its fetches
+    holding the tiers' host lock, as GenerationService did before its
+    _fetch let it go): TTFT (first token of the streamed requests), decode and
+    output tokens/s, each tier's requests, the kernels' launches (counts
+    set to 0 just before), the decode kernel's max_len values,
+    dispatches by cap mode and by rung, and the scheduler's host time a
+    block; then the checks: every greedy reply whole and in range, every
+    hang-up freed before its max_new, every expired request failed at
+    admission (TimeoutError) or cut short."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.serving import InferenceServer
+
+    tsvc = gen_service(engine, **svc_kw)
+    if fetch_under_lock:
+        for svc in tsvc.services:
+            svc._fetch = lambda t: t.cpu().numpy()
+    t0 = time.perf_counter()
+    tsvc.warmup()
+    warm_s = time.perf_counter() - t0
+    probe = GenProbe(tsvc, device, block_delay_s)
+    server = None
+    tsvc.start()
+    if http:
+        server = InferenceServer(None, port=0, gen_service=tsvc).start()
+        call = http_call(*server.address[:2])
+    else:
+        call = inproc_call(tsvc)
+    max_lens: dict = {}
+    orig_dec = kdec.decode_attention
+
+    def count_max_len(*a, **kw):
+        ml = kw.get("max_len")
+        max_lens[ml] = max_lens.get(ml, 0) + 1
+        return orig_dec(*a, **kw)
+
+    kmm.launches_int4w = kattn.launches = kdec.launches = 0
+    kdec.decode_attention = count_max_len
+    try:
+        results, wall = gen_load(reqs, call)
+        stats = json.loads(urllib_get(server, "/v1/stats")) if http \
+            else None
+        metrics = urllib_get(server, "/metrics") if http else None
+    finally:
+        kdec.decode_attention = orig_dec
+        if server is not None:
+            server.stop()
+        tsvc.stop()
+        probe.detach()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {"matmul_int4w": kmm.launches_int4w,
+                "flash_attention": kattn.launches,
+                "decode_attention": kdec.launches}
+    res = gen_summary(reqs, results, wall, probe, tsvc, label)
+    res.update(warmup_s=warm_s, launches=launches,
+               decode_max_len={str(k): v for k, v in sorted(
+                   max_lens.items(), key=lambda kv: kv[0] or 1 << 30)})
+    if http:
+        res["stats_requests"] = stats["requests"]
+        res["metrics_tokens"] = float(parse_metrics(metrics)[
+            "si_gen_tokens_total"])
+    emit(res)
+    gen_checks(reqs, results, probe, res, device, vocab_of(engine))
+    return {"res": res, "results": results, "probe": probe, "svc": tsvc}
+
+
+def urllib_get(server, path) -> str:
+    import urllib.request
+
+    host, port = server.address[:2]
+    with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                timeout=60) as r:
+        return r.read().decode()
+
+
+def gen_summary(reqs, results, wall, probe, tsvc, label) -> dict:
+    """The readings of one gen_run."""
+    ttft = [r["ttft_s"] * 1e3 for r in results
+            if r and r.get("ttft_s") is not None]
+    tokens = []
+    for q, r in zip(reqs, results):
+        ids = (r or {}).get("final", {}).get("ids")
+        tokens.append(len(ids) - len(q["prompt"]) if ids else
+                      len((r or {}).get("tokens", [])))
+    prefill_s = sum(w["s"] for w in probe.waves)
+    blocks = [sum(d["tier"] == t for d in probe.dispatch)
+              for t in range(len(tsvc.services))]
+    by_cap, by_rung = {}, {}
+    for d in probe.dispatch:
+        cap = "capped" if d["cap"] not in (None, "default") else "exact"
+        by_cap[cap] = by_cap.get(cap, 0) + 1
+        key = f"tier{d['tier']}:{d['prefix']}"
+        by_rung[key] = by_rung.get(key, 0) + 1
+    per_tier = [s.stats for s in tsvc.services]
+    full = tsvc.services[-1]._dec.cache_nbytes(
+        sum(s._slots for s in tsvc.services))
+    return {
+        "phase": f"gen_http_{label}", "requests": len(reqs),
+        "kinds": {k: sum(q["kind"] == k for q in reqs) for k, _ in GEN_MIX},
+        "wall_s": wall, "ttft": _ms_stats(ttft) if ttft else None,
+        "decode_tok_s": sum(max(0, t - 1) for t in tokens)
+        / max(1e-9, wall - prefill_s),
+        "output_tok_s": sum(tokens) / wall,
+        "prefill_waves": len(probe.waves), "prefill_s": prefill_s,
+        "tier_windows": tsvc.windows,
+        "tier_requests": [s.requests for s in per_tier],
+        "tier_share": [s.requests / max(1, len(reqs)) for s in per_tier],
+        "tier_cache_bytes": [s._dec.cache_nbytes(s._slots)
+                             for s in tsvc.services],
+        "cache_bytes": tsvc.cache_bytes(), "full_window_pool_bytes": full,
+        "cache_ratio": tsvc.cache_bytes() / full,
+        "dispatches_by_cap": by_cap, "dispatches_by_rung": by_rung,
+        "blocks_per_tier": blocks,
+        "scheduler_cpu_ms_per_block": [
+            1e3 * c / max(1, b) for c, b in zip(probe.cpu_s, blocks)],
+        "enqueue_ms_per_block": 1e3 * sum(
+            d["enqueue_s"] for d in probe.dispatch)
+        / max(1, len(probe.dispatch)),
+        "fetch_ms_per_block": [
+            1e3 * f / max(1, b) for f, b in zip(probe.fetch_s, blocks)],
+        "cancelled": sum(s.cancelled for s in per_tier),
+        "timed_out": sum(s.timed_out for s in per_tier),
+        "capped_steps": sum(s.capped_steps for s in per_tier),
+        "steps": sum(s.steps for s in per_tier)}
+
+
+def gen_checks(reqs, results, probe, res, device, vocab) -> None:
+    """Fails unless every request but the expiring ones came back whole
+    (hang-ups: the tokens read), greedy and sampled tokens in range,
+    every hang-up's row was freed before its max_new, and every expiring
+    request failed with a TimeoutError (queued at its deadline) or ended
+    short of its max_new counted as timed out; on the card, the three
+    kernels launched."""
+    bad, hung, hung_freed, expired, expired_ok = [], 0, 0, 0, 0
+    by_prompt = {tuple(f["req"].prompt.tolist()): f for f in probe.finished}
+    for q, r in zip(reqs, results):
+        if not r or "error" in r:
+            bad.append((q["i"], q["kind"], (r or {}).get("error")))
+            continue
+        final = r.get("final", {})
+        if q["kind"] == "hangup":
+            hung += 1
+            f = by_prompt.get(tuple(q["prompt"]))
+            if f and f["cancelled"] and \
+                    f["end"] - len(q["prompt"]) < q["max_new"]:
+                hung_freed += 1
+            continue
+        if q["kind"] == "expire":
+            expired += 1
+            f = by_prompt.get(tuple(q["prompt"]))
+            queued = r["status"] == 500 and "deadline passed while queued" \
+                in final.get("error", "")
+            cut = r["status"] == 200 and f is not None and f["expired"] \
+                and len(final.get("ids", [])) - len(q["prompt"]) \
+                < q["max_new"]
+            expired_ok += bool(queued or cut)
+            continue
+        ids = final.get("ids")
+        if r["status"] != 200 or ids is None or \
+                len(ids) != len(q["prompt"]) + q["max_new"] or \
+                ids[:len(q["prompt"])] != q["prompt"] or \
+                min(ids) < 0 or max(ids) >= vocab or \
+                (r.get("tokens") and r["tokens"] != ids[len(q["prompt"]):]):
+            bad.append((q["i"], q["kind"], r.get("status")))
+    res.update(hung_up=hung, hung_up_freed=hung_freed, expired=expired,
+               expired_as_specified=expired_ok, bad=bad[:5])
+    emit({"phase": res["phase"] + "_checks", "hung_up": hung,
+          "hung_up_freed": hung_freed, "expired": expired,
+          "expired_as_specified": expired_ok, "bad": bad[:5]})
+    if bad or hung_freed != hung or expired_ok != expired:
+        raise AssertionError(f"{res['phase']}: bad replies {bad[:5]}, "
+                             f"hang-ups freed {hung_freed} / {hung}, "
+                             f"expired as specified {expired_ok} / "
+                             f"{expired}")
+    if device.type == "cuda":
+        missing = [k for k, v in res["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"{res['phase']}: kernels not launched "
+                                 f"on the served path: {missing}")
+
+
+def gen_replay(tsvc, probe, reqs, results, phase) -> dict:
+    """Every greedy reply against a decode outside the service of its
+    admission wave: the wave's own prefill inputs (its rows, bucket
+    width and lengths; every row greedy) into a pool of the tier's size
+    at the same rows, then the decode blocks that carried the wave, at
+    their horizon, rung and attention route (the service's pool-global
+    choices). The rows are independent, so each greedy row is its
+    prompt's decode with the service's shapes and summation orders;
+    fails unless every token is equal. The replay takes the service's
+    rungs as they were, so a rung too short for a live row would cut
+    both sides alike: first, outside the service's code, every recorded
+    rung must cover each live row's appends (rung >= fed position + k)."""
+    short = [{"tier": d["tier"], "k": d["k"], "rung": d["prefix"],
+              "need": max(p for r, p in d["rows"] if r is not None)
+              + d["k"]}
+             for d in probe.dispatch if d["prefix"] is not None
+             and any(r is not None for r, _ in d["rows"])]
+    short = [d for d in short if d["rung"] < d["need"]]
+    if short:
+        raise AssertionError(f"{phase}: rungs below a live row's appends: "
+                             f"{short[:5]}")
+    greedy = {tuple(q["prompt"]): r for q, r in zip(reqs, results)
+              if q["kind"] == "greedy"}
+    rows_out, checked = [], 0
+    for wave in probe.waves:
+        mine = [(j, req) for j, req in enumerate(wave["reqs"])
+                if tuple(req.prompt.tolist()) in greedy]
+        if not mine:
+            continue
+        t = wave["tier"]
+        svc = tsvc.services[t]
+        dec, n = svc._dec, svc._slots
+        ids = {id(req) for _, req in mine}
+        carried = [d for d in probe.dispatch if d["tier"] == t and any(
+            id(r) in ids for r, _ in d["rows"])]
+        na = len(wave["reqs"])
+        caches = dec.init_cache(n)
+        tok, caches = dec.prefill_install(
+            wave["tokens"], wave["lengths"], 0, 0, np.zeros(na, np.float32),
+            np.zeros(na, np.int64), np.ones(na, np.float32), caches,
+            wave["rows"], sample_cap=None)
+        last = dec.merge_tokens(np.zeros(n, np.int64), tok, wave["rows"])
+        fed = np.zeros(n, np.int64)
+        fed[wave["rows"]] = wave["lengths"]
+        out = [[int(v)] for v in tok.cpu().numpy()]
+        need = max(req.max_new for _, req in mine)
+        zn, kn, on = (np.zeros(n, np.float32), np.zeros(n, np.int64),
+                      np.ones(n, np.float32))
+        for d in carried:
+            if min(len(out[j]) for j, _ in mine) >= need:
+                break
+            toks, last, caches = dec.decode_block(
+                last, fed, caches, 0, 1, zn, kn, on, d["k"], d["prefix"],
+                sample_cap=None, attn_impl=d["attn"])
+            toks = toks.cpu().numpy()
+            for j, _ in mine:
+                out[j].extend(toks[wave["rows"][j]].tolist())
+            fed = np.minimum(fed + d["k"], dec._window - 1)
+        for j, req in mine:
+            want = greedy[tuple(req.prompt.tolist())]["final"]["ids"]
+            got = req.prompt.tolist() + out[j][:req.max_new]
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            checked += 1
+            rows_out.append({"tier": t, "prompt_len": len(req.prompt),
+                             "width": int(wave["tokens"].shape[1]),
+                             "equal": got == want,
+                             "first_diff": diff[0] if diff else None})
+    res = {"phase": phase, "greedy": len(greedy), "checked": checked,
+           "rungs_checked": sum(d["prefix"] is not None
+                                for d in probe.dispatch),
+           "waves": len({id(w) for w in probe.waves}),
+           "all_equal": all(r["equal"] for r in rows_out),
+           "unequal": [r for r in rows_out if not r["equal"]][:5]}
+    emit(res)
+    if checked != len(greedy) or not res["all_equal"]:
+        raise AssertionError(f"{phase}: greedy replies differ from their "
+                             f"decode outside the service: {res}")
+    return res
+
+
+def decode_kernel_rung_times(device, qh, k, v, lengths, rung, layers,
+                             flush) -> dict:
+    """decode_attention alone for one decode step (one launch a layer) at
+    `lengths` under `rung`: with the rung as max_len, over the whole
+    window, its plain version, SDPA over the rung's positions with a
+    length mask, and the bound (the live positions' k / v bytes, q and
+    the outputs once; 4 flops a key a query dimension)."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+
+    n, heads, _, d = qh.shape
+    kvh = k.shape[1]
+    q4 = qh[:, :, 0, :].reshape(n, kvh, heads // kvh, d).contiguous()
+    lens = lengths.to(torch.int32)
+    scale = 1.0 / math.sqrt(d)
+    ks, vs = k[:, :, :rung], v[:, :, :rung]
+    mask = (torch.arange(rung, device=device)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    kd, vd = ks.to(q4.dtype), vs.to(q4.dtype)
+    live = int(lens.sum())
+    nbytes = (2 * live * kvh * d * k.element_size()
+              + q4.numel() * q4.element_size() + n * heads * (d + 2) * 4)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4.0 * live * heads * d / PEAK_FLOPS["bfloat16"] * 1e3
+    return {
+        "decode_kernel_rung_ms": layers * _time_ms(
+            device, lambda: kdec.decode_attention(
+                q4, k, v, lens, scale=scale, max_len=rung), flush=flush),
+        "decode_kernel_full_ms": layers * _time_ms(
+            device, lambda: kdec.decode_attention(q4, k, v, lens,
+                                                  scale=scale),
+            flush=flush),
+        "decode_plain_ms": layers * _time_ms(
+            device, lambda: kdec.decode_attention_ref(
+                q4, k, v, torch.clamp(lens, max=rung), scale=scale),
+            flush=flush),
+        "decode_library_ms": layers * _time_ms(
+            device, lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, scale=scale), flush=flush),
+        "decode_bound_ms": layers * max(t_b, t_o),
+        "decode_bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def rung_sweep(engine, device, slots=SERVICE["slots"], pools=RUNG_POOLS,
+               seed=29) -> dict:
+    """The rung routes of GenerationService (decode_attn="auto") on the
+    card: a decode step's frozen-cache attention (one scratch slot) at
+    16 slots and window 2048 over pools of each RUNG_POOLS age (lengths
+    uniform in its range, all under its rung), through (a) the torch
+    route cut to the rung, (b) the decode kernel with the rung as
+    max_len, (c) the kernel over the whole window, and the torch route
+    over the whole window; device time a step (every layer; CUDA events,
+    L2 flushed, a spin covering the host's enqueue), (b) and (c) timed
+    twice in turns (b c c b); then decode_attention alone with and
+    without the rung as max_len (decode_kernel_rung_times), which parts
+    (b) from (c) without the scratch part's torch calls around it. The
+    fastest route per pool, and the largest rung where max_len made the
+    kernel faster, beside KERNEL_RUNG_MAX."""
+    import torch
+    from simpleinfer_tpu_torch.serving import GenerationService
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                        scratch_blocks=True, decode_attn="kernel")
+    _name, info = dec._mha_ops[0]
+    heads, kvh, d = dec._geometry(info)
+    layers = len(dec._mha_ops)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    rng = np.random.default_rng(seed)
+    readings = []
+    for name, (lo, hi, rung) in pools.items():
+        k, v = (torch.randn(slots, kvh, dec._window, d, generator=gen,
+                            device=device).to(dec._kv_store)
+                for _ in range(2))
+        scr = tuple(torch.randn(slots, kvh, 1, d, generator=gen,
+                                device=device).to(dec._kv_store)
+                    for _ in range(2))
+        qh = torch.randn(slots, heads, 1, d, generator=gen,
+                         device=device).bfloat16()
+        pos0 = torch.as_tensor(rng.integers(lo, hi + 1, slots),
+                               dtype=torch.long, device=device)
+
+        def route(kernel, prefix):
+            return lambda: dec._attend_frozen_scratch(
+                qh, (k, v), scr, 0, pos0, pos0, info, torch.bfloat16,
+                kernel, prefix)
+
+        def timed(kernel, prefix):
+            return layers * _time_ms(device, route(kernel, prefix), 10,
+                                     flush, 20 * SPIN_CYCLES)
+
+        t = {"pool": name, "lengths": [lo, hi], "rung": rung}
+        with torch.inference_mode():
+            t["torch_rung_ms"] = timed(False, rung)
+            b1, c1, c2, b2 = (timed(True, rung), timed(True, None),
+                              timed(True, None), timed(True, rung))
+            t["kernel_rung_ms"], t["kernel_full_ms"] = (b1 + b2) / 2, \
+                (c1 + c2) / 2
+            t["kernel_rung_turns"], t["kernel_full_turns"] = [b1, b2], \
+                [c1, c2]
+            t["torch_full_ms"] = timed(False, None)
+            t.update(decode_kernel_rung_times(device, qh, k, v, pos0, rung,
+                                              layers, flush))
+            got = route(True, rung)()
+            want = route(False, rung)()
+        t["kernel_vs_torch_max_abs"] = float((got.float() - want.float())
+                                             .abs().max())
+        t["fastest"] = min(("torch_rung_ms", "kernel_rung_ms",
+                            "kernel_full_ms"), key=lambda kk: t[kk])
+        t["max_len_faster"] = (t["decode_kernel_rung_ms"]
+                               < t["decode_kernel_full_ms"])
+        readings.append(t)
+        del k, v, scr, qh
+    wins = [t["rung"] for t in readings if t["max_len_faster"]]
+    res = {"phase": "rung_sweep", "unit": "one decode step", "slots": slots,
+           "window": dec._window, "layers": layers, "readings": readings,
+           "torch_rung_ever_fastest": any(
+               t["fastest"] == "torch_rung_ms" for t in readings),
+           "largest_rung_max_len_wins": max(wins) if wins else None,
+           "kernel_rung_max": GenerationService.KERNEL_RUNG_MAX}
+    emit(res)
+    return res
+
+
+def gen_http_phase(device, kernels: dict, engine, n_reqs=None,
+                   prompt_range=PROMPT_RANGE, max_new=MAX_NEW, rungs=True,
+                   block_delay_s=0.0, uniform_slots=SERVICE["slots"],
+                   **svc_kw) -> dict:
+    """gen_http: llama "base" bf16 int4w behind TieredGenerationService
+    (GEN_HTTP) and InferenceServer(None, gen_service=...): the GEN_MIX
+    requests from GEN_CLIENTS client threads over HTTP (SSE and JSON);
+    the greedy replies against their admission waves' decode outside
+    the service (gen_replay); the same requests in process on the tiers
+    (their fetches outside the host lock and under it, in turns), then
+    on one
+    pool of `uniform_slots` full-window slots with adaptive_horizon off
+    and on (its greedy replies replayed too); the decode kernel against its plain
+    version at the served shapes with the rungs as max_len (rows under
+    and past them), and the rung sweep. Each part's seconds."""
+    vocab = vocab_of(engine)
+    mix = GEN_MIX if n_reqs is None else n_reqs
+    reqs = gen_requests(vocab, prompt_range, max_new, mix)
+    svc_kw["block_delay_s"] = block_delay_s
+    clock = [time.perf_counter()]
+
+    def lap():
+        now = time.perf_counter()
+        clock.append(now)
+        return now - clock[-2]
+
+    served = gen_run(engine, device, reqs, True, "served", **svc_kw)
+    t_served = lap()
+    gen_replay(served["svc"], served["probe"], reqs, served["results"],
+               "gen_http_greedy_vs_solo")
+    t_replay = lap()
+    # the tiers in process, their fetches outside the host lock and
+    # under it, in turns (out, held, held, out)
+    turns = [gen_run(engine, device, reqs, False, label, fetch_under_lock=h,
+                     **svc_kw)
+             for label, h in (("in_process", False),
+                              ("in_process_fetch_held", True),
+                              ("in_process_fetch_held_2", True),
+                              ("in_process_2", False))]
+    inproc, held = turns[0], turns[1]
+    uni = {"tiers": ((uniform_slots, None),)}
+    off = gen_run(engine, device, reqs, False, "uniform",
+                  **{**svc_kw, **uni})
+    on = gen_run(engine, device, reqs, False, "uniform_adaptive_horizon",
+                 adaptive_horizon=True, **{**svc_kw, **uni})
+    t_inproc = lap()
+    # the pow2 block ladder's tokens, held like the tiers' above
+    gen_replay(on["svc"], on["probe"], reqs, on["results"],
+               "gen_http_adaptive_greedy_vs_solo")
+    t_replay += lap()
+    keys = ("wall_s", "ttft", "decode_tok_s", "output_tok_s",
+            "scheduler_cpu_ms_per_block", "enqueue_ms_per_block",
+            "fetch_ms_per_block", "blocks_per_tier")
+    res = {"phase": "gen_http", "http": served["res"],
+           "in_process": inproc["res"], "in_process_fetch_held":
+           held["res"], "uniform": off["res"],
+           "fetch_turns": [{"label": r["res"]["phase"], **{
+               k: r["res"][k] for k in keys}} for r in turns],
+           "adaptive_vs_off": {"off": {k: off["res"][k] for k in keys},
+                               "on": {k: on["res"][k] for k in keys}}}
+    emit({"phase": "gen_http_summary", **{
+        run: {k: res[run][k] for k in keys + ("launches",)}
+        for run in ("http", "in_process", "in_process_fetch_held",
+                    "uniform")},
+        "fetch_turns": res["fetch_turns"],
+        "adaptive_vs_off": res["adaptive_vs_off"]})
+    # the decode kernel at the served shapes, each rung as max_len, rows
+    # under, at and past the rung
+    shapes = {"decode_attention": []}
+    for svc in served["svc"].services:
+        _, info = svc._dec._mha_ops[0]
+        _, kvh, d = svc._dec._geometry(info)
+        g = info["num_heads"] // kvh
+        for rung in svc._prefix_ladder:
+            lens = [0, 1, rung - 1, rung, rung + 1, svc._window] + \
+                np.random.default_rng(rung).integers(
+                    1, rung + 1, max(0, svc._slots - 6)).tolist()
+            shapes["decode_attention"].append(
+                (len(lens), kvh, g, svc._window, d, "bfloat16",
+                 "bfloat16", lens, rung))
+    worst = llama_kernel_checks(device, shapes, ragged=False,
+                                phase="gen_http_decode_rung_vs_plain")
+    if rungs and device.type == "cuda":
+        sweep = rung_sweep(engine, device)
+        young = next(t for t in sweep["readings"] if t["pool"] == "young")
+        kernels.setdefault("decode_attention", {"name": "decode_attention"})[
+            "rung"] = {
+            "launches": served["res"]["launches"]["decode_attention"],
+            "max_len_values": served["res"]["decode_max_len"],
+            "max_abs_err": worst["decode_attention"],
+            "unit": "one decode step, young pool (rung 256)",
+            "ms": young["decode_kernel_rung_ms"],
+            "full_window_ms": young["decode_kernel_full_ms"],
+            "plain_ms": young["decode_plain_ms"],
+            "library_ms": young["decode_library_ms"],
+            "bound_ms": young["decode_bound_ms"],
+            "bound_by": young["decode_bound_by"]}
+        for name in ("matmul_int4w", "flash_attention"):
+            kernels.setdefault(name, {"name": name})["gen_http"] = {
+                "launches": served["res"]["launches"][name]}
+    emit({"phase": "gen_http_seconds", "served": t_served,
+          "replay": t_replay, "in_process_runs": t_inproc,
+          "checks_and_sweep": lap()})
+    return res
+
+
+def gen_http_rehearsal(device) -> dict:
+    """gen_http at a tiny size on `device` (the CPU tests): llama nano at
+    window 128, tiers of 2 slots at windows 48 and 128, horizon 2, a
+    third of the mix; each decode block held 10 ms so that a hang-up is
+    seen before its request ends, as on the card."""
+    eng, _, _ = llama_engine(device, variant="nano", seq_len=128,
+                             vocab_size=128, use_kernels=kernels_on(device))
+    mix = (("greedy", 4), ("topk", 2), ("topp", 2), ("hangup", 1),
+           ("expire", 1))
+    return gen_http_phase(device, {}, eng, n_reqs=mix, prompt_range=(4, 60),
+                          max_new=40, rungs=False, block_delay_s=0.01,
+                          uniform_slots=4,
+                          tiers=((2, 48), (2, None)), decode_horizon=2,
+                          kv_prefix_ladder=(16, 32))
+
+
+def spec_prompts(vocab, n, length, seed=31) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (n, length))
+
+
+def first_diffs(dec, prompts, got, want, limit=16) -> list:
+    """Each row where `got` parts from `want` (both [N, P + steps]): the
+    generated index of its first difference and the top-2 gap of the
+    logits there (`dec`'s prefill of the common prefix)."""
+    p = prompts.shape[1]
+    rows = [int(i) for i in np.nonzero((got != want).any(axis=1))[0]][:limit]
+    if not rows:
+        return []
+    at = [int(np.nonzero(got[i] != want[i])[0][0]) for i in rows]
+    tokens = np.zeros((len(rows), dec._window), np.float32)
+    for j, (i, t) in enumerate(zip(rows, at)):
+        tokens[j, :t] = want[i, :t]
+    last, _ = dec.prefill(tokens, np.asarray(at))
+    top2 = last.float().topk(2, dim=-1).values.cpu().numpy()
+    return [{"row": i, "token": t - p, "top2_gap": float(g[0] - g[1]),
+             "got": int(got[i, t]), "want": int(want[i, t])}
+            for i, t, g in zip(rows, at, top2)]
+
+
+def spec_run(target, draft, device, prompts, steps, k, name) -> dict:
+    """SpeculativeDecoder(target, draft, k) on `prompts`: the output, its
+    wall time and tokens/s, acceptance, and the verify chunks'
+    matmul_int4w launches and shapes (a Recorder over the run)."""
+    import torch
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo.speculative import SpeculativeDecoder
+
+    bf16 = target.config.compute_dtype == "bfloat16"
+    spec = SpeculativeDecoder(target, draft, k=k,
+                              kv_dtype=SERVICE["kv_dtype"] if bf16 else None)
+    verify = spec.target.decode_chunk_verify
+    chunk = {"launches": 0, "calls": 0}
+
+    def counted(*a, **kw):
+        before = kmm.launches_int4w
+        out = verify(*a, **kw)
+        chunk["launches"] += kmm.launches_int4w - before
+        chunk["calls"] += 1
+        return out
+
+    spec.target.decode_chunk_verify = counted
+    with llama_recorder() as rec:
+        t0 = time.perf_counter()
+        out = spec.generate(prompts, steps=steps)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    return {"name": name, "out": out, "wall_s": wall,
+            "tok_s": prompts.shape[0] * steps / wall,
+            "acceptance": spec.acceptance, "stats": dict(spec.stats),
+            "verify_calls": chunk["calls"],
+            "verify_int4w_launches": chunk["launches"],
+            "recorder": rec, "spec": spec}
+
+
+def decode_step_readings(engine, device, lengths, variants, sampling=None,
+                         k_steps=8, blocks=4, seed=0) -> dict:
+    """A decode step of the service's decoder (KV bf16, scratch blocks,
+    the decode kernel), each row at `lengths` and drawn with `sampling`
+    ((temperature, top_k, top_p) arrays; greedy when None), under each
+    of the two `variants` ({name: (CachedDecoder keywords, decode_block
+    keywords)}): host wall time a step over `blocks` chained blocks,
+    timed in turns (a b b a), the card's time a step (torch.profiler),
+    matmul_int4w launches a step, and the fused q|k|v weights' bytes and
+    shape [M, K, N] where there are any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    n = len(lengths)
+    temp, topk, topp = sampling or (np.zeros(n, np.float32),
+                                    np.zeros(n, np.int64),
+                                    np.ones(n, np.float32))
+    out = {}
+    for name, (dec_kw, _) in variants.items():
+        dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                            scratch_blocks=True, decode_attn="kernel",
+                            **dec_kw)
+        fused = [dec._weights[op]["wqkv"] for op, _ in dec._mha_ops
+                 if "wqkv" in dec._weights[op]]
+        out[name] = {"dec": dec, "caches": dec.init_cache(n), "walls": [],
+                     "fused_weight_bytes": sum(
+                         w.packed.numel() + w.scale.numel() * 4
+                         for w in fused),
+                     "fused_shape": [n, fused[0].k,
+                                     int(fused[0].packed.shape[1])]
+                     if fused else None}
+    first = next(iter(out.values()))["dec"]
+    pos = np.minimum(np.asarray(lengths),
+                     first._window - k_steps * blocks - 1)
+
+    def run(name, nb):
+        r, last = out[name], np.ones(n, np.int64)
+        for b in range(nb):
+            _, last, _c = r["dec"].decode_block(
+                last, pos + b * k_steps, r["caches"], seed, 1 + b * k_steps,
+                temp, topk, topp, k_steps, **variants[name][1])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    a, b = list(variants)
+    for name in (a, b):                          # warm both, untimed
+        run(name, blocks)
+    for name in (a, b, b, a):
+        r = out[name]
+        before = kmm.launches_int4w
+        t0 = time.perf_counter()
+        run(name, blocks)
+        r["walls"].append((time.perf_counter() - t0) * 1e3
+                          / (blocks * k_steps))
+        r["int4w_launches_per_step"] = (kmm.launches_int4w - before) / (
+            blocks * k_steps)
+    for name, r in out.items():
+        r["wall_ms_per_step"] = sum(r["walls"]) / len(r["walls"])
+        r["card_ms_per_step"] = None
+        if device.type == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(name, 1)
+            r["card_ms_per_step"] = sum(
+                (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+            ) / 1e3 / k_steps
+        del r["dec"], r["caches"]
+    return out
+
+
+def fuse_qkv_readings(engine, device, lengths) -> dict:
+    """decode_step_readings with fuse_qkv off and on (greedy rows)."""
+    return decode_step_readings(engine, device, lengths, {
+        "off": ({"fuse_qkv": False}, {}), "on": ({"fuse_qkv": True}, {})})
+
+
+def sample_cap_readings(engine, device, lengths, cap, iters=20,
+                        seed=3) -> dict:
+    """The capped sampler (`cap` candidates) against the exact one, on
+    the served mix's in-regime rows (half greedy, half temperature 0.8
+    top-k 40, the dispatches sample_cap="auto" caps): a decode step
+    (decode_step_readings: host wall and card time) and sample_logits
+    alone on [rows, V] f32 logits (CUDA events, L2 flushed)."""
+    import torch
+    from simpleinfer_tpu_torch.zoo.sampling import sample_logits
+
+    n = len(lengths)
+    temp = np.where(np.arange(n) % 2 == 1, 0.8, 0.0).astype(np.float32)
+    topk = np.where(temp > 0, 40, 0).astype(np.int64)
+    topp = np.ones(n, np.float32)
+    res = {"cap": cap, "rows": n, "sampled_rows": int((temp > 0).sum()),
+           "step": decode_step_readings(
+               engine, device, lengths,
+               {"exact": ({}, {"sample_cap": None}),
+                "capped": ({}, {"sample_cap": cap})},
+               sampling=(temp, topk, topp))}
+    if device.type == "cuda":
+        vocab = vocab_of(engine)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        logits = torch.randn(n, vocab, generator=gen, device=device) * 4
+        flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+        t, k, p = (torch.as_tensor(x, device=device)
+                   for x in (temp, topk, topp))
+        for name, c in (("exact", None), ("capped", cap)):
+            res[f"sampler_{name}_ms"] = _time_ms(
+                device, lambda c=c: sample_logits(logits, gen, t, k, p, c),
+                iters, flush, 20 * SPIN_CYCLES)
+    return res
+
+
+def speculative_phase(device, kernels: dict, engine, model_cfg=LLAMA,
+                      cfg=SPEC, draft_cfg=SPEC_DRAFT,
+                      fp32_cfg=SPEC_FP32) -> dict:
+    """speculative: SpeculativeDecoder(target = `engine`, k) on
+    cfg["prompts"] seeded prompts, with the target itself and llama
+    "small" (draft_cfg: the target's vocabulary and window, random
+    weights) as drafts, each draft decoding through the decode kernel:
+    tokens/s against CachedDecoder.generate (the service's decoder
+    settings, blocks of 8) on the same prompts, acceptance, agreement
+    with the target's own greedy stream (its per-step decode; each first
+    difference with its top-2 logit gap: bf16 ties, not a failure), the
+    verify chunks' matmul_int4w launches and their time at the chunk's
+    shapes beside torch.matmul and the bound; fuse_qkv on vs off; the
+    capped sampler against the exact one (sample_cap_readings); then
+    the fp32 check (TF32 off, `fp32_cfg` depth): the speculative output
+    equals target-only greedy for both drafts, or the phase fails."""
+    import torch
+    from simpleinfer_tpu_torch.engine import fp32_parity
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.serving import GenerationService
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    vocab = vocab_of(engine)
+    k, steps = cfg["k"], cfg["steps"]
+    prompts = spec_prompts(vocab, cfg["prompts"], cfg["prompt_len"])
+    fast = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
+                         scratch_blocks=True, decode_attn="kernel")
+    fast.generate(prompts[:2, :8], steps=2)          # warm
+    t0 = time.perf_counter()
+    base = fast.generate(prompts, steps=steps, block=8)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    base_s = time.perf_counter() - t0
+    target_dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"])
+    want = target_dec.generate(prompts, steps=steps)
+    (small,), build_s, _ = lm_engines(
+        device, "build_llama", draft_cfg,
+        [("bfloat16", "int4w", kernels_on(device))])
+    runs = {}
+    kmm.launches_int4w = kattn.launches = kdec.launches = 0
+    for name, draft in (("same", engine), ("small", small)):
+        r = spec_run(engine, draft, device, prompts, steps, k, name)
+        diffs = first_diffs(target_dec, prompts, r["out"], want)
+        runs[name] = r
+        emit({"phase": f"speculative_{name}", "k": k,
+              "prompts": list(prompts.shape), "steps": steps,
+              "wall_s": r["wall_s"], "tok_s": r["tok_s"],
+              "generate_tok_s": prompts.shape[0] * steps / base_s,
+              "acceptance": r["acceptance"], "stats": r["stats"],
+              "verify_calls": r["verify_calls"],
+              "verify_int4w_launches": r["verify_int4w_launches"],
+              "agree_rows": int((r["out"] == want).all(axis=1).sum()),
+              "first_diffs": diffs,
+              "draft": "target" if name == "same" else draft_cfg,
+              "draft_build_s": build_s if name == "small" else None})
+    launches = {"matmul_int4w": kmm.launches_int4w,
+                "flash_attention": kattn.launches,
+                "decode_attention": kdec.launches}
+    emit({"phase": "speculative_launches", **launches,
+          "generate_vs_base_equal": bool((base == want).all())})
+    if device.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"speculative: kernels not launched: "
+                             f"{launches}")
+    # the verify chunk's matmul_int4w shapes (M = rows x k), per chunk
+    rec = runs["small"]["recorder"]
+    calls = runs["small"]["verify_calls"]
+    chunk_keys = {key: c for key, c in rec.count("matmul_int4w").items()
+                  if key[0] == prompts.shape[0] * k}
+    checks = {"matmul_int4w": [list(key) for key in chunk_keys]}
+    # the fused projection's width (N = (H + 2 KV) D) at the decode M
+    lengths = [cfg["prompt_len"]] * SERVICE["slots"]
+    fuse = fuse_qkv_readings(engine, device, lengths)
+    emit({"phase": "fuse_qkv_on_vs_off", "slots": SERVICE["slots"],
+          **fuse})
+    emit({"phase": "sample_cap_on_vs_off", **sample_cap_readings(
+        engine, device, lengths, GenerationService.DEFAULT_SAMPLE_CAP)})
+    checks["matmul_int4w"].append([*fuse["on"]["fused_shape"],
+                                   "bfloat16", "float32", False, None])
+    worst = llama_kernel_checks(device, {"matmul_int4w": [
+        tuple(c) for c in checks["matmul_int4w"]]}, ragged=False,
+        phase="speculative_int4w_vs_plain")
+    if device.type == "cuda":
+        gen = torch.Generator(device=device).manual_seed(7)
+        flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+        per_chunk = {key: round(c / max(1, calls))
+                     for key, c in chunk_keys.items()}
+        tot, rows = int4w_unit_times(device, gen, flush, per_chunk, 5)
+        emit({"phase": "kernel_time_int4w_verify_chunk",
+              "unit": "one verify chunk", "rows": prompts.shape[0], "k": k,
+              **tot, "shapes": rows})
+        ftot, _ = int4w_unit_times(device, gen, flush, {
+            tuple(checks["matmul_int4w"][-1]): 1}, 10)
+        entry = kernels.setdefault("matmul_int4w", {"name": "matmul_int4w"})
+        entry["verify_chunk"] = {
+            "launches": runs["small"]["verify_int4w_launches"],
+            "launches_per_chunk": tot["launches"],
+            "max_abs_err": worst["matmul_int4w"],
+            **{u: tot[u] for u in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}}
+        entry["fused_qkv"] = {
+            "shape": checks["matmul_int4w"][-1][:3],
+            "launches_per_step": fuse["on"]["int4w_launches_per_step"],
+            **{u: ftot[u] for u in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}}
+    del runs, small, rec
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # fp32, TF32 off, at fp32_cfg's depth: lossless for both drafts
+    (t32,), _, _ = lm_engines(device, "build_llama", {
+        **model_cfg, "depth": fp32_cfg["depth"],
+        "seq_len": fp32_cfg["seq_len"]},
+        [("float32", "int4w", kernels_on(device))])
+    (d32,), _, _ = lm_engines(device, "build_llama", {
+        **draft_cfg, "seq_len": fp32_cfg["seq_len"]},
+        [("float32", "int4w", kernels_on(device))])
+    p32 = spec_prompts(vocab, cfg["prompts"], fp32_cfg["prompt_len"], 37)
+    fp32 = {}
+    with fp32_parity(True):
+        want32 = CachedDecoder(t32).generate(p32, steps=fp32_cfg["steps"])
+        for name, draft in (("same", t32), ("small", d32)):
+            r = spec_run(t32, draft, device, p32, fp32_cfg["steps"], k, name)
+            fp32[name] = {"equal": bool((r["out"] == want32).all()),
+                          "acceptance": r["acceptance"],
+                          "first_diffs": first_diffs(
+                              CachedDecoder(t32), p32, r["out"], want32)}
+    res = {"phase": "speculative_fp32", "depth": fp32_cfg["depth"],
+           "window": fp32_cfg["seq_len"], "prompts": list(p32.shape),
+           "steps": fp32_cfg["steps"], **fp32}
+    emit(res)
+    if not all(v["equal"] for v in fp32.values()):
+        raise AssertionError(f"speculative fp32: the output is not target-"
+                             f"only greedy: {res}")
+    return {"fp32": fp32, "verify_int4w_calls": sum(chunk_keys.values())}
+
+
+def speculative_rehearsal(device) -> dict:
+    """speculative at a tiny size on `device` (the CPU tests): llama nano
+    (window 64, vocab 128) bf16 int4w as the target, a 1-layer nano of
+    other weights as the weak draft, 4 prompts of 12 tokens."""
+    nano = dict(variant="nano", seq_len=64, vocab_size=128, seed=0)
+    eng, _, _ = llama_engine(device, use_kernels=kernels_on(device), **nano)
+    return speculative_phase(
+        device, {}, eng, model_cfg=nano,
+        cfg=dict(k=4, prompts=4, prompt_len=12, steps=10),
+        draft_cfg=dict(nano, depth=1, seed=7),
+        fp32_cfg=dict(depth=2, seq_len=64, prompt_len=12, steps=10))
 
 # ---- the detection pipeline (zoo/detect.py) ------------------------------
 # 8 seeded uint8 HWC images of mixed sizes and aspect ratios (landscape,
@@ -4880,7 +6047,8 @@ def serving_rehearsal(device, image=64, n=24, http_n=12, conns=3) -> dict:
 PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
           "segment", "serving", "serving_http", "yolo_int8", "conv_kernels",
           "resnet_int8", "llama_kernels", "llama_service", "llama_onoff",
-          "llama_fp32", "gpt2", "llama_swa", "attn_variants")
+          "llama_fp32", "gpt2", "llama_swa", "attn_variants", "gen_http",
+          "speculative")
 
 
 def main(argv=None) -> int:
@@ -4909,6 +6077,10 @@ def main(argv=None) -> int:
     info = device_and_build(device)
     sass_mma_counts()
     kernels = {}
+
+    def mark(name):       # the script's seconds so far, after a phase
+        emit({"phase": "elapsed", "after": name,
+              "seconds": round(time.perf_counter() - t0, 1)})
 
     if "yolo" in phases:
         on = yolo_engine(device, 8, 640, "bfloat16", True)
@@ -4947,6 +6119,7 @@ def main(argv=None) -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
         torch.cuda.empty_cache()
 
+    mark("yolo")
     if "host_native" in phases:
         host_native_phase()
     if {"detect_v5", "detect_v8"} & set(phases):
@@ -4958,6 +6131,7 @@ def main(argv=None) -> int:
                 detect_v8_extra(device, run, kernels)
             del run
             torch.cuda.empty_cache()
+    mark("detect")
     if "engine_warmup" in phases:
         engine_warmup_phase(device)
     if "segment" in phases:
@@ -4975,9 +6149,11 @@ def main(argv=None) -> int:
         del eng, canvases
         torch.cuda.empty_cache()
 
+    mark("serving")
     if "yolo_int8" in phases:
         yolo_int8_phase(device, kernels)
         torch.cuda.empty_cache()
+    mark("yolo_int8")
 
     if "conv_kernels" in phases:
         kernels.update(conv_kernels_phase(device))
@@ -4985,12 +6161,21 @@ def main(argv=None) -> int:
     if "resnet_int8" in phases:
         resnet_int8_phase(device, kernels)
         torch.cuda.empty_cache()
+    mark("resnet_int8")
 
     if "llama_kernels" in phases:
         llama_kernel_checks(device)
         flash_gate_sweep(device)
-    if {"llama_service", "llama_onoff"} & set(phases):
-        eng, build_s, load_s = llama_engine(device)
+    llama = None      # the llama "base" engine, kept for gen_http etc.
+    if {"llama_service", "llama_onoff", "gen_http", "speculative"} & \
+            set(phases):
+        from simpleinfer_tpu_torch.zoo import build_llama
+
+        t_build = time.perf_counter()
+        graph = build_llama(**LLAMA)[0]        # one graph, three engines
+        t_build = time.perf_counter() - t_build
+        eng, _, load_s = llama_engine(device, graph=graph)
+        build_s = t_build
         emit({"phase": "llama_engine", "config": LLAMA,
               "compute": "bfloat16", "quant": "int4w", "int4_group": 128,
               "graph_build_s": build_s, "load_s": load_s,
@@ -5028,23 +6213,37 @@ def main(argv=None) -> int:
                 u: p[u] for u in ("ms", "plain_ms", "library_ms", "bound_ms",
                                   "bound_by", "launches_per_wave")}
         if "llama_onoff" in phases:
-            off, _, _ = llama_engine(device, use_kernels=False)
-            ref, _, _ = llama_engine(device, compute="float32")
+            off, _, _ = llama_engine(device, use_kernels=False, graph=graph)
+            ref, _, _ = llama_engine(device, compute="float32", graph=graph)
             check_onoff(onoff(eng, off, device, ref))
             del off, ref
+        del graph
+        llama = eng
         del eng
         torch.cuda.empty_cache()
+    mark("llama")
     if "llama_fp32" in phases:
         llama_fp32_card_vs_cpu(device)
     if "gpt2" in phases:
         gpt2_phase(device, kernels)
         torch.cuda.empty_cache()
+    mark("gpt2")
     if "llama_swa" in phases:
         swa_phase(device, kernels)
         torch.cuda.empty_cache()
+    mark("llama_swa")
     if "attn_variants" in phases:
         attn_variants_phase(device)
         torch.cuda.empty_cache()
+    mark("attn_variants")
+    if "gen_http" in phases:
+        gen_http_phase(device, kernels, llama)
+        torch.cuda.empty_cache()
+    mark("gen_http")
+    if "speculative" in phases:
+        speculative_phase(device, kernels, llama)
+    del llama
+    torch.cuda.empty_cache()
 
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     print(info["nvidia_smi"], flush=True)

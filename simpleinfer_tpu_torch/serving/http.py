@@ -13,13 +13,22 @@ standard library only.
   class_id, class_name}], "count": N}``. Query params ``?conf=&iou=``
   set host-decode thresholds (ignored when the service decodes on the
   card via ``device_postprocess=decode_device(...)``).
+- ``POST /v1/generate`` — JSON ``{"prompt": [ids], "max_new", "eos_id",
+  "temperature", "top_k", "top_p", "timeout_s", "priority"}`` through
+  the attached GenerationService (or TieredGenerationService); replies
+  ``{"ids": [prompt + generated], "prompt_len": P}``. With ``"stream":
+  true`` the reply is Server-Sent Events: ``data: {"token": id}`` per
+  token, then ``data: {"done": true, "ids": [...], "prompt_len": P}``;
+  a client that hangs up mid-stream cancels its request (its row is
+  freed at the scheduler's next drain). 400 on a malformed body, or
+  when no generation service is attached.
 - ``GET /v1/stats``   — scheduler statistics as JSON; pass ``?slo_ms=N``
-  to include the per-bucket SLO report.
+  to include the per-bucket SLO report. A generation service's counters
+  are the whole reply on a generation-only server, under
+  ``"generation"`` beside a BatchingService's.
 - ``GET /metrics``    — the same counters in Prometheus text exposition
   format, for scrape-based monitoring.
 - ``GET /healthz``    — liveness probe.
-- ``POST /v1/generate`` answers 400: no generation service can be
-  attached yet (the JAX package's answer when none is).
 
 Every handler thread blocks on its request's Future while the scheduler
 thread owns the card, so HTTP concurrency (ThreadingHTTPServer, one
@@ -43,7 +52,8 @@ _MAX_BODY = 256 * 1024 * 1024
 
 
 class InferenceServer:
-    """Serve a started BatchingService over HTTP.
+    """Serve a started BatchingService and / or generation service over
+    HTTP.
 
     Usage:
         svc = BatchingService(engine).start()
@@ -54,19 +64,21 @@ class InferenceServer:
 
     def __init__(self, service, host: str = "127.0.0.1", port: int = 8000,
                  request_timeout_s: float = 120.0, gen_service=None):
-        """`service`: a started BatchingService. `gen_service` (the JAX
-        package's /v1/generate backend) is not ported yet and raises."""
-        if gen_service is not None:
-            raise NotImplementedError(
-                "InferenceServer(gen_service=...): /v1/generate is not "
-                "ported yet (ROADMAP.md §1 item 3)")
-        if service is None:
-            raise ValueError("need a BatchingService")
+        """`service`: a started BatchingService (/v1/infer, /v1/detect),
+        or None when only serving generation. `gen_service`: a started
+        serving.llm.GenerationService or TieredGenerationService
+        (/v1/generate)."""
+        if service is None and gen_service is None:
+            raise ValueError("need a BatchingService, a "
+                             "GenerationService, or both")
         self.service = service
+        self.gen_service = gen_service
         self.request_timeout_s = request_timeout_s
-        self._item_shape = self._resolve_item_shape(service)
+        self._item_shape = (self._resolve_item_shape(service)
+                            if service is not None else None)
         self._u8_scale = float(getattr(
-            service.engine.config, "u8_scale", 1.0 / 255.0))
+            service.engine.config, "u8_scale", 1.0 / 255.0)) \
+            if service is not None else 1.0 / 255.0
         handler = _make_handler(self)
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True
@@ -102,6 +114,8 @@ class InferenceServer:
 
     # ---- request handling (called from handler threads) ----------------
     def infer(self, array: np.ndarray) -> np.ndarray:
+        if self.service is None:
+            raise ValueError("this server only exposes /v1/generate")
         if tuple(array.shape) != self._item_shape:
             raise ValueError(
                 f"expected item shape {self._item_shape}, "
@@ -125,6 +139,46 @@ class InferenceServer:
         # wire: numpy has no bfloat16)
         return np.asarray(fut.result(timeout=self.request_timeout_s))
 
+    def _gen_args(self, payload) -> tuple:
+        """(prompt, keyword arguments of submit) of a /v1/generate body;
+        ValueError on a malformed one."""
+        if self.gen_service is None:
+            raise ValueError("no generation service attached "
+                             "(serve a causal LM with --generate)")
+        if not isinstance(payload, dict):
+            raise ValueError("body must be a JSON object")
+        prompt = payload.get("prompt")
+        if not isinstance(prompt, list) or not prompt:
+            raise ValueError('body needs "prompt": [token ids]')
+        eos = payload.get("eos_id")
+        timeout_s = payload.get("timeout_s")
+        try:
+            return prompt, dict(
+                max_new=int(payload.get("max_new", 32)),
+                eos_id=int(eos) if eos is not None else None,
+                temperature=float(payload.get("temperature", 0.0)),
+                top_k=int(payload.get("top_k", 0)),
+                top_p=float(payload.get("top_p", 1.0)),
+                timeout_s=float(timeout_s) if timeout_s is not None
+                else None,
+                priority=int(payload.get("priority", 0)))
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"bad generation parameter: {e}") from None
+
+    def generate(self, payload: dict) -> dict:
+        """One /v1/generate body -> {"ids", "prompt_len"}; waits for the
+        request's end."""
+        prompt, kw = self._gen_args(payload)
+        fut = self.gen_service.submit(prompt, **kw)
+        ids = fut.result(timeout=self.request_timeout_s)
+        return {"ids": np.asarray(ids).tolist(), "prompt_len": len(prompt)}
+
+    def generate_stream(self, payload: dict):
+        """A /v1/generate body with "stream": true -> the service's
+        StreamHandle."""
+        prompt, kw = self._gen_args(payload)
+        return self.gen_service.submit_stream(prompt, **kw)
+
     def detect(self, image: np.ndarray, conf: float, iou: float) -> list:
         """One HWC image -> list of detection dicts: letterbox to the
         service's item size, submit, decode. Works with either service
@@ -135,6 +189,8 @@ class InferenceServer:
         from ..zoo.detect import (decode_predictions,
                                   detections_from_decoded, letterbox)
 
+        if self.service is None:
+            raise ValueError("this server only exposes /v1/generate")
         if image.ndim != 3 or image.shape[-1] != 3:
             raise ValueError(
                 f"detect expects an HWC 3-channel image, got "
@@ -168,7 +224,18 @@ class InferenceServer:
         types = {i.type for i in self.service.engine.program.impls}
         return "v8" if "models.yolo.DetectV8" in types else "v5"
 
+    def gen_stats_dict(self) -> dict:
+        g = self.gen_service.stats
+        return {"requests": g.requests, "completed": g.completed,
+                "steps": g.steps, "capped_steps": g.capped_steps,
+                "cancelled": g.cancelled, "timed_out": g.timed_out,
+                "tokens_out": g.tokens_out,
+                "mean_occupancy": g.mean_occupancy,
+                "mean_latency_ms": g.mean_latency_ms}
+
     def stats_dict(self, slo_ms: float | None = None) -> dict:
+        if self.service is None:
+            return self.gen_stats_dict()
         s = self.service.stats
         out = {
             "requests": s.requests,
@@ -186,10 +253,33 @@ class InferenceServer:
         }
         if slo_ms is not None:
             out["slo"] = s.slo_report(slo_ms)
+        if self.gen_service is not None:
+            out["generation"] = self.gen_stats_dict()
         return out
 
+    def gen_metrics_lines(self) -> list:
+        g = self.gen_service.stats
+        return [
+            "# TYPE si_gen_requests_total counter",
+            f"si_gen_requests_total {g.requests}",
+            "# TYPE si_gen_tokens_total counter",
+            f"si_gen_tokens_total {g.tokens_out}",
+            "# TYPE si_gen_steps_total counter",
+            f"si_gen_steps_total {g.steps}",
+            "# TYPE si_gen_capped_steps_total counter",
+            f"si_gen_capped_steps_total {g.capped_steps}",
+            "# TYPE si_gen_cancelled_total counter",
+            f"si_gen_cancelled_total {g.cancelled}",
+            "# TYPE si_gen_timed_out_total counter",
+            f"si_gen_timed_out_total {g.timed_out}",
+            "# TYPE si_gen_slot_occupancy gauge",
+            f"si_gen_slot_occupancy {g.mean_occupancy:.6f}",
+        ]
+
     def metrics_text(self) -> str:
-        """ServiceStats in Prometheus text exposition format."""
+        """The counters in Prometheus text exposition format."""
+        if self.service is None:
+            return "\n".join(self.gen_metrics_lines()) + "\n"
         s = self.service.stats
         lines = [
             "# TYPE si_requests_total counter",
@@ -215,6 +305,8 @@ class InferenceServer:
                          f"{bs.max_latency_s:.9f}")
         for i, n in enumerate(s.batches_per_engine):
             lines.append(f'si_engine_batches_total{{engine="{i}"}} {n}')
+        if self.gen_service is not None:
+            lines += self.gen_metrics_lines()
         return "\n".join(lines) + "\n"
 
 
@@ -257,6 +349,48 @@ def _make_handler(server: InferenceServer):
             else:
                 self._reply_json(404, {"error": f"no route {path}"})
 
+        def _generate_sse(self, payload: dict) -> None:
+            """One generation as Server-Sent Events: `data: {"token":
+            id}` per generated token (block granularity), then `data:
+            {"done": true, "ids": [...], "prompt_len": P}`. No
+            Content-Length: the connection closes at the stream's end. A
+            write that fails (the client hung up) cancels the request."""
+            try:
+                handle = server.generate_stream(payload)
+            except ValueError as e:
+                self._reply_json(400, {"error": str(e)})
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            self.close_connection = True
+            self.end_headers()
+            try:
+                for tok in handle:
+                    self.wfile.write(
+                        f'data: {{"token": {tok}}}\n\n'.encode())
+                    self.wfile.flush()
+                ids = handle.result(timeout=server.request_timeout_s)
+                done = json.dumps({
+                    "done": True, "ids": np.asarray(ids).tolist(),
+                    "prompt_len": len(payload["prompt"])})
+                self.wfile.write(f"data: {done}\n\n".encode())
+                self.wfile.flush()
+            except ConnectionError:
+                # the client went away mid-stream (broken pipe, reset;
+                # not OSError: a deadline's TimeoutError is one): free
+                # its row instead of decoding the rest of max_new for
+                # nobody
+                server.gen_service.cancel(handle.future)
+            except Exception as e:  # noqa: BLE001 — backend error
+                err = json.dumps({"error": f"{type(e).__name__}: {e}"})
+                try:
+                    self.wfile.write(f"data: {err}\n\n".encode())
+                    self.wfile.flush()
+                except OSError:
+                    pass
+
         def do_POST(self):  # noqa: N802
             path, _, query = self.path.partition("?")
             if path not in ("/v1/infer", "/v1/detect",
@@ -277,12 +411,10 @@ def _make_handler(server: InferenceServer):
                                        f"(max {_MAX_BODY} bytes)"})
                 return
             body = self.rfile.read(length)
-            if path == "/v1/generate":
-                self._reply_json(400, {"error": "no generation service "
-                                       "attached (generation serving is "
-                                       "not ported yet)"})
-                return
             ctype = (self.headers.get("Content-Type") or "").split(";")[0]
+            if path == "/v1/generate":
+                self._post_generate(body, ctype)
+                return
             try:
                 if ctype == NPY_CONTENT_TYPE:
                     arr = np.load(io.BytesIO(body), allow_pickle=False)
@@ -336,5 +468,28 @@ def _make_handler(server: InferenceServer):
             else:
                 self._reply_json(200, {"output": out.tolist(),
                                        "shape": list(out.shape)})
+
+        def _post_generate(self, body: bytes, ctype: str) -> None:
+            if ctype == NPY_CONTENT_TYPE:
+                self._reply_json(400, {"error": "/v1/generate takes a "
+                                       "JSON body"})
+                return
+            try:
+                payload = json.loads(body)
+            except Exception as e:  # noqa: BLE001 — client error
+                self._reply_json(400, {"error": f"bad body: {e}"})
+                return
+            if isinstance(payload, dict) and payload.get("stream"):
+                self._generate_sse(payload)
+                return
+            try:
+                out = server.generate(payload)
+            except ValueError as e:
+                self._reply_json(400, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — backend error
+                self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._reply_json(200, out)
 
     return Handler

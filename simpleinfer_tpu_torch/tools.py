@@ -7,6 +7,7 @@ simpleinfer_tpu/tools.py.
 - `segment`   per-pixel classes -> overlay image
 - `calibrate` offline static-int8 calibration -> scales npz
 - `serve`     HTTP inference server over a continuous-batching service
+              (`--generate`: KV-cache generation of a causal LM)
 
 Every command that runs a model takes `--device` (default `cuda`): it
 runs on the card unless asked for the CPU (`--device cpu`), and asking
@@ -169,6 +170,8 @@ def cmd_serve(args) -> int:
                 "--calibration scales.npz (from the calibrate command) "
                 "or use --quant int8w")
         eng.load_calibration(args.calibration)
+    if args.generate:
+        return _serve_generate(args, eng)
     post = None
     if args.device_decode:
         from .zoo.detect import decode_device
@@ -201,6 +204,101 @@ def cmd_serve(args) -> int:
     finally:
         server.stop()
         svc.stop(drain=False)
+    return 0
+
+
+def _cap_arg(v):
+    """--sample-cap: case-insensitive 'auto' / 'off' / 'none', or an
+    int."""
+    if v is None:
+        return "auto"
+    s = v.strip().lower()
+    if s == "auto":
+        return "auto"
+    if s in ("off", "none"):
+        return None
+    try:
+        return int(s)
+    except ValueError:
+        raise SystemExit(f"error: --sample-cap: expected an int, 'auto' "
+                         f"or 'off', got {v!r}") from None
+
+
+def _ladder_arg(name, v):
+    """--kv-prefix-ladder / --prefill-ladder: 'auto', 'off' / 'none' /
+    empty, or comma-separated ints."""
+    if v is None:
+        return "auto"
+    s = v.strip().lower()
+    if s == "auto":
+        return "auto"
+    if not s or s in ("off", "none"):
+        return None
+    try:
+        return tuple(int(x) for x in s.split(","))
+    except ValueError:
+        raise SystemExit(f"error: --{name}: expected comma-separated ints "
+                         f"(e.g. 128,256), 'auto' or 'off', got {v!r}") \
+            from None
+
+
+def _tier_arg(tok):
+    """One --tiers entry, slots:window ('full' / 'none' = the model's
+    window)."""
+    try:
+        slots, win = tok.split(":")
+        return (int(slots), None if win.strip().lower() in ("full", "none")
+                else int(win))
+    except ValueError:
+        raise SystemExit(f"error: --tiers: expected slots:window pairs "
+                         f"(e.g. 24:512,8:full), got {tok!r}") from None
+
+
+def generation_service(args, eng):
+    """The GenerationService (or TieredGenerationService under --tiers)
+    that `serve --generate` runs, from its flags."""
+    from .serving.llm import GenerationService, TieredGenerationService
+
+    kwargs = dict(decode_horizon=args.decode_horizon,
+                  pipelined=not args.no_pipeline, kv_dtype=args.kv_dtype,
+                  scratch_blocks=args.scratch_blocks,
+                  sample_cap=_cap_arg(args.sample_cap),
+                  kv_prefix_ladder=_ladder_arg("kv-prefix-ladder",
+                                               args.kv_prefix_ladder),
+                  prefill_ladder=_ladder_arg("prefill-ladder",
+                                             args.prefill_ladder),
+                  decode_attn=args.decode_attn)
+    if args.tiers:
+        return TieredGenerationService(
+            eng, tiers=[_tier_arg(t) for t in args.tiers.split(",")],
+            **kwargs)
+    return GenerationService(eng, slots=args.max_batch, **kwargs)
+
+
+def _serve_generate(args, eng) -> int:
+    """serve --generate: POST /v1/generate over a generation service."""
+    import time
+
+    from .serving import InferenceServer
+
+    gsvc = generation_service(args, eng)
+    if args.warmup:
+        print("running admission + decode blocks ...", flush=True)
+        gsvc.warmup()
+    gsvc.start()
+    server = InferenceServer(None, host=args.host, port=args.port,
+                             gen_service=gsvc).start()
+    host, port = server.address[:2]
+    print(f"serving {args.param} on http://{host}:{port} "
+          f"(POST /v1/generate, GET /v1/stats, GET /healthz)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("shutting down", flush=True)
+    finally:
+        server.stop()
+        gsvc.stop()
     return 0
 
 
@@ -291,6 +389,55 @@ def main(argv=None) -> int:
     p.add_argument("--conf", type=float, default=0.25)
     p.add_argument("--iou", type=float, default=0.45)
     p.add_argument("--max-det", type=int, default=300)
+    p.add_argument("--generate", action="store_true",
+                   help="causal LM: serve continuous-batching KV-cache "
+                        "generation (POST /v1/generate) instead of "
+                        "/v1/infer; --max-batch sets the slot count")
+    p.add_argument("--decode-horizon", type=int, default=16,
+                   help="with --generate: decode steps per block (the "
+                        "JAX package's default)")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="with --generate: no chained in-flight decode "
+                        "block (strictly sequential dispatch)")
+    p.add_argument("--kv-dtype", choices=["float32", "bfloat16", "int8"],
+                   help="with --generate: KV-cache storage (bfloat16 "
+                        "halves the cache bytes, int8 quarters them)")
+    p.add_argument("--scratch-blocks", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="with --generate: decode blocks keep the new k/v "
+                        "in a per-block scratch and write the cache once "
+                        "(--no-scratch-blocks for the per-step path)")
+    p.add_argument("--kv-prefix-ladder", default="auto",
+                   help="with --generate: comma-separated ascending "
+                        "attention-read bounds (e.g. 128,256); a decode "
+                        "block reads the smallest rung covering the live "
+                        "rows. Default 'auto' (window/8, /4, /2); 'off' "
+                        "reads the whole window")
+    p.add_argument("--decode-attn", choices=["torch", "kernel", "auto"],
+                   default="auto",
+                   help="with --generate: the frozen-cache attention of "
+                        "decode blocks — 'kernel' runs the per-row CUDA "
+                        "decode kernel (a rung is its max_len), 'torch' "
+                        "the torch matmuls, 'auto' the kernel where the "
+                        "model allows it (serving.GenerationService)")
+    p.add_argument("--tiers", default=None,
+                   help="with --generate: tiered KV pools as slots:window "
+                        "pairs (e.g. '24:512,8:full'); each request goes "
+                        "to the smallest tier whose window fits "
+                        "prompt + max_new (supersedes --max-batch; "
+                        "'full' = the model window)")
+    p.add_argument("--prefill-ladder", default="auto",
+                   help="with --generate: comma-separated admission "
+                        "prefill bucket widths (e.g. 64,256). Default "
+                        "'auto' (64,256,1024 + window); 'off' always pads "
+                        "to the window")
+    p.add_argument("--sample-cap", default="auto",
+                   help="with --generate: sample among the top-N "
+                        "candidates (torch.topk and an exact logsumexp) "
+                        "instead of sorting the vocabulary. Default "
+                        "'auto': capped whenever every live row is greedy "
+                        "or 0 < top_k <= 64 (never truncates); an int "
+                        "forces that cap; 'off' always sorts")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("calibrate",

@@ -22,13 +22,19 @@ Cache leaves per attention op: (k, v) [N, KV, L, D] at the storage dtype
 op's L is a RING of R = ceil((W + RING_HEADROOM) / 8) * 8 slots when
 that is shorter than the window: position p lives at slot p % R.
 
-Not ported yet: kv_prefix rungs, decode_chunk_verify, fuse_qkv,
-sample_cap, window overrides and tensor-parallel meshes. The JAX
-spellings decode_attn="xla" / "pallas" are "torch" / "kernel" here.
+Beyond one token a step: kv_prefix rungs bound a decode block's read of
+the position-indexed caches (a ring is read whole), sample_cap draws
+among the top candidates, fuse_qkv runs one q|k|v projection a step,
+window= caps the caches below the model's seq_len (the tiered pools of
+serving/llm.py), and decode_chunk_verify feeds K tokens a row through
+the cache in one pass (zoo/speculative.py). Not ported: tensor-parallel
+meshes. The JAX spellings decode_attn="xla" / "pallas" are "torch" /
+"kernel" here.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 
 import numpy as np
 import torch
@@ -46,7 +52,9 @@ from ..ops.attention import (
     repeat_kv,
     resolve_alibi_slopes,
     rope_cos_sin,
+    split_heads,
 )
+from ..quant.tensor import Quantized4Tensor, QuantizedTensor, proj_nlo
 from .sampling import all_greedy, sample_logits, step_generator
 
 _NEG = torch.finfo(torch.float32).min
@@ -126,8 +134,15 @@ class CachedDecoder:
     RING_HEADROOM = 64
 
     def __init__(self, engine, kv_dtype: str | None = None,
-                 scratch_blocks: bool = False, decode_attn: str = "torch"):
-        """kv_dtype: KV-cache storage — None/"float32" (exact),
+                 scratch_blocks: bool = False, fuse_qkv: bool = False,
+                 sample_cap: int | None = None, decode_attn: str = "torch",
+                 window: int | None = None):
+        """window: cap the cache length and every position bound below
+        the model's seq_len (the tiered pools of serving/llm.py): rows
+        must never outgrow it (generate and prefill check). None = the
+        model's seq_len.
+
+        kv_dtype: KV-cache storage — None/"float32" (exact),
         "bfloat16" (half the cache bytes) or "int8" (a quarter; per-
         vector scales folded onto the scores and probabilities).
 
@@ -136,6 +151,17 @@ class CachedDecoder:
         (the same key set, split masks) and writes the scratch into the
         cache once per block. Logits match the per-step path up to f32
         summation order.
+
+        fuse_qkv: each attention op's q, k and v weights are concatenated
+        along N once, here (int4 nibbles and group scales, int8 data and
+        channel scales, or dense), and a decode step runs one [E,
+        (H + 2 KV) D] projection instead of three; prefill and chunk
+        verification keep the three. Per-column math is unchanged.
+
+        sample_cap: draw among the `sample_cap` highest-scoring tokens
+        (zoo/sampling.sample_logits' cap): exact for greedy rows and rows
+        with 0 < top_k <= cap; nucleus-only rows are truncated to the
+        cap. decode_block and prefill_install override it per call.
 
         decode_attn: "torch" (default) or "kernel": the frozen-cache
         attention of scratch-mode blocks runs the per-row CUDA kernel
@@ -151,6 +177,11 @@ class CachedDecoder:
         if decode_attn == "kernel" and not scratch_blocks:
             raise ValueError("decode_attn='kernel' reads a FROZEN cache "
                              "per block; it requires scratch_blocks=True")
+        if sample_cap is not None and int(sample_cap) < 1:
+            raise ValueError(f"sample_cap must be >= 1, got {sample_cap}")
+        # public: serving/llm.py checks requests against the exact regime
+        self.sample_cap = None if sample_cap is None else int(sample_cap)
+        self._trunc_warned = False
         self._kernel_decode = decode_attn == "kernel"
         self._kv_int8 = kv_dtype == "int8"
         self._kv_store = torch.bfloat16 if kv_dtype == "bfloat16" \
@@ -168,7 +199,18 @@ class CachedDecoder:
         if not spec.shape or len(spec.shape) != 2:
             raise ValueError(f"token input must be [N, L], got "
                              f"{spec.shape}")
-        self._window = int(spec.shape[1])
+        # graph constants (position tables) span the MODEL's seq_len; the
+        # caches and position bounds span self._window, which a window
+        # override makes shorter
+        self._model_window = int(spec.shape[1])
+        self._window = self._model_window
+        if window is not None:
+            if not 1 <= int(window) <= self._model_window:
+                raise ValueError(
+                    f"window override must be in [1, "
+                    f"{self._model_window}] (the model's seq_len), got "
+                    f"{window}")
+            self._window = int(window)
         self._in_name = program.input_names[0]
         self._out_name = program.output_names[0]
         self._plan = program.plan
@@ -204,6 +246,45 @@ class CachedDecoder:
         self._last_attn = max(last_attn, 0)
         self._has_ring = any(self._op_ring(info) is not None
                              for _, info in self._mha_ops)
+        if fuse_qkv:
+            self._weights = self._fuse_attention_weights(self._weights)
+
+    def _fuse_attention_weights(self, weights):
+        """A copy of the weights where each attention op's dict also
+        holds "wqkv" (+ "bqkv"): q, k and v concatenated along N. int4
+        packs along K, so the nibbles and the group scales concatenate
+        along N as they are; int8 weights concatenate data and channel
+        scales; mixed or partly biased triples stay unfused. The
+        original keys stay (prefill and chunk verification use them)."""
+        out = dict(weights)
+        for name, _info in self._mha_ops:
+            w = dict(weights.get(name, {}))
+            if not all(k in w for k in ("wq", "wk", "wv")):
+                continue
+            parts = [w["wq"], w["wk"], w["wv"]]
+            if all(isinstance(p, QuantizedTensor) and p.axis == 1
+                   for p in parts):
+                fused = QuantizedTensor(
+                    data=torch.cat([p.data for p in parts], dim=1),
+                    scale=torch.cat([p.scale for p in parts]), axis=1)
+            elif all(isinstance(p, Quantized4Tensor) for p in parts) and \
+                    len({(p.group, p.k) for p in parts}) == 1:
+                fused = Quantized4Tensor(
+                    packed=torch.cat([p.packed for p in parts], dim=1),
+                    scale=torch.cat([p.scale for p in parts], dim=1),
+                    group=parts[0].group, k=parts[0].k)
+            elif all(isinstance(p, torch.Tensor) for p in parts):
+                fused = torch.cat(parts, dim=1)
+            else:
+                continue
+            biases = [f"b{k}" in w for k in "qkv"]
+            if any(biases) and not all(biases):
+                continue
+            w["wqkv"] = fused
+            if all(biases):
+                w["bqkv"] = torch.cat([w["bq"], w["bk"], w["bv"]])
+            out[name] = w
+        return out
 
     # ---- helpers ----------------------------------------------------------
     def _tensor(self, a, dtype):
@@ -226,19 +307,32 @@ class CachedDecoder:
     def _proj_qkv(self, w, x, info, pos):
         """q/k/v of x [N, L, E] as [N, H, L, D] / [N, KV, L, D] x2, with
         the qk norm and, for rotary ops, RoPE at positions `pos` ([N]
-        per-row for one token, or [L] shared across rows for a
-        prefill)."""
+        per-row for one token, [L] shared across rows for a prefill, or
+        [N, L] per row and token for a verify chunk). A decode step
+        takes the fused projection where fuse_qkv made one."""
         heads, kvh, d = self._geometry(info)
         dt = x.dtype
-        qh = project(x, w, "q", heads, d, dt, self._use_kernels)
-        kh = project(x, w, "k", kvh, d, dt, self._use_kernels)
-        vh = project(x, w, "v", kvh, d, dt, self._use_kernels)
+        if "wqkv" in w and x.shape[1] == 1:
+            y = proj_nlo(x, w["wqkv"], dt, self._use_kernels)
+            if "bqkv" in w:
+                y = y + w["bqkv"]
+            y = y.to(dt)
+            qd, kd = heads * d, kvh * d
+            qh, kh, vh = (split_heads(y[..., :qd], heads, d),
+                          split_heads(y[..., qd:qd + kd], kvh, d),
+                          split_heads(y[..., qd + kd:], kvh, d))
+        else:
+            qh = project(x, w, "q", heads, d, dt, self._use_kernels)
+            kh = project(x, w, "k", kvh, d, dt, self._use_kernels)
+            vh = project(x, w, "v", kvh, d, dt, self._use_kernels)
         qh, kh = apply_qk_norm(qh, kh, w, info.get("qk_norm_eps", 1e-6))
         if not info.get("rotary"):
             return qh, kh, vh
         cos, sin = rope_cos_sin(pos, info.get("rotary_dim") or d,
                                 info["rope_theta"])
-        if x.shape[1] == 1:                 # per-row positions [N, R]
+        if pos.ndim == 2:                   # per row and token [N, L, R]
+            cos, sin = cos[:, None], sin[:, None]
+        elif x.shape[1] == 1:               # per-row positions [N, R]
             cos, sin = cos[:, None, None, :], sin[:, None, None, :]
         il = bool(info.get("rope_interleaved"))
         return (apply_rope(qh, cos, sin, interleaved=il),
@@ -349,6 +443,20 @@ class CachedDecoder:
             return (cache[0], cache[1]), (cache[2], cache[3])
         return cache
 
+    @staticmethod
+    def _kv_slice(leaf, kv_prefix):
+        """A cache leaf (a tensor or an int8 (values, scales) pair) cut
+        to its first kv_prefix positions (axis 2): the attention reads
+        [*, P, *] instead of the window. Exact when every live row's
+        keys lie below the rung: the positions dropped were masked to
+        exact zeros. Rings are never cut (their slots are not
+        positions)."""
+        if kv_prefix is None:
+            return leaf
+        if isinstance(leaf, tuple):
+            return tuple(a[:, :, :kv_prefix] for a in leaf)
+        return leaf[:, :, :kv_prefix]
+
     def _attn_scores(self, qh, k_leaf, group, dt):
         """Raw scores [N, H, Q, L] (f32) against the cached keys; the
         int8 scale is constant over head_dim, so it multiplies the
@@ -380,10 +488,12 @@ class CachedDecoder:
         return (p_abs >= 0) & (p_abs > q_pos - sw), p_abs
 
     # ---- one step ---------------------------------------------------------
-    def _attn_decode(self, w, x, cache, pos, info):
+    def _attn_decode(self, w, x, cache, pos, info, kv_prefix=None):
         """One decode step of either lineage against the full cache: the
         new k/v appended at each row's position (its ring slot for a
-        ring), then the masked attention over the cache."""
+        ring), then the masked attention over the cache (its first
+        kv_prefix positions when a rung is given and the op has no
+        ring)."""
         heads, kvh, d = self._geometry(info)
         group = heads // kvh
         dt = x.dtype
@@ -391,6 +501,9 @@ class CachedDecoder:
         ring = self._op_ring(info)
         qh, kh, vh = self._proj_qkv(w, x, info, pos)
         k_leaf, v_leaf = self._cache_append(cache, kh, vh, pos, ring)
+        if ring is None:            # ring slots are not position-sliced
+            k_leaf = self._kv_slice(k_leaf, kv_prefix)
+            v_leaf = self._kv_slice(v_leaf, kv_prefix)
         raw = self._attn_scores(qh, k_leaf, group, dt)
         idx = torch.arange(raw.shape[-1], device=raw.device)
         pe = pos[:, None, None, None]
@@ -407,7 +520,7 @@ class CachedDecoder:
         return project_out(merge_heads(ctx), w, dt, self._use_kernels)
 
     def _attn_decode_scratch(self, w, x, frozen, scratch, pos, step_i,
-                             pos0, info, kernel_attn):
+                             pos0, info, kernel_attn, kv_prefix=None):
         """One decode step against the FROZEN cache (positions < pos0,
         never rewritten inside a block) plus the block's scratch (slot j
         holds block step j <= step_i): together exactly the per-step
@@ -418,19 +531,22 @@ class CachedDecoder:
         k_scr[:, :, step_i] = kh[:, :, 0, :].to(k_scr.dtype)
         v_scr[:, :, step_i] = vh[:, :, 0, :].to(v_scr.dtype)
         ctx = self._attend_frozen_scratch(qh, frozen, scratch, step_i, pos,
-                                          pos0, info, dt, kernel_attn)
+                                          pos0, info, dt, kernel_attn,
+                                          kv_prefix)
         return project_out(merge_heads(ctx), w, dt, self._use_kernels)
 
     def _attend_frozen_scratch(self, qh, frozen, scratch, step_i, pos, pos0,
-                               info, dt, kernel_attn):
+                               info, dt, kernel_attn, kv_prefix=None):
         """Context [N, H, 1, D] (at dt) of the queries qh [N, H, 1, D] at
         positions `pos` = pos0 + step_i over the frozen cache (positions
         < pos0; for a ring, the latest position < pos0 of each slot) and
         the scratch slots <= step_i, each banded for a sliding op. With
         `kernel_attn` the frozen part runs
-        kernels/decode_attn.decode_attention and merges with the scratch
-        part by online-softmax combination; else the f32 torch matmuls
-        over the whole cache and one softmax over both parts."""
+        kernels/decode_attn.decode_attention (a rung `kv_prefix` is its
+        max_len) and merges with the scratch part by online-softmax
+        combination; else the f32 torch matmuls over the cache (its
+        first kv_prefix positions, unless the op has a ring) and one
+        softmax over both parts."""
         n, heads, _, d = qh.shape
         _, kvh, _ = self._geometry(info)
         group = heads // kvh
@@ -452,7 +568,7 @@ class CachedDecoder:
             scale = self._scale(info, d)
             q4 = qh[:, :, 0, :].reshape(n, kvh, group, d).contiguous()
             of, mf, lf = kdec.decode_attention(q4, k_leaf, v_leaf, pos0,
-                                               scale=scale)
+                                               scale=scale, max_len=kv_prefix)
             of = of.reshape(n, heads, 1, d)
             mf = mf.reshape(n, heads, 1, 1)
             lf = lf.reshape(n, heads, 1, 1)
@@ -462,6 +578,9 @@ class CachedDecoder:
             carry = torch.exp(mf - m_tot)          # 0 when frozen empty
             l_tot = lf * carry + p_new.sum(dim=-1, keepdim=True)
             return ((of * carry + ctx_new) / l_tot).to(dt)
+        if ring is None:
+            k_leaf = self._kv_slice(k_leaf, kv_prefix)
+            v_leaf = self._kv_slice(v_leaf, kv_prefix)
         raw_old = self._attn_scores(qh, k_leaf, group, dt)
         idx = torch.arange(raw_old.shape[-1], device=qh.device)
         q_pos = pos[:, None, None, None]
@@ -479,24 +598,29 @@ class CachedDecoder:
         return self._attn_ctx(p_old, v_leaf, group, dt) + torch.matmul(
             p_new, repeat_kv(v_scr.to(dt), group))
 
-    def _slice_seq(self, args, pos):
-        """A graph constant spanning the window (a learned position
-        table [1, L, E]) beside a one-token activation [N, 1, E] is
-        gathered at each row's position (clamped to the window)."""
+    def _slice_seq(self, args, pos, width: int = 1):
+        """A graph constant spanning the model's window (a learned
+        position table [1, L, E]) beside an activation of `width` tokens
+        a row ([N, width, E]: one for a decode step, K for a verify
+        chunk) is gathered at each row's positions pos .. pos + width - 1
+        (clamped to the window)."""
+        mw = self._model_window
         lens = [a.shape[1] if isinstance(a, torch.Tensor) and a.ndim == 3
                 else None for a in args]
-        if 1 not in lens or self._window not in lens or self._window == 1:
+        if width not in lens or mw not in lens or mw == width:
             return args
         n = pos.shape[0]
-        idx = torch.clamp(pos, max=self._window - 1)[:, None]     # [N, 1]
+        idx = torch.clamp(pos[:, None] + torch.arange(
+            width, device=pos.device), max=mw - 1)             # [N, W]
         rows = torch.arange(n, device=pos.device)[:, None]
-        return [a.expand(n, -1, -1)[rows, idx] if lens[i] == self._window
+        return [a.expand(n, -1, -1)[rows, idx] if lens[i] == mw
                 else a for i, a in enumerate(args)]
 
     def _walk(self, token, attend, pos):
-        """Run the plan on one token per row ([N, 1] float ids); `attend
-        (impl, w, x)` computes each attention op. Returns logits
-        [N, 1, V]."""
+        """Run the plan on W tokens per row ([N, W] float ids, fed at
+        positions pos .. pos + W - 1); `attend(impl, w, x)` computes each
+        attention op. Returns logits [N, W, V]."""
+        width = token.shape[1]
         env = {self._in_name: token}
         for impl, ins, outs in self._plan:
             w = self._weights.get(impl.name, {})
@@ -507,7 +631,7 @@ class CachedDecoder:
                 continue
             args = [env[n] for n in ins]
             if len(args) > 1:
-                args = self._slice_seq(args, pos)
+                args = self._slice_seq(args, pos, width)
             r = impl.apply(w, *args)
             if impl.n_outputs == 1:
                 env[outs[0]] = r
@@ -515,15 +639,15 @@ class CachedDecoder:
                 env.update(zip(outs, r))
         return env[self._out_name]
 
-    def _step_fn(self, token, pos, caches):
+    def _step_fn(self, token, pos, caches, kv_prefix=None):
         return self._walk(token, lambda impl, w, x: self._attn_decode(
-            w, x, caches[impl.name], pos, impl.decode_info), pos)
+            w, x, caches[impl.name], pos, impl.decode_info, kv_prefix), pos)
 
     def _step_fn_scratch(self, token, pos, caches, scratches, step_i, pos0,
-                         kernel_attn):
+                         kernel_attn, kv_prefix=None):
         return self._walk(token, lambda impl, w, x: self._attn_decode_scratch(
             w, x, caches[impl.name], scratches[impl.name], pos, step_i, pos0,
-            impl.decode_info, kernel_attn), pos)
+            impl.decode_info, kernel_attn, kv_prefix), pos)
 
     def _scratch_merge(self, cache, scratch, pos0, k_steps, ring=None):
         """Write a block's scratch into the cache in one pass: position
@@ -611,13 +735,14 @@ class CachedDecoder:
                     env[o] = None
             else:
                 args = [env[n_] for n_ in ins]
-                if len(args) > 1 and width != self._window:
-                    # window-spanning constants (position tables) cut
-                    # to the bucket's leading positions
+                mw = self._model_window
+                if len(args) > 1 and width != mw:
+                    # constants spanning the model's window (position
+                    # tables) cut to the bucket's leading positions
                     lens = [a.shape[1] if isinstance(a, torch.Tensor)
                             and a.ndim == 3 else None for a in args]
                     if width in lens:
-                        args = [a[:, :width] if lens[j] == self._window
+                        args = [a[:, :width] if lens[j] == mw
                                 else a for j, a in enumerate(args)]
                 r = impl.apply(w, *args)
                 if impl.n_outputs == 1:
@@ -648,26 +773,36 @@ class CachedDecoder:
                                       self._last_pos(lengths))
 
     def prefill_sample(self, tokens, lengths, seed, step, temperature,
-                       top_k, top_p):
+                       top_k, top_p, sample_cap="default"):
         """prefill + sampling of the first new token: (token [N], caches)."""
         with self._mode():
             last, caches = self._prefill_plan(
                 self._tensor(tokens, torch.float32), self._last_pos(lengths))
             return self._sample(last, seed, step, temperature, top_k,
-                                top_p), caches
+                                top_p, self._cap_of(sample_cap)), caches
 
-    def _sample(self, logits, seed, step, temperature, top_k, top_p):
+    def _cap_of(self, sample_cap):
+        """A per-call sampler cap: "default" is the decoder's, None the
+        exact full-vocabulary sampler, an int that cap."""
+        if sample_cap == "default":
+            return self.sample_cap
+        return None if sample_cap is None else int(sample_cap)
+
+    def _sample(self, logits, seed, step, temperature, top_k, top_p,
+                cap=None):
         gen = None if all_greedy(temperature) else step_generator(
             self._device, seed, step)
-        return sample_logits(logits, gen, temperature, top_k, top_p)
+        return sample_logits(logits, gen, temperature, top_k, top_p, cap)
 
     def prefill_install(self, tokens, lengths, seed, step, temperature,
-                        top_k, top_p, pool_caches, rows):
+                        top_k, top_p, pool_caches, rows,
+                        sample_cap="default"):
         """Admission: batched prefill at the bucket width W = tokens
         .shape[1] (<= the window), sampling of the first new token, and
         the write of each row's cache into pool rows `rows` (positions
         < W, or the whole ring; rows[j] >= the pool size drops row j).
-        Returns (token [N], pool caches, updated in place)."""
+        sample_cap: the wave's sampler cap, as decode_block's. Returns
+        (token [N], pool caches, updated in place)."""
         width = int(np.shape(tokens)[1])
         if width > self._window:
             raise ValueError(f"prefill tokens width {width} exceeds the "
@@ -676,7 +811,8 @@ class CachedDecoder:
             raise ValueError("a row's length exceeds the prefill bucket "
                              "width")
         tok, caches = self.prefill_sample(tokens, lengths, seed, step,
-                                          temperature, top_k, top_p)
+                                          temperature, top_k, top_p,
+                                          sample_cap)
         return tok, self.install_rows(pool_caches, caches, rows)
 
     def install_row(self, pool_caches, row_caches, row: int):
@@ -711,13 +847,26 @@ class CachedDecoder:
         return carry
 
     # ---- decode -----------------------------------------------------------
-    def step(self, tokens, pos, caches):
+    def _check_prefix(self, kv_prefix):
+        """A validated rung: None, or an int in [1, window) (the window
+        itself is no rung)."""
+        if kv_prefix is None:
+            return None
+        kv_prefix = int(kv_prefix)
+        if not 1 <= kv_prefix <= self._window:
+            raise ValueError(f"kv_prefix must be in [1, {self._window}], "
+                             f"got {kv_prefix}")
+        return None if kv_prefix == self._window else kv_prefix
+
+    def step(self, tokens, pos, caches, kv_prefix: int | None = None):
         """One decode step: tokens [N, 1], pos [N]. Returns (logits
-        [N, 1, V], caches updated in place)."""
+        [N, 1, V], caches updated in place). kv_prefix: a rung bounding
+        the read of position-indexed caches, as decode_block's."""
+        kv_prefix = self._check_prefix(kv_prefix)
         with self._mode():
             pos_t = self._tensor(pos, torch.long)
             return self._step_fn(self._tensor(tokens, torch.float32), pos_t,
-                                 caches), caches
+                                 caches, kv_prefix), caches
 
     def step_sample(self, tokens, pos, caches, seed, step, temperature,
                     top_k, top_p):
@@ -725,7 +874,7 @@ class CachedDecoder:
         logits, caches = self.step(tokens, pos, caches)
         with torch.inference_mode():
             return self._sample(logits[:, 0, :], seed, step, temperature,
-                                top_k, top_p), caches
+                                top_k, top_p, self.sample_cap), caches
 
     @property
     def kernel_ok(self) -> bool:
@@ -738,7 +887,9 @@ class CachedDecoder:
             or info.get("alibi") for _, info in self._mha_ops)
 
     def decode_block(self, tokens, pos, caches, seed, step0, temperature,
-                     top_k, top_p, k_steps: int, attn_impl="default"):
+                     top_k, top_p, k_steps: int,
+                     kv_prefix: int | None = None, sample_cap="default",
+                     attn_impl="default"):
         """K decode steps: tokens [N] (the last sampled token per row — a
         host array or a device tensor from a previous block), pos [N]
         (its position). Returns (sampled tokens [N, K], last token [N],
@@ -747,9 +898,21 @@ class CachedDecoder:
         on the block size. Tokens past a row's end are garbage the
         caller discards. Over ring caches K is at most RING_HEADROOM.
 
+        kv_prefix: a rung bounding the attention read of the
+        position-indexed caches: the torch route reads their first
+        kv_prefix positions, the kernel route gets it as
+        decode_attention's max_len; ring caches are read whole. Exact
+        when every LIVE row has pos + k_steps <= kv_prefix; rows the
+        caller discards may exceed it. The caches keep their shape.
+
+        sample_cap: this block's sampler cap — "default" (the decoder's),
+        None (the exact full-vocabulary sampler) or an int.
+
         attn_impl: "default" (the decoder's decode_attn), "torch" or
         "kernel" (requires kernel_ok) for the frozen-cache attention of
         scratch-mode blocks."""
+        kv_prefix = self._check_prefix(kv_prefix)
+        cap = self._cap_of(sample_cap)
         if attn_impl == "default":
             kernel_attn = self._kernel_decode
         elif attn_impl in ("torch", "kernel"):
@@ -787,13 +950,14 @@ class CachedDecoder:
                 x = tok.float()[:, None]
                 if self._scratch_blocks:
                     logits = self._step_fn_scratch(x, p, caches, scratches, i,
-                                                   pos0, kernel_attn)
+                                                   pos0, kernel_attn,
+                                                   kv_prefix)
                 else:
-                    logits = self._step_fn(x, p, caches)
+                    logits = self._step_fn(x, p, caches, kv_prefix)
                 gen = None if greedy else step_generator(
                     self._device, seed, int(step0) + i)
                 tok = sample_logits(logits[:, 0, :], gen, temperature, top_k,
-                                    top_p)
+                                    top_p, cap)
                 toks.append(tok)
                 p = torch.clamp(p + 1, max=last)
             if self._scratch_blocks:
@@ -801,6 +965,105 @@ class CachedDecoder:
                     self._scratch_merge(caches[name], scratches[name], pos0,
                                         k_steps, self._op_ring(info))
             return torch.stack(toks, dim=1), tok, caches
+
+    # ---- verify chunks ----------------------------------------------------
+    def _chunk_append(self, cache, kh, vh, pos, ring):
+        """Write a chunk's k/v ([N, KV, K, D]) at positions pos .. pos +
+        K - 1 (ring slots (pos + j) % R), in place. Positions past the
+        window clamp onto its last slot, and every write that lands
+        there carries the chunk entry of the last position inside the
+        window, so the duplicates agree and the window's last real key
+        survives (the JAX package drops those writes)."""
+        n, _, k, _ = kh.shape
+        j = torch.arange(k, device=pos.device)
+        cols = pos[:, None] + j                                  # [N, K]
+        if ring is not None:
+            cols = torch.remainder(cols, ring)
+            src = j.expand(n, k)
+        else:
+            cols = torch.clamp(cols, max=cache[0].shape[2] - 1)
+            src = cols - pos[:, None]                   # min(j, L-1-pos)
+        rows = torch.arange(n, device=pos.device)[:, None].expand(n, k)
+        idx = src[:, None, :, None].expand(-1, kh.shape[1], -1, kh.shape[3])
+        ks = torch.gather(kh, 2, idx).transpose(1, 2)          # [N,K,KV,D]
+        vs = torch.gather(vh, 2, idx).transpose(1, 2)
+        if self._kv_int8:
+            for leaf, val in zip(cache, (*_kv_quantize(ks),
+                                         *_kv_quantize(vs))):
+                leaf[rows, :, cols] = val
+        else:
+            cache[0][rows, :, cols] = ks.to(cache[0].dtype)
+            cache[1][rows, :, cols] = vs.to(cache[1].dtype)
+        return self._leaves(cache)
+
+    def _attn_chunk(self, w, x, cache, pos, info):
+        """A verify chunk through one attention op: project (and rotate)
+        the K tokens a row of x [N, K, E], append their k/v at pos ..
+        pos + K - 1, and attend each chunk query q_i over the cache
+        positions <= pos + i (banded for a sliding op; a ring's slots
+        resolved to the latest position <= pos + K - 1). The K-token
+        counterpart of _attn_decode."""
+        heads, kvh, _ = self._geometry(info)
+        group = heads // kvh
+        dt = x.dtype
+        k = x.shape[1]
+        sw = info.get("sliding_window")
+        ring = self._op_ring(info)
+        positions = torch.clamp(pos[:, None] + torch.arange(
+            k, device=pos.device), max=self._window - 1)          # [N, K]
+        qh, kh, vh = self._proj_qkv(w, x, info, positions)
+        k_leaf, v_leaf = self._chunk_append(cache, kh, vh, pos, ring)
+        raw = self._attn_scores(qh, k_leaf, group, dt)       # [N, H, K, L]
+        idx = torch.arange(raw.shape[-1], device=raw.device)
+        q_pos = positions[:, None, :, None]
+        if ring is not None:
+            top = (pos + k - 1)[:, None, None, None]
+            keep, p_abs = self._ring_keep(top, idx, ring, q_pos, sw)
+            keep &= p_abs <= q_pos
+        else:
+            p_abs = idx
+            keep = idx <= q_pos
+            if sw is not None:
+                keep &= idx > q_pos - sw
+        s = self._logits(raw, info, p_abs).masked_fill(~keep, _NEG)
+        p = torch.softmax(s, dim=-1).to(dt)
+        ctx = self._attn_ctx(p, v_leaf, group, dt)             # [N, H, K, D]
+        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+
+    def _chunk_fn(self, tokens, pos, caches):
+        """The plan at chunk width K: tokens [N, K] fed at pos .. pos + K
+        - 1, every attention op appending K cache entries. Returns
+        logits [N, K, V]."""
+        return self._walk(tokens, lambda impl, w, x: self._attn_chunk(
+            w, x, caches[impl.name], pos, impl.decode_info), pos)
+
+    def decode_chunk_verify(self, tokens, pos, caches):
+        """Feed K tokens per row through the cache in one pass and return
+        each position's greedy token: (greedy [N, K] on the device,
+        caches with the K entries appended at pos .. pos + K - 1, in
+        place).
+
+        The substrate of speculative verification (zoo/speculative.py):
+        tokens[:, 0] is each row's last accepted token, tokens[:, 1:] a
+        draft's proposals, and greedy[:, i] the model's prediction after
+        tokens[:, :i + 1]. Entries appended past the accepted position
+        are stale but never read: the position masks stop at each row's
+        position and later appends overwrite them. Over ring caches K is
+        at most RING_HEADROOM."""
+        k = int(np.shape(tokens)[1])
+        if not 1 <= k <= self._window:
+            raise ValueError(f"chunk width must be in [1, {self._window}],"
+                             f" got {k}")
+        if self._has_ring and k > self.RING_HEADROOM:
+            raise ValueError(
+                f"verify chunks over ring-stored sliding caches are "
+                f"limited to {self.RING_HEADROOM} tokens, got {k}")
+        with self._mode():
+            pos_t = torch.clamp(self._tensor(pos, torch.long),
+                                max=self._window - 1)
+            logits = self._chunk_fn(self._tensor(tokens, torch.float32),
+                                    pos_t, caches)
+            return torch.argmax(logits.float(), dim=-1), caches
 
     def generate(self, prompt_ids, steps: int, eos_id: int | None = None, *,
                  temperature: float = 0.0, top_k: int = 0,
@@ -816,6 +1079,16 @@ class CachedDecoder:
         if p + steps > self._window:
             raise ValueError(f"prompt ({p}) + steps ({steps}) exceeds "
                              f"the window {self._window}")
+        cap = self.sample_cap
+        if (cap is not None and temperature > 0.0
+                and not 0 < top_k <= cap and not self._trunc_warned):
+            # a nucleus-only or wide top-k draw under a cap is truncated
+            # to the top-cap candidates: warn once per decoder
+            self._trunc_warned = True
+            logging.getLogger(__name__).warning(
+                "sample_cap=%d truncates this draw: top_k=%d is outside "
+                "the exact regime 0 < top_k <= cap; further occurrences "
+                "are not logged", cap, top_k)
         t_arr = np.full(n, temperature, np.float32)
         k_arr = np.full(n, top_k, np.int64)
         p_arr = np.full(n, top_p, np.float32)

@@ -689,7 +689,7 @@ def test_stem_kernel_widths_on_card(cuda, n, oc, act):
     assert kstem.launches - before == 2
 
 
-# ---- the detection pipeline's device side (zoo/detect.py) --------------
+# ---- the detection pipeline's device side (zoo/detect.py) -------------------
 def _planted_head(n, m, nc, seed, head="v5"):
     """chip_smoke's planted head: clusters of partly overlapping boxes
     with exact score ties, over background rows under the 0.25
@@ -761,7 +761,7 @@ def test_engine_temp_bytes_on_card(cuda):
     assert 0 < t[0] < t[1] < t[2]
 
 
-# ---- the CNN service's host waits (serving/batcher.py, Engine.input) -----
+# ---- the CNN service's host waits (serving/batcher.py, Engine.input) --------
 # a queued kernel of ~0.2 s at H100 clocks: far longer than the host work
 # of a small model's input, dispatch or resolve
 SPIN_CYCLES = 400_000_000
@@ -984,3 +984,102 @@ def test_mha_noncausal_flash_on_card(cuda, monkeypatch):
     assert kattn.launches - before == 2            # one per layer
     scale = max(1.0, float(np.abs(outs[1]).max()))
     assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-4 * scale
+
+
+# ---- LLM serving: rungs, verify chunks, speculative decoding ----------------
+def _chip_smoke():
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "float32", "int8"])
+def test_decode_kernel_rung_max_len_on_card(cuda, cache):
+    """decode_attention with a rung as max_len under L, rows under, at and
+    past the rung, against its plain version over the lengths clamped
+    to the rung; reruns bit-equal."""
+    from simpleinfer_tpu_torch.zoo.generate import _kv_quantize
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, kvh, g, length, d = 8, 8, 4, 2048, 64
+    q = torch.randn(n, kvh, g, d, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(n, kvh, length, d, generator=gen, device=cuda)
+            for _ in range(2))
+    if cache == "int8":
+        k, v = _kv_quantize(k), _kv_quantize(v)
+    else:
+        k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
+    lens = torch.tensor([0, 1, 255, 256, 257, 1000, 2048, 100],
+                        dtype=torch.int32, device=cuda)
+    for rung in (256, 1024):
+        got = kdec.decode_attention(q, k, v, lens, scale=0.125, max_len=rung)
+        again = kdec.decode_attention(q, k, v, lens, scale=0.125,
+                                      max_len=rung)
+        ref = kdec.decode_attention_ref(q, k, v, torch.clamp(lens, max=rung),
+                                        scale=0.125)
+        torch.cuda.synchronize(cuda)
+        for part, a, b in zip("oml", got, ref):
+            live = b[b > -1e29] if part == "m" else b
+            lim = 1e-4 * max(1.0, float(live.abs().max()))
+            assert float((a - b).abs().max()) <= lim, (rung, part)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_chunk_verify_and_rungs_card_vs_cpu(cuda):
+    """fp32 int4w llama nano: decode_chunk_verify's greedy tokens and a
+    rung-bounded decode block's tokens on the card (matmul_int4w at the
+    chunk's M, the decode kernel with max_len) equal the CPU port's."""
+    prompt = np.random.default_rng(5).integers(0, 64, (3, 20))
+    feed = np.random.default_rng(6).integers(0, 64, (3, 4))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(EngineConfig(device=str(dev), quant="int4w",
+                                  use_kernels=True)).load_model(
+            None, graph=build_llama("nano", seq_len=64, vocab_size=64)[0])
+        dec = CachedDecoder(eng, scratch_blocks=True, decode_attn="kernel")
+        with fp32_parity(True):
+            window = np.zeros((3, 64), np.float32)
+            window[:, :20] = prompt
+            z = np.zeros(3, np.float32)
+            _, caches = dec.prefill_sample(window, np.full(3, 20), 0, 0, z,
+                                           np.zeros(3, np.int64), z + 1)
+            g, caches = dec.decode_chunk_verify(feed, np.full(3, 20),
+                                                caches)
+            toks, _, _ = dec.decode_block(g[:, -1], np.full(3, 24), caches,
+                                          0, 1, z, np.zeros(3, np.int64),
+                                          z + 1, 8, kv_prefix=32)
+        outs.append((g.cpu().numpy(), toks.cpu().numpy()))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chip_smoke_gen_http_rehearsal_on_card(cuda, monkeypatch):
+    """chip_smoke's gen_http phase at its CPU rehearsal's size on the
+    card (the flash gates lowered to its windows): the kernels launch on
+    the served path, hang-ups and deadlines end as specified, greedy
+    replies equal their waves' decode."""
+    monkeypatch.setenv("SI_FLASH_MIN_LK", "32")
+    monkeypatch.setenv("SI_FLASH_MIN_LQ", "32")
+    res = _chip_smoke().gen_http_rehearsal(cuda)
+    assert all(v > 0 for v in res["http"]["launches"].values())
+
+
+@pytest.mark.cuda
+def test_chip_smoke_speculative_rehearsal_on_card(cuda, monkeypatch):
+    """chip_smoke's speculative phase at its CPU rehearsal's size on the
+    card (the flash gates lowered to its window): fp32 lossless for both
+    drafts."""
+    monkeypatch.setenv("SI_FLASH_MIN_LK", "32")
+    monkeypatch.setenv("SI_FLASH_MIN_LQ", "32")
+    res = _chip_smoke().speculative_rehearsal(cuda)
+    assert res["fp32"]["same"]["equal"] and res["fp32"]["small"]["equal"]

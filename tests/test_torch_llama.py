@@ -487,6 +487,82 @@ def test_sample_logits_distribution(temp, top_k, top_p):
     assert np.all(freq[exact == 0] == 0)
 
 
+def _rand_logits(n, v, seed):
+    """tests/test_sampling.py's logits: N(0, 3^2), seeded."""
+    return np.random.default_rng(seed).normal(size=(n, v)).astype(
+        np.float32) * 3.0
+
+
+def test_sampler_capped_greedy_and_topk_support():
+    """cap: greedy rows equal the JAX sampler's argmax; sampled rows with
+    top_k <= cap stay inside their top_k support."""
+    logits = _rand_logits(4, 64, 7)
+    temp = np.array([0.0, 1.1, 0.0, 0.9], np.float32)
+    topk = np.array([0, 5, 0, 3], np.int64)
+    topp = np.ones(4, np.float32)
+    want = np.asarray(jsample(jnp.asarray(logits), jax.random.PRNGKey(0),
+                              jnp.asarray(temp), jnp.asarray(topk, jnp.int32),
+                              jnp.asarray(topp), cap=8))
+    allowed = np.argsort(-logits, axis=-1)
+    for step in range(15):
+        tok = sample_logits(torch.from_numpy(logits), step_generator(
+            "cpu", 0, step), temp, topk, topp, cap=8).numpy()
+        assert tok[0] == want[0] == logits[0].argmax()
+        assert tok[2] == want[2] == logits[2].argmax()
+        assert tok[1] in allowed[1, :5]
+        assert tok[3] in allowed[3, :3]
+
+
+def test_sampler_capped_distribution_exact_in_topk_regime():
+    """With 0 < top_k <= cap the capped sampler draws from the full-vocab
+    renormalized top-k distribution: a chi-square of 20000 draws against
+    the exact probabilities stays under the 0.999 quantile (3 degrees of
+    freedom: 16.27), and nothing outside the top k is drawn."""
+    v, k, t, draws = 32, 4, 1.0, 20000
+    logits = _rand_logits(1, v, 8)
+    toks = sample_logits(
+        torch.from_numpy(np.tile(logits, (draws, 1))),
+        step_generator("cpu", 5, 0), np.full(draws, t, np.float32),
+        np.full(draws, k, np.int64), np.ones(draws, np.float32),
+        cap=8).numpy()
+    counts = np.bincount(toks, minlength=v)
+    order = np.argsort(-logits[0])
+    p = np.exp(logits[0].astype(np.float64) / t)
+    exact = p[order[:k]] / p[order[:k]].sum()
+    expected = draws * exact
+    chi2 = float((((counts[order[:k]] - expected) ** 2) / expected).sum())
+    assert chi2 < 16.27, (chi2, counts[order[:k]], expected)
+    assert counts[order[k:]].sum() == 0
+
+
+def test_sampler_capped_nucleus_truncates_to_cap():
+    """top_k 0 and top_p < 1 under a cap: the draw stays among the
+    top-cap candidates."""
+    logits = _rand_logits(2, 64, 9)
+    allowed = np.argsort(-logits, axis=-1)[:, :6]
+    for step in range(20):
+        tok = sample_logits(torch.from_numpy(logits), step_generator(
+            "cpu", 1, step), np.full(2, 2.0, np.float32),
+            np.zeros(2, np.int64), np.full(2, 0.95, np.float32),
+            cap=6).numpy()
+        for i in range(2):
+            assert tok[i] in allowed[i]
+
+
+def test_sampler_cap_at_or_above_vocab_matches_uncapped():
+    """A cap at or above V is the uncapped sampler, draw for draw."""
+    logits = torch.from_numpy(_rand_logits(3, 24, 10))
+    t = np.full(3, 1.3, np.float32)
+    k = np.array([0, 4, 9], np.int64)
+    p = np.array([0.9, 1.0, 0.6], np.float32)
+    for step in range(10):
+        a = sample_logits(logits, step_generator("cpu", 2, step), t, k, p)
+        for cap in (24, 99):
+            b = sample_logits(logits, step_generator("cpu", 2, step), t, k,
+                              p, cap=cap)
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 def test_sampled_stream_independent_of_block_size(engines):
     """Step i draws from the generator of (seed, step): the same sampled
     tokens for any decode block size."""

@@ -1,7 +1,9 @@
 """The port's HTTP front end (simpleinfer_tpu_torch/serving/http.py) on
-the CPU: the scenarios of tests/test_serving_http.py that need no
-generation service, against a port server on an ephemeral port;
-/v1/generate answering 400; and the JAX package's server and the
+the CPU: the scenarios of tests/test_serving_http.py against a port
+server on an ephemeral port; /v1/generate (JSON, SSE, a hang-up, the
+tiered service, validation and stats; tests/test_serving.py's HTTP
+scenarios) on a GPT nano, its ids equal to a greedy decode and to the
+JAX server's; and the JAX package's server and the
 port's on the same requests: /v1/infer (npy, resnet18-32 width 8 fp32)
 and /v1/detect (build_yolov5("n", image_size=64) fp32, host decode and
 device decode). Parity: the same count and class ids, boxes and scores
@@ -10,6 +12,8 @@ tests/test_golden.py:102, scale = max(1, |ref|) over the reply)."""
 import http.client
 import io
 import json
+import socket
+import time
 import urllib.error
 import urllib.request
 
@@ -249,8 +253,9 @@ def test_oversized_request_does_not_desync_keepalive(served):
 
 
 def test_generate_is_400_without_a_generation_service(served):
-    """/v1/generate answers as the JAX server does with no generation
-    service attached; attaching one is not ported yet."""
+    """/v1/generate answers 400 as the JAX server does when no generation
+    service is attached; a server needs at least one service, and takes
+    a BatchingService and a generation service together."""
     eng, svc, base = served
     body = json.dumps({"prompt": [1, 2, 3], "max_new": 4}).encode()
     with pytest.raises(urllib.error.HTTPError) as ei:
@@ -258,10 +263,197 @@ def test_generate_is_400_without_a_generation_service(served):
     assert ei.value.code == 400
     assert "no generation service attached" in json.loads(
         ei.value.read())["error"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceServer(svc, port=0, gen_service=object())
+    both = InferenceServer(svc, port=0, gen_service=_gen_service())
+    assert both.gen_service is not None and both.service is svc
+    both._httpd.server_close()
     with pytest.raises(ValueError):
         InferenceServer(None, port=0)
+
+
+# ----------------------------------------------------------- /v1/generate
+def _gpt_graph(seq_len=24):
+    """tests/test_serving.py's _gpt_engine graph (GPT nano, vocab 40)."""
+    from simpleinfer_tpu_torch.zoo import build_gpt
+
+    return build_gpt(variant="nano", batch=1, seq_len=seq_len,
+                     vocab_size=40, depth=2, width=32, num_heads=4)[0]
+
+
+def _gen_service(seq_len=24, tiers=None, **kw):
+    from simpleinfer_tpu_torch.serving import (GenerationService,
+                                               TieredGenerationService)
+
+    eng = _cpu_engine(_gpt_graph(seq_len), use_kernels=True)
+    if tiers:
+        return TieredGenerationService(eng, tiers=tiers, decode_horizon=2,
+                                       **kw)
+    return GenerationService(eng, slots=2, decode_horizon=2, **kw)
+
+
+@pytest.fixture(scope="module")
+def gen_served():
+    gsvc = _gen_service().start()
+    server = InferenceServer(None, port=0, gen_service=gsvc).start()
+    host, port = server.address[:2]
+    yield gsvc, f"http://{host}:{port}"
+    server.stop()
+    gsvc.stop()
+
+
+def _sse_events(resp) -> list:
+    return [json.loads(line.decode().strip()[6:]) for line in resp
+            if line.startswith(b"data: ")]
+
+
+def test_generate_endpoint(gen_served):
+    """JSON /v1/generate: the ids equal a CachedDecoder's greedy decode
+    of the prompt, and the JAX server's reply on the same graph."""
+    from simpleinfer_tpu import Engine as JE
+    from simpleinfer_tpu.serving.llm import GenerationService as JGen
+    from simpleinfer_tpu.zoo import build_gpt as jbuild_gpt
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    _, base = gen_served
+    want = CachedDecoder(_cpu_engine(_gpt_graph(), use_kernels=True)
+                         ).generate(np.asarray([[3, 7, 11]]), steps=5)[0]
+    body = json.dumps({"prompt": [3, 7, 11], "max_new": 5}).encode()
+    status, ctype, out = _post(base + "/v1/generate", body,
+                               "application/json")
+    assert status == 200 and ctype == "application/json"
+    payload = json.loads(out)
+    assert payload["prompt_len"] == 3
+    np.testing.assert_array_equal(payload["ids"], want)
+    jg = jbuild_gpt(variant="nano", batch=1, seq_len=24, vocab_size=40,
+                    depth=2, width=32, num_heads=4)[0]
+    jsvc = JGen(JE().load_model(None, graph=jg), slots=2,
+                decode_horizon=2).start()
+    jserver = JInferenceServer(None, port=0, gen_service=jsvc).start()
+    try:
+        _, _, jout = _post(f"http://127.0.0.1:{jserver.address[1]}"
+                           "/v1/generate", body, "application/json")
+    finally:
+        jserver.stop()
+        jsvc.stop()
+    assert json.loads(jout) == payload
+
+
+def test_generate_validation_and_stats(gen_served):
+    """400 on a body without a prompt, on a bad parameter, on an npy
+    body and on a prompt past the window; /v1/infer is 400 on a
+    generation-only server; /v1/stats and /metrics carry the generation
+    counters."""
+    _, base = gen_served
+    for body in ({"max_new": 5}, {"prompt": [1, 2], "top_k": "many"},
+                 {"prompt": [1] * 20, "max_new": 10}, [1, 2, 3]):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + "/v1/generate", json.dumps(body).encode(),
+                  "application/json")
+        assert ei.value.code == 400, body
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(base + "/v1/generate", _npy(np.ones(3)), NPY_CONTENT_TYPE)
+    assert ei.value.code == 400
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(base + "/v1/infer", json.dumps({"input": [1.0]}).encode(),
+              "application/json")
+    assert ei.value.code == 400
+    _post(base + "/v1/generate", json.dumps(
+        {"prompt": [4, 2], "max_new": 5}).encode(), "application/json")
+    status, stats = _get_json(base + "/v1/stats")
+    assert status == 200 and stats["tokens_out"] >= 5
+    assert {"capped_steps", "cancelled", "timed_out"} <= set(stats)
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    assert "si_gen_tokens_total" in text
+    assert "si_gen_cancelled_total" in text
+
+
+def test_generate_sse_stream(gen_served):
+    """stream=true: one SSE event a token, then a done event with the
+    full ids (equal to the JSON reply's)."""
+    _, base = gen_served
+    body = {"prompt": [4, 8, 1], "max_new": 7}
+    _, _, out = _post(base + "/v1/generate", json.dumps(body).encode(),
+                      "application/json")
+    want = json.loads(out)["ids"]
+    req = urllib.request.Request(
+        base + "/v1/generate", data=json.dumps(
+            {**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        assert resp.headers["Content-Type"] == "text/event-stream"
+        events = _sse_events(resp)
+    toks = [e["token"] for e in events if "token" in e]
+    done = [e for e in events if e.get("done")]
+    assert len(done) == 1
+    assert done[0]["ids"] == want and done[0]["prompt_len"] == 3
+    assert toks == want[3:]
+
+
+def test_generate_sse_hangup_frees_the_slot():
+    """A client that reads two SSE events and hangs up cancels its
+    request: the row is freed before max_new, counted as cancelled, and
+    the next request is served in full."""
+    gsvc = _gen_service(seq_len=64)
+    orig = gsvc._dec.decode_block
+
+    def slow_block(*a, **kw):       # a block takes 10 ms, as on a card
+        time.sleep(0.01)
+        return orig(*a, **kw)
+    gsvc._dec.decode_block = slow_block
+    gsvc.start()
+    server = InferenceServer(None, port=0, gen_service=gsvc).start()
+    host, port = server.address[:2]
+    try:
+        body = json.dumps({"prompt": [4, 8], "max_new": 60,
+                           "stream": True}).encode()
+        sock = socket.create_connection((host, port), timeout=60)
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        reader = sock.makefile("rb")
+        seen = 0
+        while seen < 2:
+            if reader.readline().startswith(b"data: "):
+                seen += 1
+        reader.close()
+        sock.close()
+        for _ in range(500):
+            if gsvc.stats.completed:
+                break
+            time.sleep(0.01)
+        assert gsvc.stats.cancelled == 1
+        assert gsvc.stats.tokens_out < 60
+        _, _, out = _post(f"http://{host}:{port}/v1/generate", json.dumps(
+            {"prompt": [1, 2], "max_new": 6}).encode(), "application/json")
+        assert len(json.loads(out)["ids"]) == 8
+    finally:
+        server.stop()
+        gsvc.stop()
+
+
+def test_generate_with_tiered_service():
+    """TieredGenerationService behind the server: short and long requests
+    go through their tiers, deadlines and priorities pass through, and
+    /v1/stats sums the tiers."""
+    gsvc = _gen_service(tiers=((2, 12), (2, None))).start()
+    server = InferenceServer(None, port=0, gen_service=gsvc).start()
+    base = f"http://127.0.0.1:{server.address[1]}"
+    try:
+        def gen(prompt, max_new, **kw):
+            _, _, out = _post(base + "/v1/generate", json.dumps(
+                {"prompt": prompt, "max_new": max_new, **kw}).encode(),
+                "application/json")
+            return json.loads(out)
+
+        short = gen([4, 8], 5, priority=3)
+        long_ = gen([3, 1, 4, 1, 5, 9], 14, timeout_s=60)
+        assert len(short["ids"]) == 7 and len(long_["ids"]) == 20
+        _, stats = _get_json(base + "/v1/stats")
+    finally:
+        server.stop()
+        gsvc.stop()
+    assert [s.stats.completed for s in gsvc.services] == [1, 1]
+    assert stats["completed"] == 2
 
 
 # ----------------------------------------------------------- /v1/detect

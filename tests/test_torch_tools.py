@@ -3,7 +3,9 @@ simpleinfer_tpu_torch`) on the CPU, against the JAX package's CLI on the
 same written model: `dump`, `detect` (host and device decode, static
 int8), `classify` (fp32 and static int8) and `segment` print the same
 lines, and `calibrate` writes the same scales (rtol 1e-4). `serve`
-starts in a subprocess and answers /healthz and /v1/infer. `--device`
+starts in a subprocess and answers /healthz and /v1/infer; `serve
+--generate` normalizes its flags as the JAX CLI does (the same errors)
+and, in a subprocess on a llama nano, answers /v1/generate. `--device`
 defaults to cuda: without a card the commands raise and nothing falls
 back to the CPU.
 
@@ -203,11 +205,10 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(models):
 
 def test_parser_leaves_out_the_unported_commands(models, capsys):
     """profile, roofline and export are not ported (ROADMAP.md §1 item
-    6), nor serve's --generate (item 3)."""
+    6)."""
     for argv in (["roofline", *models["yolo"]],
                  ["profile", *models["yolo"]],
-                 ["export", *models["yolo"], "-o", "x"],
-                 ["serve", *models["yolo"], "--generate"]):
+                 ["export", *models["yolo"], "-o", "x"]):
         with pytest.raises(SystemExit) as ei:
             tools.main(argv)
         assert ei.value.code == 2
@@ -250,6 +251,128 @@ def test_serve_subprocess_smoke(models):
             eng.output_names[0]][0]
         np.testing.assert_allclose(out["output"], want, atol=1e-4,
                                    rtol=1e-4)
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+        assert "shutting down" in proc.stdout.read()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+# ---- serve --generate -------------------------------------------------------
+@pytest.fixture(scope="module")
+def llama_model(tmp_path_factory):
+    from simpleinfer_tpu_torch.zoo import build_llama
+
+    d = tmp_path_factory.mktemp("lm")
+    return _save(build_llama("nano", seq_len=32, vocab_size=64)[0], d, "l")
+
+
+@pytest.mark.parametrize("flags,err", [
+    (["--sample-cap", "lots"], "--sample-cap: expected an int"),
+    (["--sample-cap", "AUTO", "--kv-prefix-ladder", "128;256"],
+     "--kv-prefix-ladder: expected comma-separated ints"),
+    (["--prefill-ladder", "64;x"], "--prefill-ladder: expected"),
+    (["--tiers", "8-512"], "--tiers: expected slots:window pairs"),
+    (["--tiers", "8:512,4:huge"], "--tiers: expected slots:window pairs"),
+], ids=["cap", "auto_then_ladder", "prefill", "tiers", "tier_window"])
+def test_serve_generate_flag_errors_match_jax(llama_model, flags, err):
+    """Bad --generate flags end both CLIs with the same error text
+    (SystemExit) before anything is served; 'AUTO' passes --sample-cap
+    in both (case-insensitive)."""
+    argv = ["serve", *llama_model, "--generate", "--port", "0",
+            "--dtype", "float32", *flags]
+    with pytest.raises(SystemExit) as want:
+        jmain(argv)
+    with pytest.raises(SystemExit) as got:
+        tools.main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert err in str(got.value)
+
+
+def test_serve_generate_flags_normalized(llama_model):
+    """The flags reach the service: 'AUTO' / 'off' keywords in any case,
+    comma-separated ladders, slots:window tiers ('FULL' = the model's
+    window), the port's --decode-attn names."""
+    from simpleinfer_tpu_torch.serving import (GenerationService,
+                                               TieredGenerationService)
+
+    eng = Engine(EngineConfig(device="cpu")).load_model(*llama_model)
+
+    def build(*flags):
+        ap_args = ["serve", *llama_model, "--generate", "--device", "cpu",
+                   *flags]
+        parsed = {}
+        real = tools.cmd_serve
+        try:
+            tools.cmd_serve = lambda a: parsed.setdefault("a", a) and 0
+            tools.main(ap_args)
+        finally:
+            tools.cmd_serve = real
+        return tools.generation_service(parsed["a"], eng)
+
+    svc = build("--sample-cap", "AUTO", "--kv-prefix-ladder", "8,16",
+                "--prefill-ladder", "OFF", "--max-batch", "3",
+                "--decode-horizon", "4", "--decode-attn", "torch",
+                "--kv-dtype", "bfloat16", "--no-pipeline")
+    assert isinstance(svc, GenerationService)
+    assert (svc._cap_mode, svc._prefix_ladder, svc._prefill_ladder) == \
+        ("auto", [8, 16], [32])
+    assert (svc._slots, svc._horizon, svc._pipelined, svc._attn_auto) == \
+        (3, 4, False, False)
+    assert svc._dec._kv_store == torch.bfloat16
+    svc = build("--sample-cap", "off", "--tiers", "2:16,2:FULL")
+    assert isinstance(svc, TieredGenerationService)
+    assert svc.windows == [16, 32]
+    assert all(s._cap_mode == "off" for s in svc.services)
+    assert build("--sample-cap", "12")._cap == 12
+    with pytest.raises(SystemExit):
+        build("--decode-attn", "pallas")
+
+
+def test_serve_generate_subprocess_smoke(llama_model):
+    """`python -m simpleinfer_tpu_torch serve <llama> --generate --device
+    cpu --port 0 --warmup` answers /v1/generate (JSON and SSE) with a
+    greedy decode's ids, and shuts down on SIGINT."""
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "simpleinfer_tpu_torch", "serve",
+         *llama_model, "--generate", "--port", "0", "--device", "cpu",
+         "--dtype", "float32", "--max-batch", "2", "--decode-horizon", "4",
+         "--warmup"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    watchdog = threading.Timer(240, proc.kill)   # a silent hang fails
+    watchdog.start()
+    try:
+        line = ""
+        while not line.startswith("serving "):
+            line = proc.stdout.readline()
+            assert line, proc.stderr.read()[-2000:]
+        url = line.split(" on ")[1].split()[0]
+        eng = Engine(EngineConfig(device="cpu")).load_model(*llama_model)
+        want = CachedDecoder(eng).generate(np.asarray([[5, 1, 8]]),
+                                           steps=6)[0].tolist()
+        for stream in (False, True):
+            req = urllib.request.Request(
+                url + "/v1/generate", data=json.dumps(
+                    {"prompt": [5, 1, 8], "max_new": 6, "stream": stream})
+                .encode(), headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                if stream:
+                    events = [json.loads(x[6:]) for x in
+                              r.read().decode().split("\n")
+                              if x.startswith("data: ")]
+                    out = events[-1]
+                    assert [e["token"] for e in events[:-1]] == want[3:]
+                else:
+                    out = json.loads(r.read())
+            assert out["ids"] == want and out["prompt_len"] == 3
         proc.send_signal(signal.SIGINT)
         assert proc.wait(timeout=60) == 0
         assert "shutting down" in proc.stdout.read()
