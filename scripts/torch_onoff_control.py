@@ -7,6 +7,7 @@ limits tell a kernel that is wrong from bf16 and int8 noise?
     python3 scripts/torch_onoff_control.py --resnet # ResNet-50 int8
     python3 scripts/torch_onoff_control.py --detect # YOLOv8s, UNet int8w
     python3 scripts/torch_onoff_control.py --lineages  # GPT-2 ... BERT
+    python3 scripts/torch_onoff_control.py --imports   # TinyLlama ...
 
 Loads the llama "base" bf16 int4w engine (kernels on), the same graph
 with use_kernels=False, and the fp32 yardstick, as chip_smoke.py does,
@@ -74,6 +75,15 @@ side (the fp32 yardsticks keep the real kernels):
   one (a fault);
 - decode_drop_last_key: decode_attention loses each row's newest
   cache position (a fault).
+
+With --imports: the imported and exported models' comparisons
+(chip_smoke.py's hf_llama, hf_gpt2, torch_export and zoo_rest phases,
+each against its IMPORT_TOL): the TinyLlama-1.1B and GPT-2 small
+stand-ins converted by the Hugging Face converters, bf16 int4w kernels
+on vs off, under the int4w, flash and decode stand-ins above; the
+exported ResNet-50 and ViT-B/16 and the ConvNeXt-T, MobileNetV3 and
+SqueezeNet builders, bf16 int8w kernels on vs off (the output over its
+own scale), under int8w_plain and int8w_drop_k_tile.
 
 Prints one JSON line of readings per run, each with whether
 chip_smoke's check fails it, then a summary line. Needs a CUDA card.
@@ -338,6 +348,12 @@ def main() -> int:
               flush=True)
         return 0 if not any(summary[m]["sound"]["caught"]
                             for m in summary) else 1
+    if "--imports" in sys.argv[1:]:
+        summary = run_import_controls(device)
+        print(json.dumps({"limits": cs.IMPORT_TOL, "summary": summary}),
+              flush=True)
+        return 0 if not any(summary[m]["sound"]["caught"]
+                            for m in summary) else 1
     if "--detect" in sys.argv[1:]:
         summary = run_detect_controls(device)
         print(json.dumps({"limits": {"yolov8s": cs.V8_ONOFF_TOL,
@@ -496,6 +512,101 @@ def run_lineage_controls(device) -> dict:
                               "failed": failed, **summary[model][name]}),
                   flush=True)
         del on, off
+        torch.cuda.empty_cache()
+    return summary
+
+
+def run_import_controls(device) -> dict:
+    """chip_smoke's hf_llama, hf_gpt2, torch_export and zoo_rest on-vs-off
+    readings, sound and under each control their paths can see, and
+    whether the phase's check fails each."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from simpleinfer_tpu_torch import Engine, EngineConfig, zoo
+    from simpleinfer_tpu_torch.frontends import export_torch
+    from simpleinfer_tpu_torch.frontends.hf_gpt2 import gpt2_graph_from_hf
+    from simpleinfer_tpu_torch.frontends.hf_llama import llama_graph_from_hf
+
+    def failed_by(check):
+        try:
+            check()
+            return None
+        except AssertionError as e:
+            return str(e)[:200]
+
+    summary = {}
+    lm_parts = ("prefill_logits", "decode_step_logits")
+    for model, kind, convert in (
+            ("tinyllama", "llama", llama_graph_from_hf),
+            ("gpt2_hf", "gpt2", gpt2_graph_from_hf)):
+        lens = cs.HF_ONOFF_LENS[model]
+        (on, off), _ = cs.imported_lm(device, kind, convert, {}, [
+            ("bfloat16", "int4w", None), ("bfloat16", "int4w", False)])
+        controls = {**INT4W_CONTROLS, **FLASH_CONTROLS, **DECODE_CONTROLS}
+        summary[model] = {}
+        for name in ("sound", *controls):
+            res = under(controls.get(name), lambda: cs.onoff(
+                on, off, device, None, prompt_lens=lens,
+                phase=f"{model}_{name}", tol=cs.IMPORT_TOL[model]))
+            failed = failed_by(lambda: cs.check_onoff(res))
+            summary[model][name] = {
+                "caught": failed is not None,
+                **{part: [res[part]["max_abs_over_scale"],
+                          res[part]["mean_abs_over_scale"]]
+                   for part in lm_parts}}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
+        del on, off
+        torch.cuda.empty_cache()
+
+    m = cs.torch_modules()
+    b, image = cs.EXPORT_BATCH, cs.EXPORT_IMAGE
+    x = np.random.default_rng(0).standard_normal(
+        (b, 3, image, image)).astype(np.float32)
+
+    def exported(make):
+        module = cs.seeded_module(make, device, torch.float32, 0)
+        return export_torch(module, torch.from_numpy(x).to(device))[0]
+
+    nhwc = np.transpose(x, (0, 2, 3, 1))
+    graphs = {"resnet50_export": (lambda: exported(
+                  lambda **fk: m.ResNet50(cs.RESNET50_TV, **fk)), nhwc),
+              "vit_b16_export": (lambda: exported(
+                  lambda **fk: m.ViT(cs.VIT_B16_TV, image, **fk)), nhwc)}
+    rng = np.random.default_rng(0)
+    s = cs.ZOO_REST_SIZE["image_size"]
+    for name, build, kw in cs.ZOO_REST:
+        graphs[name] = (
+            lambda build=build, kw=kw: getattr(zoo, build)(
+                **{**kw, **cs.ZOO_REST_SIZE})[0],
+            rng.standard_normal((cs.ZOO_REST_SIZE["batch"], s, s, 3))
+            .astype(np.float32) / 3)
+    for model, (graph_of, feed) in graphs.items():
+        graph = graph_of()
+        on, off = [Engine(EngineConfig(
+            compute_dtype="bfloat16", quant="int8w", device=str(device),
+            use_kernels=uk)).load_model(None, graph=graph)
+            for uk in (None, False)]
+        fd = {on.input_names[0]: feed}
+        want = off.run(fd)[off.output_names[0]]
+        summary[model] = {}
+        for name in ("sound", *INT8W_CONTROLS):
+            got = under(INT8W_CONTROLS.get(name),
+                        lambda: on.run(fd)[on.output_names[0]])
+            r = cs.parts_onoff(got, want, {"logits": cs.IMPORT_TOL[model]})
+            failed = failed_by(lambda: cs.check_parts(r, model))
+            summary[model][name] = {
+                "caught": failed is not None,
+                "logits": [r["logits"]["max_abs_over_scale"],
+                           r["logits"]["mean_abs_over_scale"]],
+                "scale": r["logits"]["scale"]}
+            print(json.dumps({"model": model, "control": name,
+                              "failed": failed, **summary[model][name]}),
+                  flush=True)
+        del on, off, graph
         torch.cuda.empty_cache()
     return summary
 

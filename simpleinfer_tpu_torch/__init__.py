@@ -24,19 +24,31 @@ the HTTP front end serving.InferenceServer, and the command line
 serve`, tools.py); and the attention lineages: nn.MultiheadAttention,
 F.scaled_dot_product_attention, torch.matmul / bmm / select, sliding
 windows (ring caches, the banded flash kernel), logit softcap and ALiBi,
-the GPT / BLOOM / NeoX / ViT / BERT builders and greedy_generate.
+the GPT / BLOOM / NeoX / ViT / BERT builders and greedy_generate;
+LLM serving over HTTP (/v1/generate, TieredGenerationService) and
+speculative decoding; and the model-import path: frontends.export_torch
+(torch.fx export of an eager nn.Module, on its own device), the Hugging
+Face converters (frontends.hf_llama: llama / qwen2 / qwen3 / mistral /
+gemma / gemma2 / phi3 / stablelm, neox / phi / gptj, bloom, falcon, mpt,
+opt; frontends.hf_gpt2), the ConvNeXt / MobileNetV3 / SqueezeNet
+builders, and the reference's own API: tensor.py (DataType, Status,
+Tensor) and compat.py (InitializeContext and the PascalCase Engine).
 """
 from .config import EngineConfig
 from .engine import Engine, EngineStateError, initialize_context
 from .executor import Program, build_program
 from .ir.graph import Graph
+from .tensor import DataType, Status, Tensor
 
 __all__ = [
+    "DataType",
     "Engine",
     "EngineConfig",
     "EngineStateError",
     "Graph",
     "Program",
+    "Status",
+    "Tensor",
     "build_program",
     "initialize_context",
 ]

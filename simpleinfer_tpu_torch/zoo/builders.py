@@ -1,10 +1,11 @@
 """Programmatic pnnx graph builders: the YOLOv5, YOLOv8, CNN
 classification / segmentation, transformer (ViT, BERT) and causal-LM
-(GPT, NeoX, BLOOM, llama) families, ported subset.
+(GPT, NeoX, BLOOM, llama) families.
 
 A copy of `GraphBuilder` (the layers those families use), `build_yolov5`,
 `build_yolov8`, `build_resnet18`, `build_resnet50`, `build_mobilenet_like`,
-`build_densenet`, `build_unet`, `VIT_PRESETS` / `build_vit`,
+`build_mobilenet_v3_like`, `CONVNEXT_PRESETS` / `build_convnext`,
+`build_densenet`, `build_squeezenet`, `build_unet`, `VIT_PRESETS` / `build_vit`,
 `BERT_PRESETS` / `build_bert`, `GPT_PRESETS` / `build_gpt`,
 `NEOX_PRESETS` / `build_neox`, `BLOOM_PRESETS` / `build_bloom` and
 `LLAMA_PRESETS` / `build_llama` from simpleinfer_tpu/zoo/builders.py
@@ -785,6 +786,119 @@ def build_mobilenet_like(batch: int = 1, image_size: int = 224,
     return b.build(), "0", x
 
 
+def build_mobilenet_v3_like(batch: int = 1, image_size: int = 224,
+                            num_classes: int = 1000,
+                            width_mult: float = 1.0, seed: int = 0) -> tuple:
+    """MobileNetV3-style net with squeeze-excite blocks: exercises the
+    broadcast-mul Expression path ([N,1,1,C] * [N,H,W,C]) plus
+    Hardsigmoid/Hardswish — op patterns the plain builders don't hit."""
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def c(ch):
+        return max(8, int(ch * width_mult))
+
+    def se(x, reduce=4):
+        ch = b.shape[x][1]
+        s = b.adaptive_avg_pool(x, 1)               # [N, C, 1, 1]
+        s = b.relu(b.conv(s, max(ch // reduce, 8), 1))
+        s = b.hardsigmoid(b.conv(s, ch, 1))
+        return b.mul(x, s)                           # broadcast over H,W
+
+    def block(x, out_c, k, stride, expand, use_se):
+        in_c = b.shape[x][1]
+        hidden = c(expand)
+        y = b.hardswish(b.bn(b.conv(x, hidden, 1, bias=False)))
+        y = b.hardswish(b.bn(b.conv(y, hidden, k, stride, k // 2,
+                                    groups=hidden, bias=False)))
+        if use_se:
+            y = se(y)
+        y = b.bn(b.conv(y, out_c, 1, bias=False))
+        if stride == 1 and in_c == out_c:
+            y = b.add(y, x)
+        return y
+
+    x = b.hardswish(b.bn(b.conv(x, c(16), 3, 2, 1, bias=False)))
+    cfgs = [  # out, kernel, stride, expand, se
+        (c(16), 3, 1, 16, True),
+        (c(24), 3, 2, 72, False),
+        (c(24), 3, 1, 88, False),
+        (c(40), 5, 2, 96, True),
+        (c(40), 5, 1, 240, True),
+        (c(48), 5, 1, 120, True),
+        (c(96), 5, 2, 288, True),
+        (c(96), 5, 1, 576, True),
+    ]
+    for out_c, k, stride, expand, use_se in cfgs:
+        x = block(x, out_c, k, stride, expand, use_se)
+    x = b.hardswish(b.bn(b.conv(x, c(576), 1, bias=False)))
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    x = b.hardswish(b.linear(x, c(1024)))
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
+CONVNEXT_PRESETS = {
+    # depths per stage, channels per stage (convnext paper table 1)
+    "atto": ((2, 2, 6, 2), (40, 80, 160, 320)),
+    "tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+}
+
+
+def build_convnext(variant: str = "atto", batch: int = 1,
+                   image_size: int = 224, num_classes: int = 1000,
+                   seed: int = 0) -> tuple:
+    """ConvNeXt classifier (superset family — no reference analog).
+
+    Modern LayerNorm/GELU CNN exercising the channels-last pattern pnnx
+    emits for it: blocks are depthwise 7x7 conv -> permute NCHW->NHWC ->
+    LayerNorm([C]) -> Linear C->4C -> GELU -> Linear 4C->C -> permute
+    back -> residual add (layer-scale omitted: at inference it folds
+    into the second Linear's rows).
+    Downsample stages use channels-first LayerNorm (via permutes) +
+    k2 s2 conv; head is GAP -> LayerNorm -> Linear.
+    """
+    if variant not in CONVNEXT_PRESETS:
+        raise ValueError(f"variant must be one of {list(CONVNEXT_PRESETS)}")
+    depths, dims = CONVNEXT_PRESETS[variant]
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def ln_cf(x):
+        """channels-first LayerNorm: permute to channels-last logical,
+        LN over [C], permute back (how pnnx exports LayerNorm2d)."""
+        y = b.permute(x, [0, 2, 3, 1])
+        y = b.layer_norm(y)
+        return b.permute(y, [0, 3, 1, 2])
+
+    def block(x, c):
+        y = b.conv(x, c, 7, 1, 3, groups=c)       # depthwise 7x7
+        y = b.permute(y, [0, 2, 3, 1])            # channels-last
+        y = b.layer_norm(y)
+        y = b.linear(y, 4 * c)
+        y = b.gelu(y)
+        y = b.linear(y, c)                        # gamma folded in init
+        y = b.permute(y, [0, 3, 1, 2])
+        return b.add(y, x)
+
+    # stem: patchify conv 4x4 s4 + LN
+    x = ln_cf(b.conv(x, dims[0], 4, 4, 0))
+    for i, (d, c) in enumerate(zip(depths, dims)):
+        if i > 0:
+            x = b.conv(ln_cf(x), c, 2, 2, 0)      # downsample
+        for _ in range(d):
+            x = block(x, c)
+    x = b.flatten(b.adaptive_avg_pool(x, 1))
+    x = b.layer_norm(x)
+    x = b.linear(x, num_classes)
+    b.output(x)
+    return b.build(), "0", x
+
+
 def build_unet(batch: int = 1, image_size: int = 128, in_ch: int = 3,
                num_classes: int = 21, width: int = 32,
                depth: int = 3, seed: int = 0) -> tuple:
@@ -863,6 +977,39 @@ def build_densenet(variant: str | tuple = "121", batch: int = 1,
     b.output(x)
     return b.build(), "0", x
 
+
+def build_squeezenet(batch: int = 1, image_size: int = 224,
+                     num_classes: int = 1000, width_mult: float = 1.0,
+                     seed: int = 0) -> tuple:
+    """SqueezeNet 1.1 (fire modules: 1x1 squeeze -> parallel 1x1/3x3
+    expands -> channel cat; fully-convolutional classifier head with
+    global average pooling). Superset family — parallel-branch cats and
+    a conv (not linear) classifier, unlike the other classify builders.
+    """
+    b = GraphBuilder(seed)
+    x = b.input([batch, 3, image_size, image_size], name="0")
+
+    def c(v):
+        return max(int(v * width_mult), 8)
+
+    def fire(x, squeeze, expand):
+        s = b.relu(b.conv(x, c(squeeze), 1, p=0))
+        e1 = b.relu(b.conv(s, c(expand), 1, p=0))
+        e3 = b.relu(b.conv(s, c(expand), 3, 1, 1))
+        return b.cat([e1, e3], 1)
+
+    x = b.relu(b.conv(x, c(64), 3, 2, 0))
+    x = b.maxpool(x, 3, 2)
+    x = fire(fire(x, 16, 64), 16, 64)
+    x = b.maxpool(x, 3, 2)
+    x = fire(fire(x, 32, 128), 32, 128)
+    x = b.maxpool(x, 3, 2)
+    x = fire(fire(fire(fire(x, 48, 192), 48, 192), 64, 256), 64, 256)
+    x = b.relu(b.conv(x, num_classes, 1, p=0))
+    x = b.adaptive_avg_pool(x, 1)
+    x = b.flatten(x)
+    b.output(x)
+    return b.build(), "0", x
 
 
 NEOX_PRESETS = {

@@ -1,7 +1,8 @@
 """The CNN classification / segmentation family in the port
 (simpleinfer_tpu_torch) against the JAX package, on the CPU: the ops of
 ops/norm.py (BatchNorm2d, GroupNorm, InstanceNorm2d), ops/extra.py and
-ops/functional.py, the five CNN builders, their goldens (and the vit,
+ops/functional.py, the eight CNN builders (ConvNeXt, MobileNetV3 and
+SqueezeNet against the JAX Engine in fp32 and int8w), their goldens (and the vit,
 bert and gemma2-ish llama goldens through the port), the int8
 classification budget of tests/test_acceptance.py, the classification
 pipeline, and chip_smoke.py's conv_kernels and resnet_int8 phases at a
@@ -408,17 +409,33 @@ BUILDERS = {
     "unet": ("build_unet", dict(batch=1, image_size=32, num_classes=4,
                                 width=8, depth=2)),
 }
+# the rest of the zoo (no golden files): ConvNeXt "atto" at 64 px,
+# MobileNetV3 at width 0.5, SqueezeNet at 64 px; chip_smoke.py's zoo_rest
+# phase runs them at full width (FULL_WIDTH)
+ZOO_REST = {
+    "convnext_atto": ("build_convnext", dict(variant="atto", batch=1,
+                                             image_size=64, num_classes=6)),
+    "mobilenet_v3": ("build_mobilenet_v3_like", dict(
+        batch=1, image_size=64, num_classes=6, width_mult=0.5)),
+    "squeezenet": ("build_squeezenet", dict(batch=1, image_size=64,
+                                            num_classes=6)),
+}
+FULL_WIDTH = {"resnet50": dict(batch=1, image_size=224, num_classes=1000),
+              "convnext_atto": dict(variant="tiny", batch=1, image_size=224),
+              "mobilenet_v3": dict(batch=1, image_size=224),
+              "squeezenet": dict(batch=1, image_size=224)}
 
 
-@pytest.mark.parametrize("name", sorted(BUILDERS))
+@pytest.mark.parametrize("name", sorted(BUILDERS) + sorted(ZOO_REST))
 def test_builder_graph_identical(name, tmp_path):
     """The same .pnnx.param text and .bin bytes as the JAX builder (the
-    golden configurations, and the full-width ResNet-50 of
-    chip_smoke.py's resnet_int8 phase at batch 1)."""
-    fn, kw = BUILDERS[name]
+    golden configurations, and at batch 1 the full-width ResNet-50 of
+    chip_smoke.py's resnet_int8 phase and ConvNeXt-T / MobileNetV3 /
+    SqueezeNet of its zoo_rest phase)."""
+    fn, kw = {**BUILDERS, **ZOO_REST}[name]
     cases = [kw]
-    if name == "resnet50":
-        cases.append(dict(batch=1, image_size=224, num_classes=1000))
+    if name in FULL_WIDTH:
+        cases.append(FULL_WIDTH[name])
     for i, kw in enumerate(cases):
         tg, ti, to = getattr(tbuilders, fn)(**kw)
         jg, ji, jo = getattr(jbuilders, fn)(**kw)
@@ -481,6 +498,24 @@ def test_golden_through_port(name):
     jg = getattr(jbuilders, fn)(**kw)[0]
     want = np.asarray(JEngine().load_model(None, graph=jg).run(
         {in_name: x})[out_name])
+    golden_close(got, want)
+
+
+@pytest.mark.parametrize("quant", [None, "int8w"])
+@pytest.mark.parametrize("name", sorted(ZOO_REST))
+def test_zoo_rest_matches_jax(name, quant):
+    """ConvNeXt, MobileNetV3 and SqueezeNet fp32 through the port against
+    the JAX Engine, with and without weight-only int8, within the golden
+    tolerance (on the golden input of tests/test_golden.py's kind)."""
+    fn, kw = ZOO_REST[name]
+    x = golden_input(kw)
+    g, in_name, out_name = getattr(tbuilders, fn)(**kw)
+    got = Engine(EngineConfig(device="cpu", quant=quant)).load_model(
+        None, graph=g).run({in_name: x})[out_name]
+    jg = getattr(jbuilders, fn)(**kw)[0]
+    want = np.asarray(JEngine(JCfg(quant=quant)).load_model(
+        None, graph=jg).run({in_name: x})[out_name])
+    assert np.isfinite(got).all()
     golden_close(got, want)
 
 

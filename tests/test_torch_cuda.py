@@ -1083,3 +1083,69 @@ def test_chip_smoke_speculative_rehearsal_on_card(cuda, monkeypatch):
     monkeypatch.setenv("SI_FLASH_MIN_LQ", "32")
     res = _chip_smoke().speculative_rehearsal(cuda)
     assert res["fp32"]["same"]["equal"] and res["fp32"]["small"]["equal"]
+
+
+# ---- models in from PyTorch and Hugging Face --------------------------------
+@pytest.mark.cuda
+def test_export_torch_module_on_card(cuda, tmp_path):
+    """export_torch of a module on the card propagates its shapes there
+    and gives the CPU module's graph, byte for byte; an example that
+    does not fit fails loudly, naming the card."""
+    import copy
+
+    from simpleinfer_tpu_torch.frontends import TorchExportError, export_torch
+
+    cs = _chip_smoke()
+    make = lambda **fk: cs.torch_modules().ViT(  # noqa: E731
+        dict(embed=32, heads=4, depth=2, mlp=64, patch=8, classes=6), 32,
+        **fk)
+    on_cpu = cs.seeded_module(make, torch.device("cpu"), torch.float32)
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    x = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(
+        np.float32)
+    files = []
+    for i, (m, ex) in enumerate(((on_card, torch.from_numpy(x).to(cuda)),
+                                 (on_cpu, x))):
+        p = (str(tmp_path / f"{i}.param"), str(tmp_path / f"{i}.bin"))
+        export_torch(m, ex)[0].save(*p)
+        files.append([open(f, "rb").read() for f in p])
+    assert files[0] == files[1]
+    with pytest.raises(TorchExportError, match="cuda"):
+        export_torch(on_card, np.zeros((2, 3, 40, 40), np.float32))
+
+
+@pytest.mark.cuda
+def test_hf_bf16_stand_in_on_card_converts_as_on_cpu(cuda, tmp_path):
+    """chip_smoke's TinyLlama stand-in at a tiny width, bf16 on the card:
+    llama_graph_from_hf gives the graph of the same weights moved to the
+    CPU."""
+    from simpleinfer_tpu_torch.frontends.hf_llama import llama_graph_from_hf
+
+    cs = _chip_smoke()
+    m = cs.hf_stand_in("llama", cuda, torch.bfloat16, layers=2, hidden=64,
+                       intermediate=96, heads=8, kv_heads=1, vocab=128,
+                       positions=32)
+    out = []
+    for i, model in enumerate((m, m.to("cpu"))):
+        p = (str(tmp_path / f"{i}.param"), str(tmp_path / f"{i}.bin"))
+        llama_graph_from_hf(model, seq_len=32)[0].save(*p)
+        out.append([open(f, "rb").read() for f in p])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_chip_smoke_imports_rehearsal_on_card(cuda, monkeypatch):
+    """chip_smoke's hf_llama, hf_gpt2, torch_export, zoo_rest and compat
+    phases at their CPU rehearsal's size on the card (the flash gates
+    lowered to its windows): the LLM kernels launch on the imported
+    models' served paths, matmul_int8w on every exported and zoo model,
+    every check of the phases passes."""
+    monkeypatch.setenv("SI_FLASH_MIN_LK", "32")
+    monkeypatch.setenv("SI_FLASH_MIN_LQ", "32")
+    res = _chip_smoke().imports_rehearsal(cuda)
+    for name in ("matmul_int4w", "flash_attention", "decode_attention"):
+        assert res["kernels"][name]["hf_llama"]["launches"] > 0
+        assert res["kernels"][name]["hf_gpt2"]["launches"] > 0
+    for r in (*res["export"].values(), *res["zoo_rest"].values()):
+        assert r["matmul_int8w_launches"] == r["matmul_int8w_calls"] > 0
+    assert res["compat"]["bit_equal"]
