@@ -114,8 +114,8 @@ Phases, each printing JSON lines:
    flash
    gate: flash_attention against the unblocked path at [12, 32, L, 64]
    bf16 for L from 256 to 2048;
-6. the llama main path: llama "base" (16 layers, width 2048, vocab
-   32000), bf16 int4w, GenerationService(slots=16, kv bf16) serving 48
+6. the llama main path: llama "base" (width 2048, vocab 32000; 8 of its
+   16 layers, `LLAMA`), bf16 int4w, GenerationService(slots=16, kv bf16) serving 48
    greedy requests (seeded prompt lengths uniform in 32..1900, 64 new
    tokens each) as streams: time to first token, decode tokens/s, the
    launches of each kernel (counts reset just before); then each kernel
@@ -167,10 +167,10 @@ Phases, each printing JSON lines:
    the service's tokens for 4 prompts equal to a solo decode; kernels
    on vs off, each against an fp32 yardstick; fp32 on the card vs the
    CPU port at depth 2;
-12. `llama_swa`: llama "base" with every layer sliding over 512
+12. `llama_swa`: `LLAMA` with every layer sliding over 512
    positions, bf16 int4w, served the same way with prompts of
-   1100–1900 tokens: the banded flash kernel's launches (16 a wave on
-   the 2048 rung), no decode_attention (kernel_ok); the ring caches'
+   1100–1900 tokens: the banded flash kernel's launches (one per layer
+   a wave on the 2048 rung), no decode_attention (kernel_ok); the ring caches'
    bytes against full windows; the wave's banded kernel against the
    torch banded path, SDPA with the band mask and the band's bound;
    service vs solo tokens; kernels on vs off; the band gate's sweep
@@ -247,6 +247,32 @@ Phases, each printing JSON lines:
 20. `compat`: the reference's script flow through compat.py on a
    YOLOv5s-320-b4 that Graph.save wrote: every call Status.Success and
    the output bit-equal to Engine.run on the same config.
+21. `parallel_cnn`: YOLOv5s-640 bf16 int8w through a mesh engine on
+   PAR_RANKS ranks (parallel.multiproc.spawn; two ranks share the one
+   card over gloo, NCCL only where each has a card), each axis alone:
+   `data=2` b8, `spatial=2` b2, `model=2` b2; every output against the
+   single engine of the same graph (MAIN_MAX_TOL / MAIN_MEAN_TOL),
+   fp32 int8w at 64 px against the CPU port (FP32_TOL); matmul_int8w's
+   launches and shard shapes on each rank (22 a forward), the forward's
+   ms a rank beside the single engine's; the kernel against its plain
+   version at the shard shapes and timed there;
+22. `parallel_llm`: `LLAMA` bf16 int8w on MeshConfig(model=2) in both
+   tp_modes (16 q / 4 kv heads a rank): prefill and decode-step logits
+   against the single-rank engine (ONOFF_MAX_TOL / ONOFF_MEAN_TOL);
+   CachedDecoder.generate of 16 prompts x 32 tokens with the launches
+   of matmul_int8w, flash_attention and decode_attention on each rank
+   (counts set to 0 just before); a decode step's wall, card
+   (torch.profiler) and host-in-collectives ms a rank beside the
+   single rank's; GenerationService(slots=16) with 16 mixed requests
+   over the follower loop, the logged plan replayed outside it, every
+   block bit-equal; a 2-layer fp32 TP decode token-equal to the single
+   rank; each kernel against its plain version at the shard shapes and
+   timed there;
+23. `multiproc`: parallel.multiproc.dryrun_multichip(4): the data x
+   spatial x model yolov5n mesh, llama micro TP decode in both
+   tp_modes, and the cnn / llm_tp / cnn_serving tasks on 2 hosts x 2
+   ranks, every rank's result identical and equal to one process.
+   The phases' lines carry the world size and the backend.
    The phases' lines carry the card's nvidia-smi name and power limit.
 
 The line before the last two is the card's nvidia-smi name and power
@@ -460,12 +486,12 @@ def _close(got, ref):
 
 
 def kernel_vs_plain(device, shapes, seed=0, ragged=True,
-                    phase="kernel_vs_plain") -> float:
+                    phase="kernel_vs_plain", acts=ACTIVATIONS) -> float:
     """Every kernel against its plain version on the card, at `shapes`
-    (M, K, N) plus (`ragged`) the ragged ones, both x dtypes, every
-    activation, with and without bias. Returns the largest max-abs error
-    seen at the main path's own configuration (bf16 x, int8 w, bias,
-    silu)."""
+    (M, K, N) plus (`ragged`) the ragged ones, both x dtypes, each
+    activation of `acts` (every one by default), with and without bias.
+    Returns the largest max-abs error seen at the main path's own
+    configuration (bf16 x, int8 w, bias, silu)."""
     import torch
     from simpleinfer_tpu_torch.engine import fp32_parity
     from simpleinfer_tpu_torch.kernels import matmul as kmm
@@ -476,7 +502,7 @@ def kernel_vs_plain(device, shapes, seed=0, ragged=True,
     for (m, k, n) in list(shapes) + (RAGGED_SHAPES if ragged else []):
         for x_dtype in (torch.bfloat16, torch.float32):
             x, w, wq, scale, bias = _inputs(gen, device, m, k, n, x_dtype)
-            for act in ACTIVATIONS:
+            for act in acts:
                 for use_bias in (True, False):
                     b = bias.to(x_dtype) if use_bias else None
                     cases = (
@@ -489,7 +515,8 @@ def kernel_vs_plain(device, shapes, seed=0, ragged=True,
                     for name, kern, plain in cases:
                         with fp32_parity(True):  # no TF32 in the plain one
                             got = kern()
-                            torch.cuda.synchronize(device)  # faults show here
+                            if device.type == "cuda":  # faults show here
+                                torch.cuda.synchronize(device)
                             ref = plain()
                         err, ok = _close(got, ref)
                         n_checks += 1
@@ -2152,9 +2179,12 @@ def resnet_int8_rehearsal(device, image=64, batch=2) -> dict:
 
 
 # ---- llama generation path ----------------------------------------------
-# llama "base" (16 layers, width 2048, 32 heads, 8 kv heads, SwiGLU 5456,
-# vocab 32000), bf16 compute, int4w g128, served by GenerationService
-LLAMA = dict(variant="base", seq_len=2048, vocab_size=32000, seed=0)
+# llama "base" (width 2048, 32 heads, 8 kv heads, SwiGLU 5456, vocab
+# 32000) at 8 of its 16 layers, the depth cut that keeps the whole script
+# inside its time with the parallel phases (which use it too), bf16
+# compute, int4w g128, served by GenerationService
+LLAMA = dict(variant="base", depth=8, seq_len=2048, vocab_size=32000,
+             seed=0)
 SERVICE = dict(slots=16, kv_dtype="bfloat16")
 N_REQUESTS, PROMPT_RANGE, MAX_NEW = 48, (32, 1900), 64
 # flash kernel vs plain in bf16: both round P to bf16 before P.V (the
@@ -2457,10 +2487,11 @@ def llama_engine(device, compute="bfloat16", quant="int4w", use_kernels=None,
     return eng, t1 - t0, time.perf_counter() - t1
 
 
-def llama_recorder() -> Recorder:
-    """A Recorder of the three llama kernels' shape keys; the decode
-    calls' lengths tensors go to its `decode_lengths` (device tensors:
-    recording adds no synchronisation)."""
+def llama_recorder(int8w: bool = False) -> Recorder:
+    """A Recorder of the three llama kernels' shape keys (and
+    matmul_int8w's (M, K, N) with int8w, the int8w engines' linears);
+    the decode calls' lengths tensors go to its `decode_lengths` (device
+    tensors: recording adds no synchronisation)."""
     from simpleinfer_tpu_torch.kernels import attention as kattn
     from simpleinfer_tpu_torch.kernels import decode_attn as kdec
     from simpleinfer_tpu_torch.kernels import matmul as kmm
@@ -2482,10 +2513,15 @@ def llama_recorder() -> Recorder:
         return (*map(int, q.shape[:3]), int(k.shape[2]), int(q.shape[3]),
                 str(q.dtype)[6:], str(k.dtype)[6:])
 
-    rec = Recorder({"matmul_int4w": kmm, "flash_attention": kattn,
-                    "decode_attention": kdec},
-                   keep={"matmul_int4w": int4w, "flash_attention": flash,
-                         "decode_attention": decode})
+    wrappers = {"matmul_int4w": kmm, "flash_attention": kattn,
+                "decode_attention": kdec}
+    keep = {"matmul_int4w": int4w, "flash_attention": flash,
+            "decode_attention": decode}
+    if int8w:
+        wrappers["matmul_int8w"] = kmm
+        keep["matmul_int8w"] = lambda x, w_q, *a, **kw: (
+            int(x.shape[0]), int(x.shape[1]), int(w_q.shape[1]))
+    rec = Recorder(wrappers, keep=keep)
     rec.decode_lengths = lengths_seen
     return rec
 
@@ -2844,14 +2880,10 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
       recorded lengths of the median-length call; library = SDPA over
       the cache with a length mask."""
     import torch
-    import torch.nn.functional as F
-    from simpleinfer_tpu_torch.kernels import attention as kattn
-    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
 
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     out = {}
-    peak = PEAK_FLOPS["bfloat16"]
 
     def int4w_sum(keys_per_unit, iters):
         return int4w_unit_times(device, gen, flush, keys_per_unit, iters)
@@ -2888,6 +2920,23 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
     emit({"phase": prefix + "kernel_time_int4w_prefill",
           "unit": "one admission wave's full-width projections",
           "rows": fkey[0], "width": fkey[2], **ptot, "shapes": prows})
+    out["flash_attention"] = flash_wave_times(device, fkey, layers, gen,
+                                              flush, prefix)
+    out["decode_attention"] = decode_step_times(
+        device, next(iter(rec.count("decode_attention"))),
+        median_lengths(rec), layers, gen, flush, prefix)
+    return out
+
+
+def flash_wave_times(device, fkey, layers, gen, flush, prefix="") -> dict:
+    """flash_attention for one admission wave at the recorded shape key
+    `fkey` (one launch per layer): the kernel, its plain version,
+    F.scaled_dot_product_attention(is_causal=True) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+
+    peak = PEAK_FLOPS["bfloat16"]
     b_, h_, l_, d_, dt = fkey[:5]
     q, k, v = (torch.randn(b_, h_, l_, d_, generator=gen, device=device)
                .to(getattr(torch, dt)) for _ in range(3))
@@ -2903,19 +2952,27 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
            "bound_ms": max(t_b, t_o)}
     del q, k, v
     per_wave = layers
-    out["flash_attention"] = dict(
-        {kk: v * per_wave for kk, v in one.items()},
-        bound_by="bytes" if t_b >= t_o else "operations",
-        launches_per_wave=per_wave, shape=list(fkey))
+    res = dict({kk: v * per_wave for kk, v in one.items()},
+               bound_by="bytes" if t_b >= t_o else "operations",
+               launches_per_wave=per_wave, shape=list(fkey))
     emit({"phase": prefix + "kernel_time_flash", "unit": "one admission wave",
-          **out["flash_attention"], "per_launch": one,
-          "per_row_ms": out["flash_attention"]["ms"] / b_})
+          **res, "per_launch": one, "per_row_ms": res["ms"] / b_})
+    return res
 
-    # decode_attention per decode step at the median recorded lengths
-    dkey = next(iter(rec.count("decode_attention")))
+
+def decode_step_times(device, dkey, lengths, layers, gen, flush,
+                      prefix="") -> dict:
+    """decode_attention for one decode step (one launch per layer) at the
+    recorded shape key `dkey` and the rows' `lengths`: the kernel, its
+    plain version, SDPA over the cache with a length mask (dense leaves
+    only) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+
+    peak = PEAK_FLOPS["bfloat16"]
     n, kvh, g, length, d, qd, cd = dkey
-    lens = torch.as_tensor(median_lengths(rec), dtype=torch.int32,
-                           device=device)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=device)
     cache = "int8" if cd == "int8" else cd
     q, k_leaf, v_leaf = _decode_case(gen, device, n, kvh, g, length, d,
                                      getattr(torch, qd), cache)
@@ -2942,15 +2999,14 @@ def time_llama_kernels(device, rec, layers, slots=SERVICE["slots"],
                           flush=flush) if kd is not None else None),
            "bound_ms": max(t_b, t_o)}
     per_step = layers
-    out["decode_attention"] = dict(
-        {kk: (v * per_step if v is not None else None)
-         for kk, v in one.items()},
-        bound_by="bytes" if t_b >= t_o else "operations",
-        launches_per_step=per_step, shape=list(dkey),
-        mean_length=float(lens.float().mean()))
+    res = dict({kk: (v * per_step if v is not None else None)
+                for kk, v in one.items()},
+               bound_by="bytes" if t_b >= t_o else "operations",
+               launches_per_step=per_step, shape=list(dkey),
+               mean_length=float(lens.float().mean()))
     emit({"phase": prefix + "kernel_time_decode", "unit": "one decode step",
-          **out["decode_attention"], "per_launch": one})
-    return out
+          **res, "per_launch": one})
+    return res
 
 
 def lm_prompts_window(engine, prompt_lens, seed=7):
@@ -3218,7 +3274,7 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
 # GPT-2 small (GPT_PRESETS["small"]: 12 x 768, 12 heads, 1024 positions)
 GPT2 = dict(variant="small", seq_len=1024, vocab_size=50257, seed=0)
 GPT2_PROMPTS = (32, 960)   # + 64 new tokens within the 1024 positions
-# llama "base" with every layer sliding over the last 512 positions
+# LLAMA with every layer sliding over the last 512 positions
 # (mistral-style); prompts that put every admission wave on the 2048 rung
 SWA = dict(LLAMA, sliding_window=512)
 SWA_PROMPTS = (1100, 1900)
@@ -4441,8 +4497,7 @@ def gen_http_phase(device, kernels: dict, engine, n_reqs=None,
     requests from GEN_CLIENTS client threads over HTTP (SSE and JSON);
     the greedy replies against their admission waves' decode outside
     the service (gen_replay); the same requests in process on the tiers
-    (their fetches outside the host lock and under it, in turns), then
-    on one
+    (their fetches outside the host lock, then under it), then on one
     pool of `uniform_slots` full-window slots with adaptive_horizon off
     and on (its greedy replies replayed too); the decode kernel against its plain
     version at the served shapes with the rungs as max_len (rows under
@@ -4464,13 +4519,13 @@ def gen_http_phase(device, kernels: dict, engine, n_reqs=None,
                "gen_http_greedy_vs_solo")
     t_replay = lap()
     # the tiers in process, their fetches outside the host lock and
-    # under it, in turns (out, held, held, out)
+    # under it: one run of each (four turns, out, held, held, out, read
+    # the fetch outside the lock the faster; the other two runs' 36 s
+    # went to the parallel phases)
     turns = [gen_run(engine, device, reqs, False, label, fetch_under_lock=h,
                      **svc_kw)
              for label, h in (("in_process", False),
-                              ("in_process_fetch_held", True),
-                              ("in_process_fetch_held_2", True),
-                              ("in_process_2", False))]
+                              ("in_process_fetch_held", True))]
     inproc, held = turns[0], turns[1]
     uni = {"tiers": ((uniform_slots, None),)}
     off = gen_run(engine, device, reqs, False, "uniform",
@@ -6911,12 +6966,650 @@ def imports_rehearsal(device) -> dict:
             "compat": compat}
 
 
+# ---- 21-23. parallelism on torch.distributed (parallel/, ShardedWalk) ------
+# ranks of the parallel phases, spawned by parallel.multiproc: two on the
+# one card over gloo (NCCL refuses two ranks on one GPU), or NCCL over
+# two cards where the host has them
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 600
+# the activations the parallel paths fuse into matmul_int8w (YOLOv5's
+# SiLU, llama's plain projections): the kernel-vs-plain checks at the
+# shard shapes take these
+PAR_ACTS = (None, "silu")
+# YOLOv5s-640 bf16 int8w under each mesh axis alone: (axis, MeshConfig,
+# global batch); held against the single-rank engine of the same graph
+# within MAIN_MAX_TOL / MAIN_MEAN_TOL; fp32 int8w at PAR_CNN["fp32_image"]
+# against the CPU port within FP32_TOL
+PAR_CNN_MESHES = (("data", {"data": 2}, 8), ("spatial", {"spatial": 2}, 2),
+                  ("model", {"model": 2}, 2))
+PAR_CNN = dict(variant="s", image=640, fp32_image=64, fp32_batch=2, seed=0,
+               forwards=3)
+# llama "base" (LLAMA: its widths at 8 layers) bf16 int8w on
+# MeshConfig(model=2): 16 q / 4 kv heads a rank. Prefill and decode-step logits against the single-rank
+# engine within (ONOFF_MAX_TOL, ONOFF_MEAN_TOL); generate of `prompts`
+# rows x `new` tokens; the service's requests (replies equal their
+# replay); a `fp32_depth`-layer fp32 TP decode token-equal to one rank.
+# generate and the service run over `window` cache positions (flash
+# fires at the prefill widths 512 / 256, the 2048-wide prefill of 16
+# rows would move 128 MB through the host a collective)
+PAR_LLM = dict(prompts=16, prompt_len=300, new=32, block=8, window=512,
+               service_requests=16, service_prompts=(32, 250),
+               service_new=(16, 48), onoff_lens=(2000, 1900), fp32_depth=2,
+               fp32_seq=256, fp32_steps=12, modes=("gspmd", "ring"))
+
+
+class CollectiveClock:
+    """Host time and calls of the torch.distributed collectives a rank
+    makes (all_reduce, all_gather, batch_isend_irecv, broadcast), each
+    timed to its return: with gloo a collective of CUDA tensors copies
+    through the host, so its return is the host's wait for it."""
+
+    NAMES = ("all_reduce", "all_gather", "batch_isend_irecv", "broadcast")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.orig = dist, {n: getattr(dist, n)
+                                      for n in self.NAMES}
+        self.ms = {n: 0.0 for n in self.NAMES}
+        self.calls = {n: 0 for n in self.NAMES}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def timed(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.ms[name] += (time.perf_counter() - t) * 1e3
+                    self.calls[name] += 1
+            return timed
+
+        for n, fn in self.orig.items():
+            setattr(self.dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.dist, n, fn)
+
+    def total_ms(self) -> float:
+        return sum(self.ms.values())
+
+
+def _par_device(kind):
+    """A rank's engines' device: its card ("cuda", the current device,
+    which multiproc's worker set; a mesh engine resolves a bare "cuda"
+    to the rank's card) or the CPU."""
+    import torch
+
+    return torch.device("cuda" if kind == "cuda" else "cpu")
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _wall_ms(dev, fn, reps) -> float:
+    """Median host ms of `reps` calls of fn, each ending synchronised."""
+    fn()
+    _sync(dev)
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def _card_ms(dev, fn) -> float | None:
+    """torch.profiler's device time of one call of fn (every CUDA
+    kernel and copy it queued, summed), in ms; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    total = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            total += us
+    return total / 1e3
+
+
+def _rank_info() -> dict:
+    import torch.distributed as dist
+
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": dist.get_backend()}
+
+
+def par_cnn_rank(device="cuda", meshes=PAR_CNN_MESHES, cfg=PAR_CNN) -> dict:
+    """One rank of `parallel_cnn` (multiproc.spawn): YOLOv5 bf16 int8w
+    through a mesh engine per axis of `meshes`, matmul_int8w's launches
+    (kmm.launches set to 0 just before the forward) and shapes on this
+    rank, the forward's ms; rank 0 also runs the single-rank engine of
+    the same graph and compares; then fp32 int8w at fp32_image against
+    the CPU port (rank 0)."""
+    import torch
+    from simpleinfer_tpu_torch import Engine, EngineConfig, MeshConfig
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.zoo import build_yolov5
+
+    dev = _par_device(device)
+    info = _rank_info()
+    out = {**info, "device": str(dev), "axes": {}, "fp32": {}}
+    graphs = {}
+    for axis, mesh, batch in meshes:
+        if batch not in graphs:
+            graphs[batch] = build_yolov5(cfg["variant"], batch=batch,
+                                         image_size=cfg["image"],
+                                         seed=cfg["seed"])
+        graph, i, o = graphs[batch]
+        eng = Engine(EngineConfig(compute_dtype="bfloat16", quant="int8w",
+                                  mesh=MeshConfig(**mesh), device=str(dev),
+                                  use_kernels=True)).load_model(None,
+                                                                graph=graph)
+        x = np.random.default_rng(cfg["seed"]).integers(
+            0, 256, (batch, cfg["image"], cfg["image"], 3), dtype=np.uint8)
+        with Recorder({"matmul_int8w": kmm}, keep={
+                "matmul_int8w": lambda x_, w_q, *a, **kw: (
+                    int(x_.shape[0]), int(x_.shape[1]),
+                    int(w_q.shape[1]))}) as rec:
+            kmm.launches = 0
+            got = eng.run({i: x})[o]
+            launches = kmm.launches
+        eng.input(i, x)
+        entry = {"mesh": mesh, "batch": batch, "launches": launches,
+                 "shapes": [[*k, c] for k, c in sorted(
+                     rec.count("matmul_int8w").items())],
+                 "forward_ms": _wall_ms(dev, eng.forward, cfg["forwards"])}
+        del eng
+        if info["rank"] == 0:
+            one = Engine(EngineConfig(compute_dtype="bfloat16",
+                                      quant="int8w", device=str(dev),
+                                      use_kernels=True)
+                         ).load_model(None, graph=graph)
+            want = one.run({i: x})[o]
+            one.input(i, x)
+            entry["single_forward_ms"] = _wall_ms(dev, one.forward,
+                                                  cfg["forwards"])
+            del one
+            scale = max(1.0, float(np.abs(want).max()))
+            d = np.abs(got - want)
+            entry["vs_single"] = {
+                "shape_equal": got.shape == want.shape,
+                "finite": bool(np.isfinite(got).all()),
+                "max_abs_over_scale": float(d.max()) / scale,
+                "mean_abs_over_scale": float(d.mean()) / scale}
+        out["axes"][axis] = entry
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    for axis, mesh, _ in meshes:
+        graph, i, o = build_yolov5(cfg["variant"], batch=cfg["fp32_batch"],
+                                   image_size=cfg["fp32_image"],
+                                   seed=cfg["seed"])
+        x = np.random.default_rng(cfg["seed"]).standard_normal(
+            (cfg["fp32_batch"], cfg["fp32_image"], cfg["fp32_image"], 3)
+        ).astype(np.float32) / 3
+        got = Engine(EngineConfig(quant="int8w", mesh=MeshConfig(**mesh),
+                                  device=str(dev), use_kernels=True)
+                     ).load_model(None, graph=graph).run({i: x})[o]
+        if info["rank"] == 0:
+            want = Engine(EngineConfig(quant="int8w", device="cpu",
+                                       use_kernels=True)).load_model(
+                None, graph=graph).run({i: x})[o]
+            scale = max(1.0, float(np.abs(want).max()))
+            err = np.abs(got - want)
+            out["fp32"][axis] = {
+                "max_abs_err": float(err.max()), "scale": scale,
+                "ok": bool((err <= FP32_TOL * scale
+                            + FP32_TOL * np.abs(want)).all())}
+    return out
+
+
+def par_spawn(fn: str, device, kwargs: dict) -> list:
+    """The ranks of a parallel phase: `fn` of this file on PAR_RANKS
+    ranks (multiproc.spawn; one card a rank where there are enough,
+    else sharing `device`'s card over gloo). A failing rank raises with
+    every rank's log."""
+    from simpleinfer_tpu_torch.parallel import multiproc
+
+    return multiproc.spawn(f"{os.path.abspath(__file__)}:{fn}", PAR_RANKS,
+                           1, PAR_TIMEOUT_S, kwargs,
+                           device="cuda" if device.type == "cuda"
+                           else "cpu")
+
+
+def _rank_lines(results) -> dict:
+    return {k: results[0][k] for k in ("world", "backend")}
+
+
+def sub_entry(kernels: dict, name: str, key: str, entry: dict) -> None:
+    """A shard-shape sub-entry under kernel `name`'s row of the kernels
+    line (the row itself when this run has none yet)."""
+    row = kernels.setdefault(name, {"name": name})
+    row[key] = entry
+
+
+def parallel_cnn_phase(device, kernels: dict, meshes=PAR_CNN_MESHES,
+                       cfg=PAR_CNN) -> dict:
+    """`parallel_cnn`: par_cnn_rank on PAR_RANKS ranks, each axis's
+    output against the single-rank engine (MAIN tolerances) and fp32
+    against the CPU port (FP32_TOL); matmul_int8w against its plain
+    version at the shard shapes the ranks recorded, and timed there
+    (the model axis' forward on rank 0)."""
+    t0 = time.perf_counter()
+    res = par_spawn("par_cnn_rank", device, {
+        "device": device.type, "meshes": meshes, "cfg": cfg})
+    r0 = res[0]
+    bad = []
+    for axis, e in r0["axes"].items():
+        v = e["vs_single"]
+        ok = (v["shape_equal"] and v["finite"]
+              and v["max_abs_over_scale"] <= MAIN_MAX_TOL
+              and v["mean_abs_over_scale"] <= MAIN_MEAN_TOL)
+        launches = [r["axes"][axis]["launches"] for r in res]
+        if device.type == "cuda" and not all(launches):
+            bad.append(f"{axis}: a rank launched no matmul_int8w")
+        if not ok:
+            bad.append(f"{axis}: {v}")
+        emit({"phase": "parallel_cnn", "axis": axis, **_rank_lines(res),
+              "model": f"yolov5{cfg['variant']}", "image": cfg["image"],
+              "batch": e["batch"], "compute": "bfloat16", "quant": "int8w",
+              "launches_per_rank": launches,
+              "shapes_per_rank": [r["axes"][axis]["shapes"] for r in res],
+              "forward_ms_per_rank": [r["axes"][axis]["forward_ms"]
+                                      for r in res],
+              "single_forward_ms": e["single_forward_ms"],
+              "vs_single": v, "tol": [MAIN_MAX_TOL, MAIN_MEAN_TOL]})
+    for axis, f in r0["fp32"].items():
+        if not f["ok"]:
+            bad.append(f"fp32 {axis}: {f}")
+    emit({"phase": "parallel_cnn_fp32_vs_cpu", **_rank_lines(res),
+          "image": cfg["fp32_image"], "axes": r0["fp32"],
+          "tol": f"{FP32_TOL}*scale + {FP32_TOL}*|ref|"})
+    if bad:
+        raise AssertionError(f"parallel_cnn: {bad}")
+    shapes = {}
+    for r in res:
+        for e in r["axes"].values():
+            for m, k, n, c in e["shapes"]:
+                shapes[(m, k, n)] = shapes.get((m, k, n), 0) + c
+    max_err = kernel_vs_plain(device, sorted(shapes), ragged=False,
+                              acts=PAR_ACTS)
+    entry = {"launches": sum(r["axes"][a]["launches"] for r in res
+                             for a in r["axes"]),
+             "launches_per_rank_forward": {
+                 a: [r["axes"][a]["launches"] for r in res]
+                 for a in r0["axes"]},
+             "shapes": [[*k, c] for k, c in sorted(shapes.items())],
+             "max_abs_err": max_err}
+    if device.type == "cuda":
+        model = {tuple(s[:3]): s[3] for s in r0["axes"]["model"]["shapes"]}
+        t = time_kernels(device, model, prefix="parallel_cnn_")[
+            "matmul_int8w"]
+        entry.update({k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")},
+                     unit="one model-axis forward on a rank",
+                     card=CARD, **_rank_lines(res))
+    sub_entry(kernels, "matmul_int8w", "parallel_cnn", entry)
+    emit({"phase": "parallel_cnn_done", **_rank_lines(res),
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+def _served(svc, cfg, vocab, seed=41) -> list:
+    """The primary's mixed requests (seeded prompt lengths and max_new,
+    every fourth one sampled at top-k 8) through a started service."""
+    rng = np.random.default_rng(seed)
+    lo, hi = cfg["service_prompts"]
+    n_lo, n_hi = cfg["service_new"]
+    reqs = []
+    for j in range(cfg["service_requests"]):
+        p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        kw = dict(temperature=1.0, top_k=8) if j % 4 == 3 else {}
+        reqs.append((p, int(rng.integers(n_lo, n_hi + 1)), kw))
+    futs = [svc.submit(p, max_new=n, **kw) for p, n, kw in reqs]
+    return [(len(p), n, f.result(timeout=PAR_TIMEOUT_S))
+            for (p, n, _), f in zip(reqs, futs)]
+
+
+def par_llm_rank(device="cuda", cfg=PAR_LLM, llama=LLAMA) -> dict:
+    """One rank of `parallel_llm` (multiproc.spawn): llama bf16 int8w on
+    MeshConfig(model=world) in each tp_mode. Rank 0 builds the
+    single-rank engine of the same graph. Per mode: prefill and
+    decode-step logits (lm_logits, the model's window) against it;
+    CachedDecoder.generate of cfg["prompts"] x cfg["new"] tokens over a
+    cfg["window"] cache through the decode kernel, with the three
+    kernels' launches and shapes (counts set to 0 just before), and one
+    decode block's wall ms, host ms in collectives and card ms a step
+    (rank 0 beside the single rank's). In the first mode,
+    GenerationService(slots=16) over the follower loop, its plan
+    replayed outside the service (every block's tokens bit-equal).
+    Then an fp32 TP decode of fp32_depth layers token-equal to the
+    single rank."""
+    import torch
+    from simpleinfer_tpu_torch import Engine, EngineConfig, MeshConfig
+    from simpleinfer_tpu_torch.kernels import attention as kattn
+    from simpleinfer_tpu_torch.kernels import decode_attn as kdec
+    from simpleinfer_tpu_torch.kernels import matmul as kmm
+    from simpleinfer_tpu_torch.serving.llm import (GenerationService,
+                                                   _PlanCast)
+    from simpleinfer_tpu_torch.zoo import build_llama
+    from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
+
+    dev = _par_device(device)
+    info = _rank_info()
+    world, rank = info["world"], info["rank"]
+    out = {**info, "device": str(dev), "modes": {}}
+    t = time.perf_counter()
+    graph = build_llama(**llama)[0]
+    out["graph_build_s"] = time.perf_counter() - t
+
+    def engine(mesh=None, **kw):
+        return Engine(EngineConfig(quant="int8w", mesh=mesh,
+                                   device=str(dev), use_kernels=True, **kw))
+
+    single = engine(compute_dtype="bfloat16").load_model(
+        None, graph=graph) if rank == 0 else None
+    rng = np.random.default_rng(5)
+    n, width = cfg["prompts"], cfg["prompt_len"]
+    prompts = rng.integers(0, llama["vocab_size"], (n, width))
+    zeros, ones = np.zeros(n, np.float32), np.ones(n, np.float32)
+    ks, pos = np.zeros(n, np.int64), np.full(n, width)
+
+    def block_readings(dec):
+        """One decode block on a full pool, each row at the prompts'
+        length (the cache's contents do not change a step's work):
+        (wall ms, host ms in collectives, card ms) a step."""
+        caches = dec.init_cache(n)
+        tok = np.ones(n, np.int64)
+
+        def block():
+            return dec.decode_block(tok, pos, caches, 0, 1, zeros, ks,
+                                    ones, cfg["block"])
+        with CollectiveClock() as clock:
+            wall = _wall_ms(dev, block, 1)
+        card = _card_ms(dev, block)
+        k = cfg["block"]
+        return (wall / k, clock.total_ms() / (2 * k),
+                None if card is None else card / k)
+
+    def decoder(eng):
+        return CachedDecoder(eng, kv_dtype=SERVICE["kv_dtype"],
+                             scratch_blocks=True, decode_attn="kernel",
+                             window=cfg["window"])
+
+    base = None
+    tokens, lengths = None, None
+    for mode in cfg["modes"]:
+        t = time.perf_counter()
+        eng = engine(MeshConfig(model=world), compute_dtype="bfloat16",
+                     tp_mode=mode).load_model(None, graph=graph)
+        m = {"load_s": time.perf_counter() - t}
+        if tokens is None:
+            tokens, lengths = lm_prompts_window(eng, cfg["onoff_lens"])
+        last, step, kernel = lm_logits(eng, dev, tokens, lengths, True)
+        if rank == 0:
+            if base is None:
+                base = lm_logits(single, dev, tokens, lengths, True)
+                w, c, cd = block_readings(decoder(single))
+                out.update(single_decode_step_wall_ms=w,
+                           single_decode_step_card_ms=cd)
+            m["prefill_logits"] = compare_logits(last, base[0])
+            m["decode_step_logits"] = compare_logits(step, base[1])
+            m["decode_kernel"] = kernel
+        del last, step
+        dec = decoder(eng)
+        rec = llama_recorder(int8w=True)
+        kmm.launches = kattn.launches = kdec.launches = 0
+        with rec, CollectiveClock() as clock:
+            toks = dec.generate(prompts, steps=cfg["new"],
+                                block=cfg["block"])
+        m["launches"] = {"matmul_int8w": kmm.launches,
+                         "flash_attention": kattn.launches,
+                         "decode_attention": kdec.launches}
+        m["collective_calls_generate"] = dict(clock.calls)
+        m["shapes"] = {k: [[*kk, c] for kk, c in sorted(
+            rec.count(k).items(), key=str)]
+            for k in ("matmul_int8w", "flash_attention",
+                      "decode_attention")}
+        m["decode_lengths"] = [int(v) for v in median_lengths(rec)] \
+            if rec.decode_lengths else []
+        m["tokens_shape"] = list(toks.shape)
+        (m["decode_step_wall_ms"], m["decode_step_collective_ms"],
+         m["decode_step_card_ms"]) = block_readings(dec)
+        del dec
+        if mode == cfg["modes"][0]:
+            m["service"] = par_service(eng, cfg)
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["modes"][mode] = m
+    del single
+    # fp32 TP decode, token-equal to the single rank
+    g32 = build_llama(**{**llama, "depth": cfg["fp32_depth"],
+                         "seq_len": cfg["fp32_seq"]})[0]
+    p32 = rng.integers(0, llama["vocab_size"], (4, 16))
+    toks = {mode: CachedDecoder(engine(
+        MeshConfig(model=world), tp_mode=mode).load_model(
+            None, graph=g32)).generate(p32, steps=cfg["fp32_steps"])
+        for mode in cfg["modes"]}
+    if rank == 0:
+        want = CachedDecoder(engine().load_model(None, graph=g32)).generate(
+            p32, steps=cfg["fp32_steps"])
+        out["fp32_token_equal"] = {m_: bool(np.array_equal(t_, want))
+                                   for m_, t_ in toks.items()}
+    return out
+
+
+def par_service(eng, cfg) -> dict:
+    """GenerationService(slots=16) on a TP engine over cfg["window"]:
+    the primary serves the mixed requests, the followers replay its
+    plan; then every rank replays the logged plan outside the service
+    and compares each block's and wave's tokens (bit-equal)."""
+    import torch
+    from simpleinfer_tpu_torch.serving.llm import (GenerationService,
+                                                   _PlanCast)
+
+    svc = GenerationService(eng, slots=SERVICE["slots"],
+                            kv_dtype=SERVICE["kv_dtype"], decode_horizon=8,
+                            window=cfg["window"])
+    svc.warmup()
+    svc._cast.log = []
+    svc.start()
+    served = _served(svc, cfg, vocab_of(eng)) if not svc.follower else []
+    svc.stop()
+    log = svc._cast.log
+    again = _PlanCast(svc._cast._dec, eng.mesh).replay(log)
+    blocks = equal = 0
+    for (_n, name, _a, _k, r), r2 in zip(log, again):
+        if name in ("decode_block", "prefill_install"):
+            blocks += 1
+            equal += bool(torch.equal(r[0], r2[0]))
+    return {"requests": len(served), "plan_calls": len(log),
+            "replayed_token_calls": blocks, "replay_equal": equal,
+            "replies_ok": all(len(o) == p + n for p, n, o in served)}
+
+
+def parallel_llm_phase(device, kernels: dict, cfg=PAR_LLM,
+                       llama=LLAMA) -> dict:
+    """`parallel_llm`: par_llm_rank on PAR_RANKS ranks; fails past the
+    on-vs-off limits against the single rank, on a replay that differs,
+    an fp32 TP decode off the single rank's tokens, or (on the card) a
+    rank that launched none of the three kernels. Then each kernel
+    against its plain version at the shard shapes the ranks recorded,
+    and timed there."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = par_spawn("par_llm_rank", device, {
+        "device": device.type, "cfg": cfg, "llama": llama})
+    r0 = res[0]
+    bad = []
+    tol = (ONOFF_MAX_TOL, ONOFF_MEAN_TOL)
+    for mode, m in r0["modes"].items():
+        for part in ("prefill_logits", "decode_step_logits"):
+            if not within(m[part], tol):
+                bad.append(f"{mode} {part}: {m[part]}")
+        for r in res:
+            s = r["modes"][mode].get("service")
+            if s and (s["replay_equal"] != s["replayed_token_calls"]
+                      or not s["replayed_token_calls"]):
+                bad.append(f"{mode} rank {r['rank']}: replay {s}")
+            if device.type == "cuda" and not all(
+                    r["modes"][mode]["launches"].values()):
+                bad.append(f"{mode} rank {r['rank']}: launches "
+                           f"{r['modes'][mode]['launches']}")
+        if "service" in m and not (
+                m["service"]["replies_ok"]
+                and m["service"]["requests"] == cfg["service_requests"]):
+            bad.append(f"{mode}: service {m['service']}")
+        emit({"phase": "parallel_llm", "tp_mode": mode, **_rank_lines(res),
+              "model": llama, "compute": "bfloat16", "quant": "int8w",
+              "mesh": {"model": r0["world"]},
+              "graph_build_s": r0["graph_build_s"], "load_s": m["load_s"],
+              "prefill_logits": m["prefill_logits"],
+              "decode_step_logits": m["decode_step_logits"], "tol": tol,
+              "decode_kernel": m["decode_kernel"],
+              "launches_per_rank": [r["modes"][mode]["launches"]
+                                    for r in res],
+              "decode_step_wall_ms_per_rank": [
+                  r["modes"][mode]["decode_step_wall_ms"] for r in res],
+              "decode_step_collective_host_ms_per_rank": [
+                  r["modes"][mode]["decode_step_collective_ms"]
+                  for r in res],
+              "single_decode_step_wall_ms": r0["single_decode_step_wall_ms"],
+              "decode_step_card_ms_per_rank": [
+                  r["modes"][mode]["decode_step_card_ms"] for r in res],
+              "single_decode_step_card_ms": r0["single_decode_step_card_ms"],
+              "collective_calls_generate": m["collective_calls_generate"],
+              "window": cfg["window"],
+              "service": [r["modes"][mode].get("service") for r in res]})
+    if not all(r0["fp32_token_equal"].values()):
+        bad.append(f"fp32 TP decode tokens: {r0['fp32_token_equal']}")
+    emit({"phase": "parallel_llm_fp32_tokens", **_rank_lines(res),
+          "depth": cfg["fp32_depth"], "token_equal": r0["fp32_token_equal"]})
+    if bad:
+        raise AssertionError(f"parallel_llm: {bad}")
+    # the kernels at the shard shapes of the first mode's generate
+    m = r0["modes"][cfg["modes"][0]]
+    sh = m["shapes"]
+    int8w = {tuple(s[:3]): s[3] for s in sh["matmul_int8w"]}
+    flash = [tuple(s[:-1]) for s in sh["flash_attention"]]
+    decode = [tuple(s[:-1]) for s in sh["decode_attention"]]
+    worst = {"matmul_int8w": kernel_vs_plain(device, sorted(int8w),
+                                             ragged=False, acts=PAR_ACTS)}
+    worst.update(llama_kernel_checks(device, {
+        "flash_attention": flash,
+        "decode_attention": [(*d, m["decode_lengths"]) for d in decode]},
+        ragged=False, phase="parallel_llm_kernel_vs_plain"))
+    layers = llama_layers(llama)
+    steps = sum(c for *_, c in sh["decode_attention"]) / layers
+    times = {}
+    if device.type == "cuda":
+        gen = torch.Generator(device=device).manual_seed(5)
+        flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+        step_keys = {k: round(c / steps) for k, c in int8w.items()
+                     if k[0] == cfg["prompts"]}
+        t = time_kernels(device, step_keys, prefix="parallel_llm_")
+        times["matmul_int8w"] = dict(t["matmul_int8w"],
+                                     unit="one decode step on a rank")
+        times["flash_attention"] = flash_wave_times(
+            device, max(flash, key=lambda k_: k_[0] * k_[2] ** 2), layers,
+            gen, flush, "parallel_llm_")
+        times["decode_attention"] = decode_step_times(
+            device, decode[0], m["decode_lengths"], layers, gen, flush,
+            "parallel_llm_")
+    for name in ("matmul_int8w", "flash_attention", "decode_attention"):
+        entry = {"launches": sum(r["modes"][md]["launches"][name]
+                                 for r in res for md in r["modes"]),
+                 "launches_per_rank": {md: [r["modes"][md]["launches"][name]
+                                            for r in res]
+                                       for md in r0["modes"]},
+                 "max_abs_err": worst[name], "shapes": sh[name],
+                 **_rank_lines(res)}
+        if name in times:
+            entry.update({k: times[name][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                card=CARD)
+        sub_entry(kernels, name, "parallel_llm", entry)
+    emit({"phase": "parallel_llm_done", **_rank_lines(res),
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+def llama_layers(llama) -> int:
+    from simpleinfer_tpu_torch.zoo.builders import LLAMA_PRESETS
+
+    return llama.get("depth") or LLAMA_PRESETS[llama["variant"]][0]
+
+
+def multiproc_phase(device, n=4) -> dict:
+    """`multiproc`: parallel.multiproc.dryrun_multichip(n) on the card:
+    the data x spatial x model yolov5n mesh, llama micro TP decode in
+    both tp_modes, and the three tasks (cnn, llm_tp, cnn_serving) on 2
+    hosts x 2 ranks, every rank's result identical and equal to one
+    process. Returns the phase's line and (`tasks`) each task's
+    result."""
+    import contextlib
+    import io
+
+    from simpleinfer_tpu_torch.parallel import multiproc
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    kind = "cuda" if device.type == "cuda" else "cpu"
+    with contextlib.redirect_stdout(buf):
+        tasks = multiproc.dryrun_multichip(n, device=kind,
+                                           timeout_s=PAR_TIMEOUT_S)
+    import torch
+
+    backend = "nccl" if kind == "cuda" and \
+        n <= torch.cuda.device_count() else "gloo"
+    res = {"phase": "multiproc", "world": n, "backend": backend,
+           "lines": buf.getvalue().strip().splitlines(),
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return {**res, "tasks": tasks}
+
+
+def parallel_rehearsal(device, with_multiproc: bool = True) -> dict:
+    """The parallel phases at a tiny size on the CPU (2 gloo ranks, the
+    kernels' plain versions): yolov5n at 64 px, llama nano, and (with
+    with_multiproc) the `multiproc` phase as it runs on the card."""
+    kernels: dict = {}
+    parallel_cnn_phase(device, kernels, meshes=(
+        ("data", {"data": 2}, 2), ("spatial", {"spatial": 2}, 2),
+        ("model", {"model": 2}, 2)),
+        cfg=dict(PAR_CNN, variant="n", image=64, fp32_image=32, forwards=1))
+    parallel_llm_phase(device, kernels, cfg=dict(
+        PAR_LLM, prompts=2, prompt_len=5, new=4, block=2,
+        service_requests=4, service_prompts=(2, 6), service_new=(2, 5),
+        window=32, onoff_lens=(40, 30), fp32_seq=32, fp32_steps=4),
+        llama=dict(variant="nano", seq_len=64, vocab_size=128, seed=0))
+    if with_multiproc:
+        multiproc_phase(device)
+    return kernels
+
+
 PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
           "segment", "serving", "serving_http", "yolo_int8", "conv_kernels",
           "resnet_int8", "llama_kernels", "llama_service", "llama_onoff",
           "llama_fp32", "gpt2", "llama_swa", "attn_variants", "gen_http",
           "speculative", "hf_llama", "hf_gpt2", "torch_export", "zoo_rest",
-          "compat")
+          "compat", "parallel_cnn", "parallel_llm", "multiproc")
 
 
 def main(argv=None) -> int:
@@ -7123,6 +7816,16 @@ def main(argv=None) -> int:
             mark(name)
     if "compat" in phases:
         compat_phase(device)
+    mark("compat")
+    if "parallel_cnn" in phases:
+        parallel_cnn_phase(device, kernels)
+        mark("parallel_cnn")
+    if "parallel_llm" in phases:
+        parallel_llm_phase(device, kernels)
+        mark("parallel_llm")
+    if "multiproc" in phases:
+        multiproc_phase(device)
+        mark("multiproc")
 
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     print(info["nvidia_smi"], flush=True)

@@ -32,9 +32,12 @@ Face converters (frontends.hf_llama: llama / qwen2 / qwen3 / mistral /
 gemma / gemma2 / phi3 / stablelm, neox / phi / gptj, bloom, falcon, mpt,
 opt; frontends.hf_gpt2), the ConvNeXt / MobileNetV3 / SqueezeNet
 builders, and the reference's own API: tensor.py (DataType, Status,
-Tensor) and compat.py (InitializeContext and the PascalCase Engine).
+Tensor) and compat.py (InitializeContext and the PascalCase Engine);
+and parallelism on torch.distributed: MeshConfig, data / spatial /
+model sharding in the Engine's walk, tensor-parallel decode behind
+GenerationService, and parallel/ (mesh, multihost, tp, multiproc).
 """
-from .config import EngineConfig
+from .config import EngineConfig, MeshConfig
 from .engine import Engine, EngineStateError, initialize_context
 from .executor import Program, build_program
 from .ir.graph import Graph
@@ -46,6 +49,7 @@ __all__ = [
     "EngineConfig",
     "EngineStateError",
     "Graph",
+    "MeshConfig",
     "Program",
     "Status",
     "Tensor",

@@ -3,11 +3,13 @@
 The counterpart of simpleinfer_tpu/config.py's `EngineConfig`, carrying
 the fields that say WHAT is computed (dtype policy, weight-only int8
 and int4, static int8 and its calibration, I/O layout, load-time
-fusions, the C3 collapse, u8 input scaling) plus the torch device the
-engine runs on. The TPU-only fields (mesh, tp_mode,
-device_index, compilation_cache_dir, donate_inputs, input_layout,
-xla_compiler_options) change how the work is laid out on a TPU, not its
-result, and are not carried.
+fusions, the C3 collapse, u8 input scaling), the device mesh and the
+tensor-parallel mode (`mesh`, `tp_mode`: one rank per device under
+torch.distributed, parallel/), plus the torch device the engine runs
+on. The JAX package's `device_index=i` is the port's
+`device=f"cuda:{i}"`. The XLA-only fields (compilation_cache_dir,
+donate_inputs, input_layout, xla_compiler_options) change how XLA
+compiles the work, not its result, and are not carried.
 """
 from __future__ import annotations
 
@@ -17,6 +19,31 @@ from typing import Optional
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh: data x spatial x model parallel axes.
+
+    The axis sizes multiply to the device count, one torch.distributed
+    rank per device: `data` shards the batch dim of activations,
+    `model` shards conv / linear output channels and attention heads
+    (tensor parallelism), and `spatial` shards the activation HEIGHT
+    dim, the CNN analog of sequence parallelism (the convs and pools
+    exchange halo rows with their neighbours). Use `spatial` when batch
+    alone cannot fill the mesh (batch-1 latency, very large images).
+    The JAX package's mesh is one process over all devices with XLA
+    placing the collectives; here every rank runs the same program on
+    its shard and the walk calls the collectives (parallel/mesh.py).
+    """
+
+    data: int = 1
+    model: int = 1
+    spatial: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.spatial
 
 
 @dataclass(frozen=True)
@@ -72,8 +99,23 @@ class EngineConfig:
     # uint8 inputs are shipped raw and scaled on the device by this factor
     u8_scale: float = 1.0 / 255.0
     # torch device string; the entry points run on CUDA unless the
-    # caller asks for the CPU (tests pass device="cpu")
+    # caller asks for the CPU (tests pass device="cpu"). "cuda:i" pins
+    # the engine to card i (the JAX package's device_index=i; DP engine
+    # pools, serving/batcher.py). Under a mesh a bare "cuda" means this
+    # rank's card (parallel/multihost.local_device)
     device: str = "cuda"
+    # device mesh; None = single device. Every rank of the
+    # torch.distributed world builds the same Engine; num_devices must
+    # equal the world size (parallel/multiproc.launch or torchrun start
+    # the ranks)
+    mesh: Optional[MeshConfig] = None
+    # tensor-parallel reduce of the row-parallel attention output
+    # projections when mesh.model > 1: "gspmd" (the JAX name; one
+    # all_reduce over the model group) or "ring" (parallel/tp.
+    # tp_linear_row: the local partial in column chunks whose sums ride
+    # a ring of neighbour send / recv hops; ops whose heads do not
+    # divide the model axis keep the all_reduce)
+    tp_mode: str = "gspmd"
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
@@ -90,6 +132,17 @@ class EngineConfig:
             raise ValueError("io_layout must be 'nhwc' or 'nchw'")
         if torch.device(self.device).type not in ("cuda", "cpu"):
             raise ValueError("device must be a CUDA or CPU device")
+        if self.quant == "int4w" and self.mesh is not None:
+            raise ValueError(
+                "int4w is single-device in this version (Quantized4Tensor"
+                " carries no shard layout yet) — drop the mesh or use"
+                " int8w")
+        if self.tp_mode not in ("gspmd", "ring"):
+            raise ValueError("tp_mode must be 'gspmd' or 'ring'")
+        if self.mesh is not None and torch.device(self.device).index \
+                is not None:
+            raise ValueError("a device index pins a SINGLE-device "
+                             "engine; it cannot combine with a mesh")
 
     @property
     def compute_torch_dtype(self) -> torch.dtype:

@@ -24,6 +24,14 @@ staged tensors; it returns when the work is queued on the card, and
 `extract` / `synchronize` wait for it. The engine runs on the device of
 `EngineConfig.device` ("cuda" by default) and never moves silently to
 another one: asking for CUDA without a card raises.
+
+Under a device mesh (`EngineConfig.mesh`) the engine is SPMD, one
+torch.distributed rank per device: every rank builds the same Engine
+from the same graph, `input` takes the global batch (or a
+`multihost.host_local_batch` of this host's rows) and keeps this rank's
+shard, `forward` runs executor.ShardedWalk, and `extract` returns the
+global output on every rank. `load_model` raises unless the world has
+exactly mesh.num_devices ranks.
 """
 from __future__ import annotations
 
@@ -36,8 +44,9 @@ import numpy as np
 import torch
 
 from .config import EngineConfig
-from .executor import Program, build_program
+from .executor import Program, ShardedWalk, build_program, op_shardings
 from .ir.graph import Graph
+from .parallel import mesh as pmesh
 from .quant.tensor import (Quantized4Tensor, QuantizedTensor,
                            quantize_per_channel)
 
@@ -100,7 +109,18 @@ class Engine:
 
     def __init__(self, config: Optional[EngineConfig] = None):
         self.config = config or EngineConfig()
-        self.device = resolve_device(self.config.device)
+        device = self.config.device
+        if (self.config.mesh is not None and device == "cuda"
+                and torch.cuda.is_available()):
+            from .parallel.multihost import local_device
+
+            # a mesh rank runs on its own card (ranks share one where
+            # the host has fewer cards than ranks)
+            device = str(local_device())
+        self.device = resolve_device(device)
+        self._mesh = None
+        self._walk: Optional[ShardedWalk] = None
+        self._shardings: dict = {}
         self._program: Optional[Program] = None
         self._device_weights = None
         self._staged: dict = {}
@@ -119,7 +139,14 @@ class Engine:
         t0 = time.perf_counter()
         if graph is None:
             graph = Graph.load(parampath, binpath)
+        mesh = pmesh.build_mesh(self.config.mesh)
         program = build_program(graph, self.config)
+        if mesh is not None:
+            self._mesh = mesh
+            self._shardings = op_shardings(
+                program, mesh, self.config.tp_mode,
+                self.config.kernels_enabled)
+            self._walk = ShardedWalk(program, mesh, self._shardings)
         self._device_weights = self.place_weights(program.weights, program)
         self._program = program
         logger.info("loaded model %s: %d ops on %s, %.0f ms", parampath,
@@ -128,6 +155,9 @@ class Engine:
         return self
 
     def release(self) -> None:
+        self._mesh = None
+        self._walk = None
+        self._shardings = {}
         self._program = None
         self._device_weights = None
         self._staged = {}
@@ -154,6 +184,23 @@ class Engine:
         self._require_loaded()
         return self._program
 
+    @property
+    def mesh(self):
+        """The torch DeviceMesh of a mesh engine (None on one device)."""
+        return self._mesh
+
+    @property
+    def op_modes(self) -> dict:
+        """{op name: "column" | "heads" | "replicated"} under a mesh."""
+        return {k: v[0] for k, v in self._shardings.items()}
+
+    def _fn(self, weights, staged):
+        """The forward over staged inputs: the plan, or this rank's
+        sharded walk."""
+        if self._walk is not None:
+            return self._walk(weights, staged)
+        return self._program.fn(weights, staged)
+
     # ---- run-time calls --------------------------------------------------
     def input(self, name: str, array) -> None:
         """Stage one named input (numpy array or torch tensor) on the
@@ -162,7 +209,9 @@ class Engine:
         pageable tensor is copied before this returns. Arrays are NHWC
         by default; with io_layout='nchw' rank-4 arrays are permuted
         here. uint8 arrays are shipped raw and scaled on the device by
-        u8_scale.
+        u8_scale. Under a mesh the array is the global batch (or a
+        multihost.host_local_batch) and the engine keeps this rank's
+        rows: batch over `data`, height over `spatial` for rank 4.
         Token-id inputs (consumed only by nn.Embedding, e.g. [N, L] ids
         of an LM) are staged as float32, which holds every id below 2^24
         exactly (bf16 would round ids above 256)."""
@@ -175,9 +224,11 @@ class Engine:
         if name not in self._program.input_names:
             raise KeyError(
                 f"unknown input {name!r}; inputs are {self._program.input_names}")
+        spec = next(s for s in self._program.inputs if s.name == name)
+        if self._mesh is not None:
+            array = self._rank_shard(array, spec)
         x = array if isinstance(array, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(array))
-        spec = next(s for s in self._program.inputs if s.name == name)
         dtype = torch.float32 if spec.token else \
             self.config.compute_torch_dtype
         if self.device.type == "cuda" and x.is_pinned():
@@ -198,6 +249,30 @@ class Engine:
                 f"shape {spec.shape}")
         return x.contiguous()
 
+    def _rank_shard(self, array, spec):
+        """This rank's shard of a global input (or of a host-local
+        batch), on the host, before it is copied: rows over `data`, and
+        for rank 4 height over `spatial` (NCHW dim 2 under
+        io_layout='nchw')."""
+        from .parallel.multihost import HostLocalBatch
+
+        rank = len(array.shape)
+        if spec.shape and len(spec.shape) != rank:
+            raise ValueError(
+                f"input {spec.name!r}: rank {rank} does not match "
+                f"declared shape {spec.shape}")
+        sp = list(pmesh.input_sharding(self._mesh, rank))
+        if rank == 4 and self.config.io_layout == "nchw":
+            sp[1], sp[2] = sp[2], sp[1]
+        if isinstance(array, HostLocalBatch):
+            array = array.rank_rows()
+            sp[0] = None
+        try:
+            return pmesh.shard_of(array, tuple(sp), self._mesh)
+        except ValueError as e:
+            raise ValueError(f"input {spec.name!r} of shape "
+                             f"{tuple(array.shape)}: {e}") from None
+
     def forward(self) -> None:
         """Run the plan on the staged inputs (queued on the device)."""
         self._require_loaded()
@@ -207,8 +282,7 @@ class Engine:
             raise EngineStateError(f"inputs not set: {missing}")
         fp32 = self.config.compute_torch_dtype == torch.float32
         with torch.inference_mode(), fp32_parity(fp32):
-            self._outputs = self._program.fn(self._device_weights,
-                                             self._staged)
+            self._outputs = self._fn(self._device_weights, self._staged)
 
     def _zero_feeds(self, batch_size: int, what: str,
                     dynamic_ok: bool) -> dict:
@@ -242,12 +316,14 @@ class Engine:
         shapes, ahead of the first request: builds and loads the kernel
         libraries, and runs cuDNN's and cuBLAS's first-call setup for
         those shapes. Requires declared input shapes. The staged inputs
-        and outputs of the last forward are kept."""
+        and outputs of the last forward are kept. Under a mesh each
+        size is a rank's batch (the global batch is size x data)."""
         self._require_loaded()
         staged_backup, outputs_backup = dict(self._staged), self._outputs
+        data = pmesh.axis_size(self._mesh, pmesh.AXIS_DATA)
         try:
             for bs in batch_sizes:
-                for name, x in self._zero_feeds(bs, "warmup",
+                for name, x in self._zero_feeds(bs * data, "warmup",
                                                 False).items():
                     self.input(name, x)
                 self.forward()
@@ -262,18 +338,20 @@ class Engine:
         the forward's temporaries and outputs. torch.cuda's allocator
         statistics count allocated bytes, not the blocks its cache
         keeps. None on the CPU, which keeps no such statistics (the JAX
-        method returns None where its backend gives no memory report)."""
+        method returns None where its backend gives no memory report).
+        Under a mesh: this rank's peak at a rank batch of batch_size."""
         self._require_loaded()
         if self.device.type != "cuda":
             return None
+        data = pmesh.axis_size(self._mesh, pmesh.AXIS_DATA)
         staged = {k: self._prepare_input(k, v) for k, v in self._zero_feeds(
-            batch_size, "temp_bytes", True).items()}
+            batch_size * data, "temp_bytes", True).items()}
         fp32 = self.config.compute_torch_dtype == torch.float32
         torch.cuda.synchronize(self.device)
         base = torch.cuda.memory_allocated(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         with torch.inference_mode(), fp32_parity(fp32):
-            out = self._program.fn(self._device_weights, staged)
+            out = self._fn(self._device_weights, staged)
         torch.cuda.synchronize(self.device)
         peak = torch.cuda.max_memory_allocated(self.device)
         del out, staged
@@ -288,7 +366,11 @@ class Engine:
         batch collecting per-op activation ranges (quant/calibrate.py),
         takes the running max, installs `act_scale` entries into the
         weights and re-places them: the next forward takes the
-        s8 x s8 -> s32 conv/linear paths. Returns {op name: scale}."""
+        s8 x s8 -> s32 conv/linear paths. Returns {op name: scale}.
+        Under a mesh every rank passes the same global batches: the
+        observer runs the sharded walk and reduces each statistic over
+        the `data` (and `spatial`) shards, so every rank installs the
+        scales one process would."""
         self._require_loaded()
         if self.config.quant != "int8":
             raise EngineStateError(
@@ -297,7 +379,7 @@ class Engine:
 
         observer = build_observer_fn(
             self._program, self.config.act_clip_percentile,
-            per_channel=self.config.act_per_channel)
+            per_channel=self.config.act_per_channel, walk=self._walk)
         fp32 = self.config.compute_torch_dtype == torch.float32
         agg: dict = {}
         n_batches = 0
@@ -493,7 +575,8 @@ class Engine:
         weights) stay f32 and quantized tensors keep their int8 data /
         packed nibbles and f32 scales. The weight of a static-int8 op
         (OpImpl.s8_weight, with its `act_scale` installed) is laid out
-        K-major here, once, as the s8 GEMM reads it."""
+        K-major here, once, as the s8 GEMM reads it. Under a mesh each
+        weight is this rank's shard (executor.op_shardings)."""
         fp32_keys = {impl.name: impl.fp32_keys for impl in program.impls}
         s8 = {impl.name for impl in program.impls if impl.s8_weight}
         dtype = self.config.compute_torch_dtype
@@ -501,8 +584,11 @@ class Engine:
         for opname, wdict in weights.items():
             keep = fp32_keys.get(opname, ())
             k_major = opname in s8 and "act_scale" in wdict
+            specs = self._shardings.get(opname, (None, {}))[1]
             placed[opname] = {}
             for k, w in wdict.items():
+                if specs.get(k):
+                    w = self._shard_weight(w, specs[k])
                 if isinstance(w, (QuantizedTensor, Quantized4Tensor)):
                     w = w.to(self.device)
                     if k_major and k == "weight" and isinstance(
@@ -514,3 +600,15 @@ class Engine:
                 else:
                     placed[opname][k] = w.to(self.device)
         return placed
+
+    def _shard_weight(self, w, spec: tuple):
+        """This rank's shard of a weight under `spec`; an int8 weight's
+        per-channel scales follow its output-channel axis."""
+        if isinstance(w, QuantizedTensor):
+            return QuantizedTensor(
+                data=pmesh.shard_of(w.data, spec, self._mesh),
+                scale=pmesh.shard_of(w.scale, (spec[w.axis],), self._mesh),
+                axis=w.axis)
+        if isinstance(w, Quantized4Tensor):
+            raise ValueError("int4w weights carry no shard layout")
+        return pmesh.shard_of(w, spec, self._mesh)

@@ -13,19 +13,31 @@ load lifecycle is the same:
     CreateLayers      -> ops.lower_operator per op, int8w / int8 / int4w
                          quantization of `quantizable` weights
     CreatePipeline    -> the topo-sorted plan
+
+Under a device mesh (EngineConfig.mesh) every rank runs `ShardedWalk`
+over the same plan on its shard, where the JAX package lets GSPMD
+partition one program: the collectives XLA would insert are written out
+here (parallel/mesh.py, parallel/tp.py).
 """
 from __future__ import annotations
 
+import copy
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import torch
+
 from .config import EngineConfig
 from .ir.expression import expand_expression
-from .ir.graph import Graph, Operand
+from .ir.graph import PARAM_AINT, Graph, Operand, Parameter
 from .ir.passes import run_inference_fusions
 from .ops import OpImpl, lower_operator
-from .quant.tensor import quantize_int4_grouped, quantize_per_channel
+from .parallel.mesh import (AXIS_DATA, AXIS_MODEL, AXIS_SPATIAL,
+                            all_gather, axis_index, axis_size, exchange,
+                            weight_shardings)
+from .quant.tensor import (QuantizedActivation, quantize_int4_grouped,
+                           quantize_per_channel)
 
 
 def nchw_shape_to_nhwc(shape: list) -> list:
@@ -65,6 +77,9 @@ class Program:
     # the quantized weight, whose per-out-channel scales may have zeroed
     # small input channels. Never placed on the device.
     fp_weights: dict = field(default_factory=dict)
+    # op name -> how the op runs on height-sharded activations (the
+    # `spatial` mesh axis; `spatial_rule`)
+    spatial: dict = field(default_factory=dict)
 
     @property
     def input_names(self) -> list:
@@ -136,24 +151,125 @@ def _spec_for(operand: Operand) -> TensorSpec:
                           for op in operand.consumers))
 
 
+# ---- the spatial axis: how each op runs on height-sharded activations ---
+_SP_POINTWISE = {
+    "BinaryOp", "UnaryOp", "nn.BatchNorm2d", "nn.PReLU", "nn.LeakyReLU",
+    "nn.ELU", "nn.GELU", "nn.Tanh", "F.leaky_relu", "F.elu", "F.gelu",
+    "F.tanh", "torch.clamp", "nn.ReLU", "nn.Sigmoid", "nn.SiLU",
+    "nn.Hardsigmoid", "nn.Hardswish", "F.relu", "F.sigmoid", "F.silu",
+    "F.hardsigmoid", "F.hardswish", "nn.ReLU6", "F.relu6", "nn.Mish",
+    "F.mish", "nn.Identity", "nn.Dropout", "nn.Dropout2d",
+    "Tensor.contiguous", "torch.clone",
+}
+_SP_POOLS = {"nn.MaxPool2d": -float("inf"), "F.max_pool2d": -float("inf"),
+             "nn.AvgPool2d": 0.0, "F.avg_pool2d": 0.0}
+_SP_UPSAMPLE = ("nn.Upsample", "nn.UpsamplingNearest2d", "F.interpolate",
+                "F.upsample", "F.upsample_nearest")
+
+
+def _hw(op, key, default):
+    """An int or [h, w] param as (h, w)."""
+    p = op.params.get(key)
+    if p is None or p.value is None:
+        return default
+    return (p.value, p.value) if isinstance(p.value, int) else \
+        tuple(p.value)
+
+
+def _flag(op, key, default: bool) -> bool:
+    p = op.params.get(key)
+    return default if p is None or p.value is None else bool(p.value)
+
+
+def spatial_rule(op) -> tuple:
+    """How the walk runs `op` on activations sharded over height:
+    ("local",) — every output row needs only its own input rows
+    (pointwise ops, channel concat, integer nearest upsampling);
+    ("window", k, s, p, dilation, fill) — a conv or pool over H that
+    takes a halo from its neighbours, padded with `fill` at the image's
+    true edges; ("gather",) — the op needs the whole height (flatten,
+    global pooling, linear, attention, YOLO grids, ...): the walk
+    all-gathers its sharded inputs and the op runs replicated."""
+    t = op.type
+    if t in _SP_POINTWISE:
+        return ("local",)
+    if t == "torch.cat":
+        p = op.params.get("dim")
+        return ("local",) if p is not None and p.value in (1, -3) \
+            else ("gather",)
+    if t == "nn.Conv2d" or t in _SP_POOLS:
+        mode = op.params.get("padding_mode")
+        k = _hw(op, "kernel_size", None)
+        if (mode is not None and mode.value != "zeros") or k is None \
+                or _flag(op, "ceil_mode", False):
+            return ("gather",)
+        s = _hw(op, "stride", k if t in _SP_POOLS else (1, 1))
+        pad = _hw(op, "padding", (0, 0))
+        if _SP_POOLS.get(t) == 0.0 and pad[0] and (
+                not _flag(op, "count_include_pad", True)
+                or "divisor_override" in op.params):
+            return ("gather",)      # an average over the real rows only
+        return ("window", k[0], s[0], pad[0],
+                _hw(op, "dilation", (1, 1))[0], _SP_POOLS.get(t, 0.0))
+    if t in _SP_UPSAMPLE:
+        mode = op.params.get("mode")
+        sf = op.params.get("scale_factor")
+        if (mode is None or mode.value == "nearest") and sf is not None:
+            f = sf.value[0] if isinstance(sf.value, list) else sf.value
+            if float(f) == int(f) and int(f) >= 1:
+                return ("local",)
+        return ("gather",)
+    return ("gather",)
+
+
+# reshapes / views / expands whose params name the graph's batch
+_BATCH_SHAPED = ("torch.reshape", "Tensor.reshape", "Tensor.view",
+                 "Tensor.expand")
+
+
+def _rank_batch_op(op, batch: int, data: int):
+    """`op` with a leading `shape` entry equal to the graph's batch set
+    to this rank's rows (batch / data): under the `data` axis a rank
+    runs the graph on its rows, where a reshape of the whole batch
+    would not fit. Other ops come back as they are."""
+    p = op.params.get("shape")
+    if (op.type not in _BATCH_SHAPED or p is None or p.type != PARAM_AINT
+            or not p.value or p.value[0] != batch):
+        return op
+    local = copy.copy(op)
+    local.params = dict(op.params)
+    local.params["shape"] = Parameter(PARAM_AINT,
+                                      [batch // data] + list(p.value[1:]))
+    return local
+
+
 def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
     """Lower a pnnx graph to a Program. Mutates `graph` (expression
-    expansion and fusions run in place, as in the JAX package)."""
+    expansion and fusions run in place, as in the JAX package). Under a
+    mesh with data > 1 the program is a rank's: its reshapes of the
+    graph's batch take the rank's rows (`_rank_batch_op`)."""
     cfg = cfg or EngineConfig()
     expand_expression(graph)
     if cfg.fuse:
         run_inference_fusions(graph, cfg)
     order = _toposort(graph)
     input_operands, output_operands = discover_io(graph)
+    data = cfg.mesh.data if cfg.mesh is not None else 1
+    batch = next((r.shape[0] for r in input_operands
+                  if r.shape and r.shape[0] > 0), None)
 
     impls: list[OpImpl] = []
     weights: dict = {}
     fp_weights: dict = {}
     plan: list[tuple] = []
+    spatial: dict = {}
     for op in order:
         if op.type in ("pnnx.Input", "pnnx.Output"):
             continue
+        if data > 1 and batch is not None and batch % data == 0:
+            op = _rank_batch_op(op, batch, data)
         impl = lower_operator(op, cfg)
+        spatial[impl.name] = spatial_rule(op)
         if cfg.quant in ("int8w", "int8", "int4w"):
             for key, axis in impl.quantizable.items():
                 if key not in impl.weights:
@@ -206,4 +322,202 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
         fn=fn,
         plan=plan,
         fp_weights=fp_weights,
+        spatial=spatial,
     )
+
+
+# ---- the sharded walk ----------------------------------------------------
+def _data_of(x):
+    return x.data if isinstance(x, QuantizedActivation) else x
+
+
+def _like(x, data):
+    """`data` in the wrapper of x (an int8 chain activation keeps its
+    scale)."""
+    if isinstance(x, QuantizedActivation):
+        return QuantizedActivation(data=data, scale=x.scale)
+    return data
+
+
+def op_shardings(program: Program, mesh, tp_mode: str = "gspmd",
+                 use_kernels: bool = True) -> dict:
+    """{op name: (mode, weight specs, apply)} for this rank: "column"
+    (conv / linear / embedding weights sharded on their output channels
+    by parallel/mesh.weight_shardings: the op computes its output
+    channels and the walk all-gathers them), "heads" (an attention op
+    whose heads divide the model axis: OpImpl.tp_apply over this rank's
+    heads, its row-parallel output projection reduced by
+    parallel/tp.RowParallel) or "replicated" (every weight whole: no
+    hints, a model axis of 1, or a shard the op cannot run, such as an
+    attention op whose heads do not divide the axis)."""
+    from .parallel.tp import RowParallel
+
+    m = axis_size(mesh, AXIS_MODEL)
+    reduce = RowParallel(mesh, tp_mode, use_kernels)
+    out = {}
+    for impl in program.impls:
+        specs = weight_shardings(mesh, program.weights[impl.name],
+                                 impl.shard_hints)
+        mode, apply = "replicated", impl.apply
+        if any(specs.values()):
+            if impl.tp_apply is None:
+                mode = "column"
+            else:
+                apply = impl.tp_apply(m, axis_index(mesh, AXIS_MODEL),
+                                      reduce)
+                if apply is None:
+                    apply = impl.apply
+                    specs = {k: () for k in specs}
+                else:
+                    mode = "heads"
+        out[impl.name] = (mode, specs, apply)
+    return out
+
+
+class ShardedWalk:
+    """One rank's forward over a mesh: fn(weights, inputs) -> the global
+    outputs, on every rank.
+
+    `inputs` are this rank's shards (Engine.input): its batch rows on
+    `data`, and for rank-4 inputs its height rows on `spatial`. Per op:
+    - model: a "column" op runs on its weight shard and all-gathers its
+      output channels over the model group; a "heads" op runs its heads
+      and reduces its output projection inside (op_shardings);
+    - spatial: a "window" op (spatial_rule) takes a halo of rows from
+      its neighbours (top: ceil(p / s) * s rows, bottom: k - s - p rows,
+      cropped when negative; `fill` rows at the true edges), runs on
+      the slab and keeps its own output rows; where h_local % s != 0,
+      a halo outgrows a neighbour's rows or the output rows do not
+      split evenly, and for "gather" ops, the walk all-gathers the
+      height and carries on replicated. "local" ops run on the rows;
+    - data: nothing — the batch stays sharded to the outputs, which are
+      all-gathered (height, then batch) at the end.
+    `observe(impl, args, sharded)` is called before each op with its
+    inputs as the rank holds them and which of them are height-sharded
+    (the calibration observer under a mesh)."""
+
+    def __init__(self, program: Program, mesh, shardings: dict):
+        self.program = program
+        self.mesh = mesh
+        self.shardings = shardings
+        self.spatial = axis_size(mesh, AXIS_SPATIAL)
+        self.sp_index = axis_index(mesh, AXIS_SPATIAL)
+
+    # -- the height axis ----------------------------------------------------
+    def _gather_h(self, x):
+        return _like(x, all_gather(_data_of(x), self.mesh, AXIS_SPATIAL, 1))
+
+    def _rows_of(self, x, h_local):
+        """This rank's rows of a replicated rank-4 tensor of the whole
+        height (broadcast operands of other heights pass)."""
+        d = _data_of(x)
+        if not isinstance(d, torch.Tensor) or d.ndim != 4 or \
+                d.shape[1] != h_local * self.spatial:
+            return x
+        i = self.sp_index
+        return _like(x, d[:, i * h_local:(i + 1) * h_local])
+
+    def _window_fit(self, x, rule):
+        """(top, bottom, skip) halo rows of a window op on this shard, or
+        None when the shard cannot run it locally."""
+        _, k, s, p, dil, fill = rule
+        d = _data_of(x)
+        if d is not x and fill != 0.0:
+            return None
+        h = d.shape[1]
+        keff = dil * (k - 1) + 1
+        skip = -(-p // s)
+        top, bot = skip * s, max(keff - s - p, 0)
+        n = self.spatial
+        if (h % s or top > h or bot > h
+                or (n * h + 2 * p - keff) // s + 1 != n * h // s):
+            return None
+        return top, bot, skip
+
+    def _halo(self, x, top: int, bot: int, fill: float):
+        """x with `top` rows of the previous rank above and `bot` rows of
+        the next one below (fill rows past the image's edges)."""
+        d = _data_of(x)
+        j, n = self.sp_index, self.spatial
+        sends, recvs = [], []
+        if top:
+            if j + 1 < n:
+                sends.append((d[:, -top:], j + 1))
+            if j > 0:
+                recvs.append((d[:, :top], j - 1))
+        if bot:
+            if j > 0:
+                sends.append((d[:, :bot], j - 1))
+            if j + 1 < n:
+                recvs.append((d[:, -bot:], j + 1))
+        got = exchange(self.mesh, AXIS_SPATIAL, sends, recvs)
+        parts = []
+        if top:
+            parts.append(got.pop(0) if j > 0 else torch.full_like(
+                d[:, :top], fill))
+        parts.append(d)
+        if bot:
+            parts.append(got.pop(0) if j + 1 < n else torch.full_like(
+                d[:, :bot], fill))
+        return _like(x, torch.cat(parts, dim=1) if len(parts) > 1 else d)
+
+    # -- the walk -----------------------------------------------------------
+    def __call__(self, weights, inputs, observe=None):
+        env = dict(inputs)
+        sharded = {n for n, x in inputs.items()
+                   if self.spatial > 1 and x.ndim == 4}
+        for impl, in_names, out_names in self.program.plan:
+            args = []
+            for n in in_names:
+                if n not in env:
+                    raise GraphError(
+                        f"op {impl.name!r} consumes operand {n!r} before "
+                        f"it is produced")
+                args.append(env[n])
+            sh = [n in sharded for n in in_names]
+            if observe is not None:
+                observe(impl, args, sh)
+            mode, _specs, apply = self.shardings[impl.name]
+            crop, out_sharded = None, False
+            if any(sh):
+                rule = self.program.spatial.get(impl.name, ("gather",))
+                fit = (self._window_fit(args[0], rule)
+                       if rule[0] == "window" and sh[0] else None)
+                if fit is not None or rule[0] == "local":
+                    h = next(_data_of(a).shape[1]
+                             for a, s in zip(args, sh) if s)
+                    args = [a if s else self._rows_of(a, h)
+                            for a, s in zip(args, sh)]
+                    if fit is not None:
+                        top, bot, skip = fit
+                        if top or bot:
+                            args[0] = self._halo(args[0], top, bot,
+                                                 rule[5])
+                        crop = (skip, h // rule[2])
+                    out_sharded = True
+                else:
+                    args = [self._gather_h(a) if s else a
+                            for a, s in zip(args, sh)]
+            out = apply(weights[impl.name], *args)
+            if crop is not None:
+                d = _data_of(out)
+                out = _like(out, d[:, crop[0]:crop[0] + crop[1]])
+            if mode == "column":
+                out = _like(out, all_gather(_data_of(out), self.mesh,
+                                            AXIS_MODEL, -1))
+            if impl.n_outputs == 1:
+                env[out_names[0]] = out
+                if out_sharded:
+                    sharded.add(out_names[0])
+            else:
+                for n, o in zip(out_names, out):
+                    env[n] = o
+                    if out_sharded:
+                        sharded.add(n)
+        outs = {}
+        for n in self.program.output_names:
+            x = env[n]
+            if n in sharded:
+                x = self._gather_h(x)
+            outs[n] = all_gather(x, self.mesh, AXIS_DATA, 0)
+        return outs

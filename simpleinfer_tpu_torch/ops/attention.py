@@ -74,7 +74,8 @@ def lower_embedding(op, cfg):
         # engine inputs arrive as float ids; the gather wants integers
         return weights["weight"][idx.long()]
 
-    return OpImpl(name=op.name, type=op.type, apply=apply, weights=weights)
+    return OpImpl(name=op.name, type=op.type, apply=apply, weights=weights,
+                  shard_hints={"weight": (None, "model")})
 
 
 # --------------------------------------------------------------- core SDPA
@@ -288,12 +289,26 @@ def project(x, w, key, heads, d, dt, use_kernels):
     return split_heads(y.to(dt), heads, d)
 
 
-def project_out(ctx, w, dt, use_kernels):
-    """Output projection ctx [N, L, H*D] @ wo (+ bo) at dt."""
-    out = proj_nlo(ctx, w["wo"], dt, use_kernels)
+def project_out(ctx, w, dt, use_kernels, reduce=None):
+    """Output projection ctx [N, L, H*D] @ wo (+ bo) at dt. Under tensor
+    parallelism ctx holds this rank's heads and wo its row shard:
+    `reduce` sums the partial products over the model group (an
+    all_reduce, or the ring of parallel/tp.tp_linear_row) before the
+    bias is added once."""
+    if reduce is not None:
+        out = reduce(ctx, w["wo"], dt)
+    else:
+        out = proj_nlo(ctx, w["wo"], dt, use_kernels)
     if "bo" in w:
         out = out + w["bo"]
     return out.to(dt)
+
+
+# the Megatron layout of both attention ops: q/k/v column-parallel (whole
+# heads on each rank of the model axis), wo row-parallel
+ATTN_SHARD_HINTS = {"wq": (None, "model"), "wk": (None, "model"),
+                    "wv": (None, "model"), "wo": ("model", None),
+                    "bq": ("model",), "bk": ("model",), "bv": ("model",)}
 
 
 # ----------------------------------------------------- MultiheadAttention
@@ -347,54 +362,74 @@ def lower_multihead_attention(op, cfg):
             require_attr(op, "out_proj.bias").array().astype(np.float32))
     n_declared = max(1, len(op.outputs))
 
-    def apply(weights, *inputs):
-        xs = list(inputs)
-        mask = None
-        if len(xs) == 4:
-            mask = xs.pop()
-        elif len(xs) in (2, 3):
-            expect = kdim if len(xs) == 2 else vdim
-            if xs[-1].ndim == 2 or xs[-1].shape[-1] != expect:
+    def make_apply(heads, head0, reduce):
+        """apply over heads [head0, head0 + heads) of num_heads (all of
+        them on one device); `reduce` sums the partial output
+        projection and the head-summed weights over the model group."""
+        def apply(weights, *inputs):
+            xs = list(inputs)
+            mask = None
+            if len(xs) == 4:
                 mask = xs.pop()
-        q = xs[0]
-        k = xs[1] if len(xs) > 1 else q
-        v = xs[2] if len(xs) > 2 else k
-        if not batch_first:  # [L, N, E] -> [N, L, E]
-            q, k, v = (t.transpose(0, 1) for t in (q, k, v))
-        dt = q.dtype
-        qh = project(q, weights, "q", num_heads, d, dt, use_kernels)
-        kh = project(k, weights, "k", num_heads, d, dt, use_kernels)
-        vh = project(v, weights, "v", num_heads, d, dt, use_kernels)
-        probs = None
-        if (mask is None and n_declared == 1 and use_kernels
-                and kattn.flash_profitable(qh.shape[-2], kh.shape[-2],
-                                           causal=False)):
-            ctx = kattn.flash_attention(qh, kh, vh, scale=scale)
-        else:
-            if mask is not None and mask.ndim == 3:
-                # [N*h, Lq, Lk] -> [N, h, Lq, Lk]
-                mask = mask.reshape(qh.shape[0], num_heads,
-                                    *mask.shape[-2:])
-            logits = torch.matmul(qh.float(),
-                                  kh.float().transpose(-1, -2)) * scale
-            if mask is not None:
-                if mask.dtype == torch.bool:   # True = mask out
-                    logits = logits.masked_fill(mask, _NEG)
-                else:
-                    logits = logits + mask.float()
-            probs = torch.softmax(logits, dim=-1)
-            ctx = torch.matmul(probs.to(dt), vh)
-        out = project_out(merge_heads(ctx), weights, dt, use_kernels)
-        if not batch_first:
-            out = out.transpose(0, 1)
-        if n_declared == 1:
-            return out
-        return out, probs.mean(dim=1).to(dt)
+            elif len(xs) in (2, 3):
+                expect = kdim if len(xs) == 2 else vdim
+                if xs[-1].ndim == 2 or xs[-1].shape[-1] != expect:
+                    mask = xs.pop()
+            q = xs[0]
+            k = xs[1] if len(xs) > 1 else q
+            v = xs[2] if len(xs) > 2 else k
+            if not batch_first:  # [L, N, E] -> [N, L, E]
+                q, k, v = (t.transpose(0, 1) for t in (q, k, v))
+            dt = q.dtype
+            qh = project(q, weights, "q", heads, d, dt, use_kernels)
+            kh = project(k, weights, "k", heads, d, dt, use_kernels)
+            vh = project(v, weights, "v", heads, d, dt, use_kernels)
+            probs = None
+            if (mask is None and n_declared == 1 and use_kernels
+                    and kattn.flash_profitable(qh.shape[-2], kh.shape[-2],
+                                               causal=False)):
+                ctx = kattn.flash_attention(qh, kh, vh, scale=scale)
+            else:
+                if mask is not None and mask.ndim == 3:
+                    # [N*h, Lq, Lk] -> [N, h, Lq, Lk], this rank's heads
+                    mask = mask.reshape(qh.shape[0], num_heads,
+                                        *mask.shape[-2:])[
+                        :, head0:head0 + heads]
+                logits = torch.matmul(qh.float(),
+                                      kh.float().transpose(-1, -2)) * scale
+                if mask is not None:
+                    if mask.dtype == torch.bool:   # True = mask out
+                        logits = logits.masked_fill(mask, _NEG)
+                    else:
+                        logits = logits + mask.float()
+                probs = torch.softmax(logits, dim=-1)
+                ctx = torch.matmul(probs.to(dt), vh)
+            out = project_out(merge_heads(ctx), weights, dt, use_kernels,
+                              reduce and reduce.project)
+            if not batch_first:
+                out = out.transpose(0, 1)
+            if n_declared == 1:
+                return out
+            psum = probs.sum(dim=1)
+            if reduce is not None:
+                psum = reduce.sum(psum)
+            return out, (psum / num_heads).to(dt)
+        return apply
+
+    def tp_apply(model_size, model_index, reduce):
+        if num_heads % model_size:
+            return None         # whole heads only: the op runs replicated
+        hl = num_heads // model_size
+        return make_apply(hl, model_index * hl, reduce)
+
+    apply = make_apply(num_heads, 0, None)
 
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         n_outputs=n_declared,
         quantizable={"wq": 1, "wk": 1, "wv": 1, "wo": 1},
+        shard_hints=dict(ATTN_SHARD_HINTS),
+        tp_apply=tp_apply,
         decode_info={"embed_dim": embed_dim, "num_heads": num_heads,
                      "batch_first": batch_first, "kdim": kdim,
                      "vdim": vdim},
@@ -513,26 +548,45 @@ def lower_rotary_attention(op, cfg):
                    "logit_softcap": softcap}
     slopes = resolve_alibi_slopes(decode_info) if alibi else None
 
-    def apply(weights, x):
-        dt = x.dtype
-        l = x.shape[1]
-        qh = project(x, weights, "q", num_heads, d, dt, use_kernels)
-        kh = project(x, weights, "k", num_kv, d, dt, use_kernels)
-        vh = project(x, weights, "v", num_kv, d, dt, use_kernels)
-        qh, kh = apply_qk_norm(qh, kh, weights, qk_eps)
-        if not alibi:
-            cos, sin = rope_cos_sin(torch.arange(l, device=x.device),
-                                    rot_dim, theta)       # [L, R]
-            qh = apply_rope(qh, cos, sin, interleaved=rope_il)
-            kh = apply_rope(kh, cos, sin, interleaved=rope_il)
-        ctx = causal_context(qh, repeat_kv(kh, group), repeat_kv(vh, group),
-                             attn_scale, use_kernels, sliding_window=sw,
-                             softcap=softcap, alibi=slopes)
-        return project_out(merge_heads(ctx), weights, dt, use_kernels)
+    def make_apply(heads, kvh, slopes, reduce):
+        """apply over `heads` query and `kvh` kv heads (all of them on
+        one device) with their ALiBi slopes; `reduce` sums the partial
+        output projection over the model group."""
+        def apply(weights, x):
+            dt = x.dtype
+            l = x.shape[1]
+            qh = project(x, weights, "q", heads, d, dt, use_kernels)
+            kh = project(x, weights, "k", kvh, d, dt, use_kernels)
+            vh = project(x, weights, "v", kvh, d, dt, use_kernels)
+            qh, kh = apply_qk_norm(qh, kh, weights, qk_eps)
+            if not alibi:
+                cos, sin = rope_cos_sin(torch.arange(l, device=x.device),
+                                        rot_dim, theta)       # [L, R]
+                qh = apply_rope(qh, cos, sin, interleaved=rope_il)
+                kh = apply_rope(kh, cos, sin, interleaved=rope_il)
+            ctx = causal_context(qh, repeat_kv(kh, group),
+                                 repeat_kv(vh, group), attn_scale,
+                                 use_kernels, sliding_window=sw,
+                                 softcap=softcap, alibi=slopes)
+            return project_out(merge_heads(ctx), weights, dt, use_kernels,
+                               reduce and reduce.project)
+        return apply
+
+    def tp_apply(model_size, model_index, reduce):
+        if num_heads % model_size or num_kv % model_size:
+            return None         # whole heads only: the op runs replicated
+        hl, kl = num_heads // model_size, num_kv // model_size
+        sl = (None if slopes is None
+              else slopes[model_index * hl:(model_index + 1) * hl])
+        return make_apply(hl, kl, sl, reduce)
+
+    apply = make_apply(num_heads, num_kv, slopes, None)
 
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"wq": 1, "wk": 1, "wv": 1, "wo": 1},
+        shard_hints=dict(ATTN_SHARD_HINTS),
+        tp_apply=tp_apply,
         # qk-norm weights stay f32 (the rsqrt normalization is
         # precision-sensitive and the vectors are tiny)
         fp32_keys=("wqn", "wkn"),

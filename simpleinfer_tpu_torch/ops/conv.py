@@ -309,10 +309,10 @@ def lower_conv2d(op, cfg):
             q = torch.cat([quantize_act(x, act_scale) for x in xs], -1)
             n, h, wd, c = q.shape
             out = int8_epilogue(q.reshape(-1, c),
-                                w.data.reshape(c, out_channels),
+                                w.data.reshape(c, -1),
                                 act_scale, w.scale, bias, fused_act,
                                 xs[0].dtype, use_kernels=use_kernels)
-            return out.reshape(n, h, wd, out_channels)
+            return out.reshape(n, h, wd, -1)
         dtype = xs[0].dtype
         wd = resolve_weight(w, dtype)  # dequant once, slice per source
         # partial sums carry at the compute dtype in bf16 mode (each conv
@@ -367,10 +367,10 @@ def lower_conv2d(op, cfg):
             n, h, wd, c = x.shape
             out = kmm.matmul_int8w(
                 x.reshape(n * h * wd, c),
-                w.data.reshape(c, out_channels),  # HWIO 1x1 -> [K, N]
+                w.data.reshape(c, -1),  # HWIO 1x1 -> [K, N]
                 w.scale, bias, fused_act,
                 out_dtype=None if out_scale is None else torch.float32)
-            out = out.reshape(n, h, wd, out_channels)
+            out = out.reshape(n, h, wd, -1)
             if out_scale is not None:
                 return _finish(out, None, out_scale)
             return out
@@ -383,6 +383,11 @@ def lower_conv2d(op, cfg):
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"weight": 3},  # HWIO: out channels on axis 3
+        # the JAX package's hints; a grouped conv declares none: its
+        # output-channel shard would read an input-channel slice that
+        # the op's fixed `groups` cannot take, so it runs replicated
+        shard_hints=({"weight": (None, None, None, "model"),
+                      "bias": ("model",)} if groups == 1 else {}),
         fp32_keys=("act_scale", "out_scale"),  # quant scales stay f32
         act_quant=True,
         # per-channel act scales fold into HWIO axis 2 (input channels),

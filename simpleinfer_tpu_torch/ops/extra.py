@@ -295,7 +295,9 @@ def lower_conv_transpose_2d(op, cfg):
         return out.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
     return OpImpl(name=op.name, type=op.type, apply=apply, weights=weights,
-                  quantizable={"weight": 3})  # HWIO: oc on axis 3
+                  quantizable={"weight": 3},  # HWIO: oc on axis 3
+                  shard_hints={"weight": (None, None, None, "model"),
+                               "bias": ("model",)})
 
 
 # ------------------------------------------------------------- constants

@@ -97,7 +97,7 @@ def lower_linear(op, cfg):
             q = q.contiguous()
             out = int8_epilogue(q, w.data, act_scale, w.scale, bias,
                                 fused_act, x.dtype, use_kernels=use_kernels)
-            out = out.reshape(*lead, out_features)
+            out = out.reshape(*lead, -1)
             return out.permute(0, 2, 3, 1).contiguous() if phys4 else out
         if use_kernels and isinstance(
                 w, (QuantizedTensor, Quantized4Tensor)):
@@ -107,7 +107,7 @@ def lower_linear(op, cfg):
                                        out_dtype=x.dtype)
             else:
                 out = kmm.matmul_int8w(x2, w.data, w.scale, bias, fused_act)
-            out = out.reshape(*lead, out_features)
+            out = out.reshape(*lead, -1)
         else:
             out = linear(x, w, bias, activation=fused_act)
         return out.permute(0, 2, 3, 1).contiguous() if phys4 else out
@@ -115,6 +115,7 @@ def lower_linear(op, cfg):
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"weight": 1},  # [in, out]: out channels on axis 1
+        shard_hints={"weight": (None, "model"), "bias": ("model",)},
         fp32_keys=("act_scale",),
         act_quant=True,
         act_fold=_linear_act_fold(op),

@@ -30,6 +30,16 @@ class OpImpl:
     # weight key -> axis holding output channels, for per-channel
     # weight-only int8 quantization (quant/tensor.py)
     quantizable: dict = field(default_factory=dict)
+    # weight key -> PartitionSpec-style tuple for tensor-parallel sharding
+    # (None entries = replicated dims); consumed by parallel/mesh.
+    # weight_shardings. A column-sharded op computes the output channels
+    # of its weight shard (the walk all-gathers them, executor.py)
+    shard_hints: dict = field(default_factory=dict)
+    # head-sharded attention: tp_apply(model_size, model_index, reduce)
+    # -> an apply over this rank's heads (the column shards of wq / wk /
+    # wv, the row shard of wo) whose partial output projection
+    # `reduce` sums over the model group before the bias
+    tp_apply: Optional[Callable] = None
     # weight keys that must STAY float32 even when the engine casts
     # weights to a lower compute dtype (e.g. YOLO grids: box coordinates
     # lose pixels in bf16)

@@ -58,13 +58,60 @@ def _tensor_stat(a, percentile: Optional[float], axis: Optional[int] = None):
     return mag.max()
 
 
+def _mesh_stat(walk, a, sharded: bool, percentile, axis):
+    """The statistic of an activation held in shards (a rank's batch rows
+    over `data`, its height rows over `spatial` when `sharded`) equal to
+    the whole activation's: abs-max is each shard's, reduced with MAX
+    over the axes; a percentile is taken over the gathered activation."""
+    from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL, all_gather, \
+        all_reduce
+
+    mesh = walk.mesh
+    if percentile is not None:
+        if isinstance(a, QuantizedActivation):
+            a = a.dequantize(torch.float32)
+        a = all_gather(a, mesh, AXIS_DATA, 0)
+        if sharded:
+            a = all_gather(a, mesh, AXIS_SPATIAL, 1)
+        return _tensor_stat(a, percentile, axis)
+    v = _tensor_stat(a, None, axis).float()
+    v = all_reduce(v, mesh, AXIS_DATA, "max")
+    if sharded:
+        v = all_reduce(v, mesh, AXIS_SPATIAL, "max")
+    return v
+
+
 def build_observer_fn(program, percentile: Optional[float] = None,
-                      per_channel: bool = False):
+                      per_channel: bool = False, walk=None):
     """fn(weights, inputs) -> {op name: f32 activation stat (tensor)} for
     every act_quant op in the plan; runs the full forward. Stats are
     scalars, or per-channel vectors for single-input ops advertising
-    OpImpl.act_fold when `per_channel` is set."""
+    OpImpl.act_fold when `per_channel` is set. With `walk` (a mesh
+    engine's executor.ShardedWalk) the forward is this rank's sharded
+    walk and each statistic is reduced over the shards (`_mesh_stat`):
+    every rank returns the stats of the whole batch."""
     plan = program.plan
+
+    def axis_of(impl, args):
+        return (impl.act_fold[0] if per_channel and impl.act_fold
+                and len(args) == 1 else None)
+
+    if walk is not None:
+        def mesh_fn(weights, inputs):
+            stats = {}
+
+            def observe(impl, args, sharded):
+                if impl.act_quant and args:
+                    axis = axis_of(impl, args)
+                    vals = [_mesh_stat(walk, a, s, percentile, axis)
+                            for a, s in zip(args, sharded)]
+                    stats[impl.name] = (vals[0] if len(vals) == 1
+                                        else torch.stack(vals).max())
+
+            walk(weights, inputs, observe=observe)
+            return stats
+
+        return mesh_fn
 
     def fn(weights, inputs):
         env = dict(inputs)
@@ -72,9 +119,7 @@ def build_observer_fn(program, percentile: Optional[float] = None,
         for impl, in_names, out_names in plan:
             args = [env[n] for n in in_names]
             if impl.act_quant and args:
-                axis = (impl.act_fold[0]
-                        if per_channel and impl.act_fold
-                        and len(args) == 1 else None)
+                axis = axis_of(impl, args)
                 vals = [_tensor_stat(a, percentile, axis) for a in args]
                 stats[impl.name] = (vals[0] if len(vals) == 1
                                     else torch.stack(vals).max())

@@ -37,6 +37,14 @@ window fits prompt + max_new.
 The port compiles nothing per shape, so an uncapped admission wave
 takes the smallest bucket too (the JAX package pads those to the window
 to avoid an unwarmed executable).
+
+On a tensor-parallel engine (EngineConfig.mesh, model > 1; every rank
+builds the same service) the scheduler runs on the model axis' first
+rank, the primary: each decoder call it makes (admissions, slots,
+positions, cancellations are all in the calls' arguments) is broadcast
+to the other ranks first (`_PlanCast`), whose follower loop replays it
+on their heads, so every collective of the walk meets its peers.
+Clients submit on the primary; stopping it stops the followers.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..parallel.mesh import AXIS_MODEL, axis_index, broadcast_object
 from ..zoo.generate import CachedDecoder
 from .batcher import fetch_async
 
@@ -167,6 +176,124 @@ class _FairLock:
             self.__enter__()
 
 
+class _PlanCast:
+    """A CachedDecoder on a tensor-parallel rank whose calls are the
+    model group's plan. On the primary every call of CALLS is first
+    broadcast as (method, arguments), then run; a follower's `follow`
+    receives the same calls in the same order and runs them on its own
+    decoder. Device tensors and cache pools in the arguments (the
+    results of earlier calls, such as a chained block's last tokens)
+    travel as references to the result they came from, which each rank
+    resolves to its own. Other attributes are the decoder's.
+
+    `log`, when a list, takes every call of the plan on every rank as
+    (call number, method, arguments, keyword arguments, result), the
+    arguments in their broadcast form; `replay` runs such a log again
+    from its first call."""
+
+    CALLS = ("init_cache", "prefill_install", "decode_block",
+             "merge_tokens")
+    #: results kept referable: the scheduler reads back at most the
+    #: block in flight and its successor
+    KEEP = 8
+    #: an idle primary sends a tick this often, so that a follower's
+    #: wait never reaches the process group's timeout
+    IDLE_TICK_S = 60.0
+
+    def __init__(self, dec: CachedDecoder, mesh):
+        self._dec, self._mesh = dec, mesh
+        self.primary = axis_index(mesh, AXIS_MODEL) == 0
+        self._n = 0
+        self._by_id: dict = {}          # id(obj) -> (key, obj)
+        self._by_key: dict = {}         # key -> obj
+        self.last_send = time.monotonic()
+        self.log: list | None = None
+
+    def __getattr__(self, name):
+        if name in self.CALLS:
+            fn = getattr(self._dec, name)
+
+            def call(*args, **kwargs):
+                msg = ("call", name, self._encode(args),
+                       {k: self._encode(v) for k, v in kwargs.items()})
+                self.send(msg)
+                return self._run(msg)
+            return call
+        return getattr(self._dec, name)
+
+    def send(self, msg) -> None:
+        broadcast_object(msg, self._mesh, AXIS_MODEL, 0)
+        self.last_send = time.monotonic()
+
+    def follow(self) -> None:
+        """Replay the primary's calls until it sends the end of a phase
+        (its warmup, or its scheduler loop)."""
+        while True:
+            msg = broadcast_object(None, self._mesh, AXIS_MODEL, 0)
+            if msg[0] == "end":
+                return
+            if msg[0] == "call":
+                self._run(msg)
+
+    def _run(self, msg):
+        _, name, args, kwargs = msg
+        result = self._register(getattr(self._dec, name)(
+            *self._decode(args), **self._decode(kwargs)))
+        if self.log is not None:
+            self.log.append((self._n, name, args, kwargs, result))
+        return result
+
+    def replay(self, log) -> list:
+        """Run the calls of `log` again, in order, on this (fresh) plan's
+        decoder; returns their results. Every rank of the model group
+        replays the same log together."""
+        self._n = log[0][0] - 1 if log else 0
+        return [self._run(("call", name, args, kwargs))
+                for _n, name, args, kwargs, _r in log]
+
+    def _register(self, result):
+        """Number the tensors and cache pools of a call's result."""
+        self._n += 1
+
+        def walk(x, path):
+            if isinstance(x, (torch.Tensor, dict)):
+                key = (self._n,) + path
+                self._by_id[id(x)] = (key, x)
+                self._by_key[key] = x
+            elif isinstance(x, tuple):
+                for i, v in enumerate(x):
+                    walk(v, path + (i,))
+
+        walk(result, ())
+        old = [k for k in self._by_key if k[0] <= self._n - self.KEEP]
+        for k in old:
+            obj = self._by_key.pop(k)
+            if self._by_id.get(id(obj), (None,))[0] == k:
+                del self._by_id[id(obj)]
+        return result
+
+    def _encode(self, x):
+        if isinstance(x, (torch.Tensor, dict)):
+            ref = self._by_id.get(id(x))
+            if ref is None:
+                raise ValueError("a device argument of a tensor-parallel "
+                                 "decoder call must be an earlier call's "
+                                 "result")
+            return ("__ref__", ref[0])
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._encode(v) for v in x)
+        return x
+
+    def _decode(self, x):
+        if isinstance(x, tuple) and len(x) == 2 and x[0] == "__ref__":
+            return self._by_key[x[1]]
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._decode(v) for v in x)
+        if isinstance(x, dict):
+            return {k: self._decode(v) for k, v in x.items()}
+        return x
+
+
 def _ladder(value, window: int, auto: list, name: str) -> list:
     """Sorted rung / bucket widths of `value` ("auto" -> `auto`, an int,
     a sequence or None), each in [1, window], those below the window."""
@@ -278,6 +405,13 @@ class GenerationService:
             sample_cap=self._cap if self._cap_mode == "fixed" else None,
             decode_attn="kernel" if decode_attn == "kernel" else "torch",
             window=window)
+        mesh = getattr(engine, "mesh", None)
+        # a tensor-parallel engine: the primary's decoder calls are the
+        # followers' plan
+        self._cast = _PlanCast(self._dec, mesh) if mesh is not None \
+            else None
+        if self._cast is not None:
+            self._dec = self._cast
         self._attn_auto = (decode_attn == "auto"
                            and slots >= self.KERNEL_MIN_SLOTS
                            and self._dec.kernel_ok)
@@ -349,9 +483,19 @@ class GenerationService:
             prompt_ids, max_new, eos_id, temperature, top_k, top_p,
             queue.Queue(), timeout_s, priority))
 
+    @property
+    def follower(self) -> bool:
+        """True on a tensor-parallel rank that replays the primary's
+        plan (no scheduler, no clients)."""
+        return self._cast is not None and not self._cast.primary
+
     def _enqueue(self, prompt_ids, max_new, eos_id, temperature, top_k,
                  top_p, stream_q, timeout_s=None,
                  priority=0) -> _GenRequest:
+        if self.follower:
+            raise RuntimeError(
+                "submit on the primary rank: this rank of the tensor-"
+                "parallel service replays the primary's plan")
         prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
@@ -427,7 +571,19 @@ class GenerationService:
         allocator and the torch library kernels initialise. Eager
         PyTorch compiles nothing per shape, so one admission at the
         smallest bucket stands for the JAX package's per-bucket ones.
-        Call before start()."""
+        Call before start(), on every rank of a tensor-parallel engine
+        (a follower replays the primary's warmup)."""
+        if self.follower:
+            self._cast.follow()
+            return self
+        try:
+            self._warmup_calls()
+        finally:
+            if self._cast is not None:
+                self._cast.send(("end",))
+        return self
+
+    def _warmup_calls(self) -> None:
         n = self._slots
         caches = self._dec.init_cache(n)
         zeros = np.zeros(n, np.float32)
@@ -457,7 +613,6 @@ class GenerationService:
             self._dec.merge_tokens(np.zeros(n, np.int64), last,
                                    np.arange(n))
         out.cpu()
-        return self
 
     def _route(self, rung) -> tuple:
         """(attn_impl, kv_prefix) of a block whose live rows a rung (or
@@ -471,18 +626,28 @@ class GenerationService:
 
     def start(self) -> "GenerationService":
         self._running = True
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="si-genservice")
+        self._thread = threading.Thread(
+            target=self._follow if self.follower else self._loop,
+            daemon=True, name="si-genservice")
         self._thread.start()
         return self
 
     def stop(self, drain: bool = True) -> None:
+        """Stop the scheduler (after the queue drains, with drain). On a
+        follower: wait until the primary stops."""
         with self._cv:
             self._running = False
             self._cv.notify()
         if self._thread:
-            self._thread.join(timeout=60 if drain else 5)
+            self._thread.join(timeout=None if self.follower
+                              else 60 if drain else 5)
             self._thread = None
+
+    def _follow(self) -> None:
+        dev = self._cast._dec._device
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        self._cast.follow()
 
     # ---- scheduler loop --------------------------------------------------
     def _fetch(self, toks) -> np.ndarray:
@@ -513,6 +678,19 @@ class GenerationService:
                 if req.stream_q is not None:
                     req.stream_q.put(None)
             raise
+        finally:
+            self._end_followers()
+
+    def _end_followers(self) -> None:
+        """The primary's scheduler has ended: so do the followers' loops
+        (a process group that already failed is logged, not raised)."""
+        if self._cast is None:
+            return
+        try:
+            self._cast.send(("end",))
+        except Exception:  # noqa: BLE001 (a boundary: the loop is over)
+            logging.getLogger(__name__).exception(
+                "could not stop the tensor-parallel followers")
 
     def _loop_inner(self) -> None:
         n = self._slots
@@ -619,15 +797,23 @@ class GenerationService:
                     pos[i] = new_pos
 
         while True:
+            idle_tick = False
             with self._cv:
                 if not self._queue and in_flight is None and \
                         all(r is None for r in active):
                     if not self._running:
                         return       # stopped, and nothing left to serve
                     self._cv.wait(timeout=self._tick_timeout)
-                    continue
+                    idle_tick = self._cast is not None and (
+                        time.monotonic() - self._cast.last_send
+                        > self._cast.IDLE_TICK_S)
+                    if not idle_tick:
+                        continue
                 can_admit = bool(self._queue) and any(
                     r is None for r in active)
+            if idle_tick:
+                self._cast.send(("tick",))
+                continue
             # the pass runs under the host lock, the wait above outside it
             with self._host:
                 if can_admit and in_flight is not None:
@@ -773,6 +959,10 @@ class TieredGenerationService:
     def __init__(self, engine, tiers=((8, 512), (8, None)), **kwargs):
         if not tiers:
             raise ValueError("need at least one (slots, window) tier")
+        if getattr(engine, "mesh", None) is not None:
+            raise ValueError("a tensor-parallel engine serves through one "
+                             "GenerationService (its followers replay one "
+                             "scheduler)")
         self.services = [GenerationService(engine, slots=int(slots),
                                            window=window, **kwargs)
                          for slots, window in tiers]

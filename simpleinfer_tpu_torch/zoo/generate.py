@@ -27,9 +27,19 @@ the position-indexed caches (a ring is read whole), sample_cap draws
 among the top candidates, fuse_qkv runs one q|k|v projection a step,
 window= caps the caches below the model's seq_len (the tiered pools of
 serving/llm.py), and decode_chunk_verify feeds K tokens a row through
-the cache in one pass (zoo/speculative.py). Not ported: tensor-parallel
-meshes. The JAX spellings decode_attn="xla" / "pallas" are "torch" /
-"kernel" here.
+the cache in one pass (zoo/speculative.py). The JAX spellings
+decode_attn="xla" / "pallas" are "torch" / "kernel" here.
+
+On a tensor-parallel engine (EngineConfig.mesh with model > 1) each rank
+decodes its own heads: an attention op whose heads divide the model
+axis runs this rank's q / kv heads (the caches hold its kv heads, the
+kernels run at those shapes) and reduces its output projection over
+the model group (an all_reduce, or the ring of parallel/tp in tp_mode
+"ring"); an op whose heads do not divide runs whole on every rank with
+a whole cache. Column-sharded linears and embeddings all-gather their
+output columns. Every rank then holds the same logits: greedy decode
+agrees by construction, and a sampled draw is broadcast from the
+model axis' first rank.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import torch
 from ..engine import fp32_parity
 from ..kernels import decode_attn as kdec
 from ..ops.attention import (
+    alibi_slopes,
     apply_qk_norm,
     apply_rope,
     cap_logits,
@@ -54,6 +65,8 @@ from ..ops.attention import (
     rope_cos_sin,
     split_heads,
 )
+from ..parallel.mesh import (AXIS_DATA, AXIS_MODEL, AXIS_SPATIAL,
+                             all_gather, axis_group, axis_index, axis_size)
 from ..quant.tensor import Quantized4Tensor, QuantizedTensor, proj_nlo
 from .sampling import all_greedy, sample_logits, step_generator
 
@@ -215,6 +228,26 @@ class CachedDecoder:
         self._out_name = program.output_names[0]
         self._plan = program.plan
         self._weights = engine._device_weights
+        self._mesh = getattr(engine, "mesh", None)
+        modes = {}
+        if self._mesh is not None:
+            # tensor-parallel decode: the engine's weights are already
+            # this rank's shards (executor.op_shardings); the slot batch
+            # stays whole on every rank. Spread THROUGHPUT over a DP
+            # engine pool (serving/batcher.py), use TP to fit / speed up
+            # one model
+            if axis_size(self._mesh, AXIS_DATA) > 1 or \
+                    axis_size(self._mesh, AXIS_SPATIAL) > 1:
+                raise ValueError(
+                    "CachedDecoder shards over the `model` axis only; "
+                    "use a DP engine pool for data parallelism")
+            from ..parallel.tp import RowParallel
+
+            modes = engine.op_modes
+            self._reduce = RowParallel(self._mesh, engine.config.tp_mode,
+                                       self._use_kernels)
+        self._gather_ops = {n for n, m in modes.items() if m == "column"}
+        self._info = {}
         self._mha_ops = []
         last_attn = -1
         for i, (impl, _ins, _outs) in enumerate(self._plan):
@@ -234,7 +267,11 @@ class CachedDecoder:
                     f"({impl.name}); supported: "
                     f"{sorted(self._POINTWISE)} + {list(_ATTN)}")
             if impl.type in _ATTN:
-                self._mha_ops.append((impl.name, impl.decode_info))
+                info = impl.decode_info
+                if modes.get(impl.name) == "heads":
+                    info = self._rank_heads(info)
+                self._info[impl.name] = info
+                self._mha_ops.append((impl.name, info))
                 last_attn = i
         if self._kernel_decode and any(
                 info.get("sliding_window") for _, info in self._mha_ops):
@@ -248,6 +285,50 @@ class CachedDecoder:
                              for _, info in self._mha_ops)
         if fuse_qkv:
             self._weights = self._fuse_attention_weights(self._weights)
+
+    def _rank_heads(self, info):
+        """The decode_info of this rank's heads of a head-sharded op: its
+        q and kv heads, its ALiBi slopes, and the model-group reduce of
+        its output projection."""
+        heads, kvh, d = self._geometry(info)
+        m = axis_size(self._mesh, AXIS_MODEL)
+        j = axis_index(self._mesh, AXIS_MODEL)
+        hl = heads // m
+        local = dict(info, num_heads=hl, num_kv_heads=kvh // m,
+                     head_dim=d, tp_reduce=self._reduce.project)
+        if info.get("alibi"):
+            sl = info.get("alibi_slopes")
+            sl = (np.asarray(sl, np.float32) if sl is not None
+                  else alibi_slopes(heads))
+            local["alibi_slopes"] = sl[j * hl:(j + 1) * hl]
+        return local
+
+    def _apply(self, impl, w, args):
+        """A non-attention op of the plan; a column-sharded one (under a
+        mesh) all-gathers its output columns over the model group."""
+        r = impl.apply(w, *args)
+        if impl.name in self._gather_ops:
+            r = all_gather(r, self._mesh, AXIS_MODEL, -1)
+        return r
+
+    def _out(self, ctx, w, dt, info):
+        """Output projection of a context [N, H, L, D]; reduced over the
+        model group for a head-sharded op."""
+        return project_out(merge_heads(ctx), w, dt, self._use_kernels,
+                           info.get("tp_reduce"))
+
+    def _agree(self, tok, greedy: bool):
+        """Every rank's sampled token [N] equal: greedy draws are by
+        construction (every rank holds the same logits); a sampled draw
+        is the model axis' first rank's, broadcast."""
+        if self._mesh is None or greedy:
+            return tok
+        import torch.distributed as dist
+
+        group = axis_group(self._mesh, AXIS_MODEL)
+        tok = tok.contiguous()
+        dist.broadcast(tok, src=dist.get_global_rank(group, 0), group=group)
+        return tok
 
     def _fuse_attention_weights(self, weights):
         """A copy of the weights where each attention op's dict also
@@ -517,7 +598,7 @@ class CachedDecoder:
         s = self._logits(raw, info, p_abs).masked_fill(~keep, _NEG)
         p = torch.softmax(s, dim=-1).to(dt)
         ctx = self._attn_ctx(p, v_leaf, group, dt)
-        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+        return self._out(ctx, w, dt, info)
 
     def _attn_decode_scratch(self, w, x, frozen, scratch, pos, step_i,
                              pos0, info, kernel_attn, kv_prefix=None):
@@ -533,7 +614,7 @@ class CachedDecoder:
         ctx = self._attend_frozen_scratch(qh, frozen, scratch, step_i, pos,
                                           pos0, info, dt, kernel_attn,
                                           kv_prefix)
-        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+        return self._out(ctx, w, dt, info)
 
     def _attend_frozen_scratch(self, qh, frozen, scratch, step_i, pos, pos0,
                                info, dt, kernel_attn, kv_prefix=None):
@@ -632,7 +713,7 @@ class CachedDecoder:
             args = [env[n] for n in ins]
             if len(args) > 1:
                 args = self._slice_seq(args, pos, width)
-            r = impl.apply(w, *args)
+            r = self._apply(impl, w, args)
             if impl.n_outputs == 1:
                 env[outs[0]] = r
             else:
@@ -641,13 +722,14 @@ class CachedDecoder:
 
     def _step_fn(self, token, pos, caches, kv_prefix=None):
         return self._walk(token, lambda impl, w, x: self._attn_decode(
-            w, x, caches[impl.name], pos, impl.decode_info, kv_prefix), pos)
+            w, x, caches[impl.name], pos, self._info[impl.name],
+            kv_prefix), pos)
 
     def _step_fn_scratch(self, token, pos, caches, scratches, step_i, pos0,
                          kernel_attn, kv_prefix=None):
         return self._walk(token, lambda impl, w, x: self._attn_decode_scratch(
             w, x, caches[impl.name], scratches[impl.name], pos, step_i, pos0,
-            impl.decode_info, kernel_attn, kv_prefix), pos)
+            self._info[impl.name], kernel_attn, kv_prefix), pos)
 
     def _scratch_merge(self, cache, scratch, pos0, k_steps, ring=None):
         """Write a block's scratch into the cache in one pass: position
@@ -690,7 +772,7 @@ class CachedDecoder:
                              sliding_window=info.get("sliding_window"),
                              softcap=info.get("logit_softcap"),
                              alibi=self._slopes(info))
-        out = project_out(merge_heads(ctx), w, x.dtype, self._use_kernels)
+        out = self._out(ctx, w, x.dtype, info)
         return out, (kh, vh)
 
     @staticmethod
@@ -723,7 +805,7 @@ class CachedDecoder:
         for i, (impl, ins, outs) in enumerate(self._plan):
             w = self._weights.get(impl.name, {})
             if impl.type in _ATTN:
-                info = impl.decode_info
+                info = self._info[impl.name]
                 out, (kh, vh) = self._attn_prefill(w, env[ins[0]], info)
                 ring = self._op_ring(info)
                 if ring is not None:
@@ -744,7 +826,7 @@ class CachedDecoder:
                     if width in lens:
                         args = [a[:, :width] if lens[j] == mw
                                 else a for j, a in enumerate(args)]
-                r = impl.apply(w, *args)
+                r = self._apply(impl, w, args)
                 if impl.n_outputs == 1:
                     env[outs[0]] = r
                 else:
@@ -790,9 +872,10 @@ class CachedDecoder:
 
     def _sample(self, logits, seed, step, temperature, top_k, top_p,
                 cap=None):
-        gen = None if all_greedy(temperature) else step_generator(
-            self._device, seed, step)
-        return sample_logits(logits, gen, temperature, top_k, top_p, cap)
+        greedy = all_greedy(temperature)
+        gen = None if greedy else step_generator(self._device, seed, step)
+        return self._agree(sample_logits(logits, gen, temperature, top_k,
+                                         top_p, cap), greedy)
 
     def prefill_install(self, tokens, lengths, seed, step, temperature,
                         top_k, top_p, pool_caches, rows,
@@ -956,8 +1039,9 @@ class CachedDecoder:
                     logits = self._step_fn(x, p, caches, kv_prefix)
                 gen = None if greedy else step_generator(
                     self._device, seed, int(step0) + i)
-                tok = sample_logits(logits[:, 0, :], gen, temperature, top_k,
-                                    top_p, cap)
+                tok = self._agree(sample_logits(
+                    logits[:, 0, :], gen, temperature, top_k, top_p, cap),
+                    greedy)
                 toks.append(tok)
                 p = torch.clamp(p + 1, max=last)
             if self._scratch_blocks:
@@ -1028,14 +1112,14 @@ class CachedDecoder:
         s = self._logits(raw, info, p_abs).masked_fill(~keep, _NEG)
         p = torch.softmax(s, dim=-1).to(dt)
         ctx = self._attn_ctx(p, v_leaf, group, dt)             # [N, H, K, D]
-        return project_out(merge_heads(ctx), w, dt, self._use_kernels)
+        return self._out(ctx, w, dt, info)
 
     def _chunk_fn(self, tokens, pos, caches):
         """The plan at chunk width K: tokens [N, K] fed at pos .. pos + K
         - 1, every attention op appending K cache entries. Returns
         logits [N, K, V]."""
         return self._walk(tokens, lambda impl, w, x: self._attn_chunk(
-            w, x, caches[impl.name], pos, impl.decode_info), pos)
+            w, x, caches[impl.name], pos, self._info[impl.name]), pos)
 
     def decode_chunk_verify(self, tokens, pos, caches):
         """Feed K tokens per row through the cache in one pass and return

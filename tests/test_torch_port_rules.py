@@ -18,11 +18,13 @@ PKG = os.path.join(ROOT, "simpleinfer_tpu_torch")
 
 
 def _port_files():
-    """The port, chip_smoke.py, its control script and the card's tests,
-    which all run where only PyTorch is installed."""
+    """The port, chip_smoke.py, its control script, the card's tests and
+    the parallel tests' rank bodies, which all run where only PyTorch is
+    installed."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "torch_onoff_control.py"),
-             os.path.join(ROOT, "tests", "test_torch_cuda.py")]
+             os.path.join(ROOT, "tests", "test_torch_cuda.py"),
+             os.path.join(ROOT, "tests", "torch_rank_tasks.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
