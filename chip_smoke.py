@@ -22,6 +22,21 @@ Phases, each printing JSON lines:
    the same model run with kernels off, and throughput both ways (both
    matmul entries take csrc/matmul.cu's bf16 tensor-core route there);
 4. fp32 int8w on the card vs the port on the CPU, on a small YOLOv5s;
+4t. `tooling`, on phase 3's YOLOv5s-640-b8 int8w engine (no other is
+   built): the roofline from the Program's FLOP counts (125.62 GFLOP a
+   batch, the JAX package's count) and its speed-of-light against the
+   forward; the forward by CUDA events back to back and by
+   profiling.measure_device_time; profiling.device_profile of the
+   forward (its kernels by category, matmul_int8w's share, launches and
+   GFLOP/s, the total within PROFILE_TOL of measure_device_time's);
+   attribute_slices in 8 segments of even FLOPs; the CLI's roofline,
+   profile and export, each in a subprocess; Engine.export_model
+   reloaded by load_exported in a fresh process within EXPORT_TOL of
+   Engine.run with 22 matmul_int8w launches a call; chip_speed_factor
+   with its reference GEMM's TFLOP/s. With the llama phases, a llama
+   "base" decode step's device_profile. A static-int8 artifact
+   (matmul_s8s8 and c3_block launching from it) is left to
+   tests/test_torch_cuda.py, for the script's time;
 4a. the detection pipeline (zoo/detect.py): `host_native`, the port's
    native host library (csrc/si_host.cpp, built by g++ at first use)
    loaded, its letterbox_batch against letterbox_one (bytes) and the
@@ -114,7 +129,7 @@ Phases, each printing JSON lines:
    flash
    gate: flash_attention against the unblocked path at [12, 32, L, 64]
    bf16 for L from 256 to 2048;
-6. the llama main path: llama "base" (width 2048, vocab 32000; 8 of its
+6. the llama main path: llama "base" (width 2048, vocab 32000; 4 of its
    16 layers, `LLAMA`), bf16 int4w, GenerationService(slots=16, kv bf16) serving 48
    greedy requests (seeded prompt lengths uniform in 32..1900, 64 new
    tokens each) as streams: time to first token, decode tokens/s, the
@@ -158,8 +173,8 @@ Phases, each printing JSON lines:
    (scripts/torch_onoff_control.py --resnet), top-1 agreement reported;
    classify_images top-5 of 8 seeded 256x320 images; fp32 ResNet-18 on
    the card vs the CPU port;
-11. `gpt2`: GPT-2 small (GPT_PRESETS["small"], 1024 positions, vocab
-   50257) bf16 int4w served by GenerationService(slots=16, KV bf16), 48
+11. `gpt2`: GPT-2 small (GPT_PRESETS["small"] at 6 of its 12 layers,
+   1024 positions, vocab 50257) bf16 int4w served by GenerationService(slots=16, KV bf16), 48
    greedy requests (prompts 32–960, 64 new tokens each) as streams:
    TTFT, decode and output tokens/s, the launches of matmul_int4w, the
    causal flash kernel and decode_attention (each above 0); each kernel
@@ -256,8 +271,9 @@ Phases, each printing JSON lines:
    launches and shard shapes on each rank (22 a forward), the forward's
    ms a rank beside the single engine's; the kernel against its plain
    version at the shard shapes and timed there;
-22. `parallel_llm`: `LLAMA` bf16 int8w on MeshConfig(model=2) in both
-   tp_modes (16 q / 4 kv heads a rank): prefill and decode-step logits
+22. `parallel_llm`: `LLAMA` (`PAR_LLAMA`) bf16 int8w on
+   MeshConfig(model=2) in both tp_modes (16 q / 4 kv heads a rank):
+   prefill and decode-step logits
    against the single-rank engine (ONOFF_MAX_TOL / ONOFF_MEAN_TOL);
    CachedDecoder.generate of 16 prompts x 32 tokens with the launches
    of matmul_int8w, flash_attention and decode_attention on each rank
@@ -265,7 +281,10 @@ Phases, each printing JSON lines:
    (torch.profiler) and host-in-collectives ms a rank beside the
    single rank's; GenerationService(slots=16) with 16 mixed requests
    over the follower loop, the logged plan replayed outside it, every
-   block bit-equal; a 2-layer fp32 TP decode token-equal to the single
+   block bit-equal; TieredGenerationService((8, 256), (8, 512)) in both
+   tp_modes, 8 greedy requests, each reply equal to its solo run, the
+   followers replaying both tiers' plans from the one stream and
+   refusing clients; a 2-layer fp32 TP decode token-equal to the single
    rank; each kernel against its plain version at the shard shapes and
    timed there;
 23. `multiproc`: parallel.multiproc.dryrun_multichip(4): the data x
@@ -288,6 +307,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -729,29 +749,19 @@ def profile_forward(engine, feeds: dict, forward_ms: float, iters=3,
     forwards; the device kernels by self time, per forward, and their sum
     as a share of `forward_ms` (the forward's time without the profiler,
     whose own host overhead stretches the wall time it sees)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch import profiling
 
     for k, v in feeds.items():
         engine.input(k, v)
     engine.forward()
     engine.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(cuda=True) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             engine.forward()
         engine.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kernels.append((us / 1e3 / iters, e.count / iters, e.key[:90]))
-    kernels.sort(reverse=True)
+    kernels = card_kernels(prof, iters, 90)
     busy = sum(k[0] for k in kernels)
     f64 = [k for k in kernels if "f64" in k[2] or "dgemm" in k[2]]
     return {"profiled_wall_ms_per_forward": wall_ms,
@@ -768,6 +778,20 @@ def profile_forward(engine, feeds: dict, forward_ms: float, iters=3,
                              "c3_quantize_kernel", "c3_fp_kernel")},
             "top_kernels": [[round(ms, 4), cnt, name]
                             for ms, cnt, name in kernels[:top]]}
+
+
+def card_kernels(prof, per, width) -> list:
+    """(ms, launches, name[:width]) of each CUDA kernel of a
+    torch.profiler capture (profiling.kernel_stats), divided by `per`,
+    by self device time; a capture with no device time fails, it is not
+    read as zeros."""
+    from simpleinfer_tpu_torch import profiling
+
+    rows = profiling.kernel_stats(prof)
+    if not sum(r["total_self_time"] for r in rows) > 0:
+        raise AssertionError("torch.profiler recorded no CUDA device time")
+    return [(r["total_self_time"] / 1e3 / per, r["occurrences"] / per,
+             r["kernel_name"][:width]) for r in rows]
 
 
 def check_no_f64(prof, what) -> None:
@@ -2180,10 +2204,10 @@ def resnet_int8_rehearsal(device, image=64, batch=2) -> dict:
 
 # ---- llama generation path ----------------------------------------------
 # llama "base" (width 2048, 32 heads, 8 kv heads, SwiGLU 5456, vocab
-# 32000) at 8 of its 16 layers, the depth cut that keeps the whole script
+# 32000) at 4 of its 16 layers, the depth cut that keeps the whole script
 # inside its time with the parallel phases (which use it too), bf16
 # compute, int4w g128, served by GenerationService
-LLAMA = dict(variant="base", depth=8, seq_len=2048, vocab_size=32000,
+LLAMA = dict(variant="base", depth=4, seq_len=2048, vocab_size=32000,
              seed=0)
 SERVICE = dict(slots=16, kv_dtype="bfloat16")
 N_REQUESTS, PROMPT_RANGE, MAX_NEW = 48, (32, 1900), 64
@@ -2675,13 +2699,14 @@ class OneTier:
 
 
 def decode_step_profile(engine, device, lengths, k_steps=1, blocks=8,
-                        seed=0) -> dict:
+                        seed=0, phase="llama_decode_step") -> dict:
     """Steady-state decode of a full pool (the service's decoder settings,
     its decode horizon, each row at the recorded median lengths): host
-    wall time per step over `blocks` chained blocks, and torch.profiler's
-    device kernel time per step, so the card's busy share shows."""
+    wall time per step over `blocks` chained blocks, and the device
+    kernel time per step (profiling.device_profile over two blocks), so
+    the card's busy share shows, with the kernels' table by category."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch import profiling
     from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
 
     dec = CachedDecoder(engine, kv_dtype=SERVICE["kv_dtype"],
@@ -2704,26 +2729,19 @@ def decode_step_profile(engine, device, lengths, k_steps=1, blocks=8,
     t0 = time.perf_counter()
     run(blocks)
     wall_ms = (time.perf_counter() - t0) * 1e3 / (blocks * k_steps)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(2)
-    kernels = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kernels.append((us / 1e3 / (2 * k_steps), e.count / (2 * k_steps),
-                        e.key[:80]))
-    kernels.sort(reverse=True)
+    rows = profiling.device_profile(run, 1, iters=2, device=device)
+    kernels = [(r["total_self_time"] / 1e3 / (2 * k_steps),
+                r["occurrences"] / (2 * k_steps), r["kernel_name"][:80])
+               for r in rows]
     busy = sum(k_[0] for k_ in kernels)
-    res = {"phase": "llama_decode_step", "slots": n, "k_steps": k_steps,
+    res = {"phase": phase, "slots": n, "k_steps": k_steps,
            "mean_length": float(np.mean(pos)), "wall_ms_per_step": wall_ms,
            "device_ms_per_step": busy, "busy_share": busy / wall_ms,
            "decode_tok_s": n * 1e3 / wall_ms,
            "top_kernels": [[round(ms, 4), cnt, name]
-                           for ms, cnt, name in kernels[:10]]}
+                           for ms, cnt, name in kernels[:10]],
+           "table": profiling.format_kernel_stats(
+               rows, top=10, iters=2 * k_steps).splitlines()}
     emit(res)
     return res
 
@@ -3272,7 +3290,9 @@ def llama_fp32_card_vs_cpu(device, depth=2, seq_len=256, steps=16,
 
 # ---- the attention lineages (GPT-2, sliding windows, softcap, ALiBi) ----
 # GPT-2 small (GPT_PRESETS["small"]: 12 x 768, 12 heads, 1024 positions)
-GPT2 = dict(variant="small", seq_len=1024, vocab_size=50257, seed=0)
+# at 6 of its 12 layers, for the script's time (hf_gpt2 runs all 12)
+GPT2 = dict(variant="small", depth=6, seq_len=1024, vocab_size=50257,
+            seed=0)
 GPT2_PROMPTS = (32, 960)   # + 64 new tokens within the 1024 positions
 # LLAMA with every layer sliding over the last 512 positions
 # (mistral-style); prompts that put every admission wave on the 2048 rung
@@ -4679,7 +4699,7 @@ def decode_step_readings(engine, device, lengths, variants, sampling=None,
     matmul_int4w launches a step, and the fused q|k|v weights' bytes and
     shape [M, K, N] where there are any."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch import profiling
     from simpleinfer_tpu_torch.kernels import matmul as kmm
     from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
 
@@ -4730,14 +4750,10 @@ def decode_step_readings(engine, device, lengths, variants, sampling=None,
         r["wall_ms_per_step"] = sum(r["walls"]) / len(r["walls"])
         r["card_ms_per_step"] = None
         if device.type == "cuda":
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiling.trace(cuda=True) as prof:
                 run(name, 1)
             r["card_ms_per_step"] = sum(
-                (getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0.0))
-                for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")
-            ) / 1e3 / k_steps
+                k[0] for k in card_kernels(prof, k_steps, 0))
         del r["dec"], r["caches"]
     return out
 
@@ -5119,7 +5135,7 @@ def decode_launches(device, raw, head, conf) -> dict:
     and its NMS rounds, at pre_topk 512 and 1024: the rounds follow the
     data's suppression chains, not K."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch import profiling
     from simpleinfer_tpu_torch.zoo import detect
 
     res = {}
@@ -5139,13 +5155,12 @@ def decode_launches(device, raw, head, conf) -> dict:
             launches = None
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with profiling.trace(cuda=True) as prof:
                     detect.decode_device(raw, conf, 0.45, DETECT_MAX_DET,
                                          head, pre_topk=k)
                     torch.cuda.synchronize(device)
-                launches = sum(
-                    e.count for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+                launches = int(sum(k_[1] for k_ in card_kernels(prof, 1,
+                                                                 0)))
             res[f"pre_topk_{k}"] = {"kernel_launches": launches,
                                     "nms_rounds": rounds[-1]}
     finally:
@@ -6582,7 +6597,9 @@ def imported_lm(device, kind, convert, cfg, configs) -> tuple:
     """The stand-in (its widths, `cfg` over them) at bf16 on `device`,
     converted once at its full window, and an Engine of that graph per
     (compute, quant, use_kernels) of `configs`; returns (engines,
-    seconds to make, convert and load)."""
+    seconds to make, convert and load, and the seconds of the first
+    engine's shape inference, which the first read of its FLOP count
+    runs, timed alone)."""
     import torch
     from simpleinfer_tpu_torch import Engine, EngineConfig
 
@@ -6606,8 +6623,17 @@ def imported_lm(device, kind, convert, cfg, configs) -> tuple:
             device=str(device), use_kernels=uk)).load_model(None,
                                                             graph=graph))
         loads.append(time.perf_counter() - t)
+    # the shape inference (executor._infer_op_shapes) that the first
+    # read of flops_per_item runs, timed alone
+    from simpleinfer_tpu_torch.executor import _infer_op_shapes
+
+    program = engines[0].program
+    t = time.perf_counter()
+    _infer_op_shapes(program.plan, program.inputs, program.walk_batch)
     return engines, {"made_s": made_s, "convert_s": convert_s,
-                     "load_s": loads}
+                     "load_s": loads,
+                     "shape_inference_s": time.perf_counter() - t,
+                     "flops_per_item": program.flops_per_item}
 
 
 def service_replay(run, phase) -> dict:
@@ -6713,8 +6739,10 @@ def int8w_onoff_path(device, name, engines, feed, tol, kernels) -> dict:
     shapes); the outputs on vs off over the output's own scale within
     `tol`; on the card the kernel against its plain version at the
     forward's shapes, its time there beside torch.addmm's and the bound,
-    and forward ms kernels on and off (CUDA events)."""
+    and forward ms kernels on and off (CUDA events), and the kernels-on
+    forward's device profile by category against its FLOPs."""
     import torch
+    from simpleinfer_tpu_torch import profiling
     from simpleinfer_tpu_torch.kernels import matmul as kmm
 
     on, off = engines
@@ -6746,6 +6774,19 @@ def int8w_onoff_path(device, name, engines, feed, tol, kernels) -> dict:
            "off": forward_times(off, {in_name: feed}, iters=10)}
     res.update(forward=fwd)
     emit({"phase": f"{name}_forward_ms", **fwd})
+    rows = profiling.device_profile(on.forward, iters=2, device=device)
+    busy = sum(r["total_self_time"] for r in rows) / 2e3
+    cats: dict = {}
+    for r in rows:
+        cats[r["category"]] = cats.get(r["category"], 0.0) + \
+            r["total_self_time"] / 2e3
+    flops = on.program.flops_per_item * feed.shape[0]
+    emit({"phase": f"{name}_device_profile", "device_ms_per_forward": busy,
+          "ms_by_category": cats, "gflop_per_forward": flops / 1e9,
+          "tflops_over_device_time": flops / busy / 1e9,
+          "peak_share": flops / busy / 1e9 / profiling.H100.peak_bf16_tflops,
+          "top_kernels": profiling.format_kernel_stats(
+              rows, top=8, iters=2).splitlines()[-8:], "card": CARD})
     kernels.setdefault("matmul_int8w", {"name": "matmul_int8w"})[name] = {
         "launches": launches, "max_abs_err": err, "card": CARD,
         **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -6984,18 +7025,21 @@ PAR_CNN_MESHES = (("data", {"data": 2}, 8), ("spatial", {"spatial": 2}, 2),
                   ("model", {"model": 2}, 2))
 PAR_CNN = dict(variant="s", image=640, fp32_image=64, fp32_batch=2, seed=0,
                forwards=3)
-# llama "base" (LLAMA: its widths at 8 layers) bf16 int8w on
-# MeshConfig(model=2): 16 q / 4 kv heads a rank. Prefill and decode-step logits against the single-rank
+# llama "base" (PAR_LLAMA: LLAMA at its 4 layers, for the script's
+# time: a decode step's collectives are host trips, one pair a layer) bf16 int8w on MeshConfig(model=2): 16 q / 4 kv heads a rank. Prefill and decode-step logits against the single-rank
 # engine within (ONOFF_MAX_TOL, ONOFF_MEAN_TOL); generate of `prompts`
 # rows x `new` tokens; the service's requests (replies equal their
 # replay); a `fp32_depth`-layer fp32 TP decode token-equal to one rank.
 # generate and the service run over `window` cache positions (flash
 # fires at the prefill widths 512 / 256, the 2048-wide prefill of 16
 # rows would move 128 MB through the host a collective)
+PAR_LLAMA = LLAMA
 PAR_LLM = dict(prompts=16, prompt_len=300, new=32, block=8, window=512,
                service_requests=16, service_prompts=(32, 250),
                service_new=(16, 48), onoff_lens=(2000, 1900), fp32_depth=2,
-               fp32_seq=256, fp32_steps=12, modes=("gspmd", "ring"))
+               fp32_seq=256, fp32_steps=12, modes=("gspmd", "ring"),
+               tiers=((8, 256), (8, 512)), tier_requests=8,
+               tier_prompts=(32, 400), tier_new=(4, 8))
 
 
 class CollectiveClock:
@@ -7071,20 +7115,12 @@ def _card_ms(dev, fn) -> float | None:
     kernel and copy it queued, summed), in ms; None on the CPU."""
     if dev.type != "cuda":
         return None
-    from torch.profiler import ProfilerActivity, profile
+    from simpleinfer_tpu_torch import profiling
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(cuda=True) as prof:
         fn()
         _sync(dev)
-    total = 0.0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            total += us
-    return total / 1e3
+    return sum(k[0] for k in card_kernels(prof, 1, 0))
 
 
 def _rank_info() -> dict:
@@ -7285,7 +7321,7 @@ def _served(svc, cfg, vocab, seed=41) -> list:
             for (p, n, _), f in zip(reqs, futs)]
 
 
-def par_llm_rank(device="cuda", cfg=PAR_LLM, llama=LLAMA) -> dict:
+def par_llm_rank(device="cuda", cfg=PAR_LLM, llama=PAR_LLAMA) -> dict:
     """One rank of `parallel_llm` (multiproc.spawn): llama bf16 int8w on
     MeshConfig(model=world) in each tp_mode. Rank 0 builds the
     single-rank engine of the same graph. Per mode: prefill and
@@ -7393,6 +7429,7 @@ def par_llm_rank(device="cuda", cfg=PAR_LLM, llama=LLAMA) -> dict:
         del dec
         if mode == cfg["modes"][0]:
             m["service"] = par_service(eng, cfg)
+        m["tiers"] = par_tiers(eng, cfg)
         del eng
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -7429,7 +7466,9 @@ def par_service(eng, cfg) -> dict:
     svc.warmup()
     svc._cast.log = []
     svc.start()
+    t = time.perf_counter()
     served = _served(svc, cfg, vocab_of(eng)) if not svc.follower else []
+    served_s = time.perf_counter() - t
     svc.stop()
     log = svc._cast.log
     again = _PlanCast(svc._cast._dec, eng.mesh).replay(log)
@@ -7440,11 +7479,64 @@ def par_service(eng, cfg) -> dict:
             equal += bool(torch.equal(r[0], r2[0]))
     return {"requests": len(served), "plan_calls": len(log),
             "replayed_token_calls": blocks, "replay_equal": equal,
-            "replies_ok": all(len(o) == p + n for p, n, o in served)}
+            "replies_ok": all(len(o) == p + n for p, n, o in served),
+            "served_s": served_s, "new_tokens": sum(n for _, n, _ in served)}
+
+
+def par_tiers(eng, cfg) -> dict:
+    """TieredGenerationService(cfg["tiers"]) on a TP engine: the primary
+    serves cfg["tier_requests"] greedy requests (seeded prompt lengths
+    and max_new, so both tiers take some), then each again alone; the
+    followers replay both tiers' plans from the one stream. The tiers
+    pad every wave to their window and hand the decode kernel the whole
+    window (no prefill buckets, no rungs): a row's tokens then depend on
+    its own prompt alone, and each reply must equal its solo one.
+    Returns the per-tier plan calls (every rank), the replies' agreement
+    and the run's seconds (the primary)."""
+    from simpleinfer_tpu_torch.serving.llm import TieredGenerationService
+
+    svc = TieredGenerationService(
+        eng, tiers=cfg["tiers"], kv_dtype=SERVICE["kv_dtype"],
+        decode_horizon=8, decode_attn="kernel", kv_prefix_ladder=None,
+        prefill_ladder=None)
+    svc.warmup()
+    for s in svc.services:
+        s._cast.log = []
+    svc.start()
+    res = {}
+    if not svc.follower:
+        rng = np.random.default_rng(43)
+        vocab = vocab_of(eng)
+        reqs = [(rng.integers(0, vocab, int(rng.integers(
+            *cfg["tier_prompts"]))), int(rng.integers(*cfg["tier_new"])))
+            for _ in range(cfg["tier_requests"])]
+        t = time.perf_counter()
+        futs = [svc.submit(p, max_new=n) for p, n in reqs]
+        served = [f.result(timeout=PAR_TIMEOUT_S) for f in futs]
+        res["served_s"] = time.perf_counter() - t
+        res["new_tokens"] = sum(n for _, n in reqs)
+        t = time.perf_counter()
+        solo = [svc.submit(p, max_new=n).result(timeout=PAR_TIMEOUT_S)
+                for p, n in reqs]
+        res["solo_s"] = time.perf_counter() - t
+        res["tier_of"] = [int(len(p) + n > svc.windows[0]) for p, n in reqs]
+        res["equal_solo"] = [bool(np.array_equal(a, b))
+                             for a, b in zip(served, solo)]
+        res["replies_ok"] = all(len(o) == len(p) + n
+                                for (p, n), o in zip(reqs, served))
+    else:
+        try:
+            svc.submit([1, 2], max_new=2)
+            res["refuses_clients"] = False
+        except RuntimeError:
+            res["refuses_clients"] = True
+    svc.stop()
+    res["plan_calls"] = [len(s._cast.log) for s in svc.services]
+    return res
 
 
 def parallel_llm_phase(device, kernels: dict, cfg=PAR_LLM,
-                       llama=LLAMA) -> dict:
+                       llama=PAR_LLAMA) -> dict:
     """`parallel_llm`: par_llm_rank on PAR_RANKS ranks; fails past the
     on-vs-off limits against the single rank, on a replay that differs,
     an fp32 TP decode off the single rank's tokens, or (on the card) a
@@ -7476,6 +7568,21 @@ def parallel_llm_phase(device, kernels: dict, cfg=PAR_LLM,
                 m["service"]["replies_ok"]
                 and m["service"]["requests"] == cfg["service_requests"]):
             bad.append(f"{mode}: service {m['service']}")
+        tiers = [r["modes"][mode]["tiers"] for r in res]
+        t0_ = tiers[0]
+        if not (t0_["replies_ok"] and all(t0_["equal_solo"])
+                and set(t0_["tier_of"]) == {0, 1}
+                and all(min(t["plan_calls"]) > 0 for t in tiers)
+                and all(t["plan_calls"] == t0_["plan_calls"]
+                        and t["refuses_clients"] for t in tiers[1:])):
+            bad.append(f"{mode}: tiers {tiers}")
+        emit({"phase": "parallel_llm_tiers", "tp_mode": mode,
+              **_rank_lines(res), "tiers": cfg["tiers"],
+              "requests": cfg["tier_requests"], "per_rank": tiers,
+              "tok_s_served": t0_["new_tokens"] / t0_["served_s"],
+              "one_pool_tok_s": (m["service"]["new_tokens"]
+                                 / m["service"]["served_s"])
+              if "service" in m else None})
         emit({"phase": "parallel_llm", "tp_mode": mode, **_rank_lines(res),
               "model": llama, "compute": "bfloat16", "quant": "int8w",
               "mesh": {"model": r0["world"]},
@@ -7597,19 +7704,280 @@ def parallel_rehearsal(device, with_multiproc: bool = True) -> dict:
     parallel_llm_phase(device, kernels, cfg=dict(
         PAR_LLM, prompts=2, prompt_len=5, new=4, block=2,
         service_requests=4, service_prompts=(2, 6), service_new=(2, 5),
-        window=32, onoff_lens=(40, 30), fp32_seq=32, fp32_steps=4),
+        window=32, onoff_lens=(40, 30), fp32_seq=32, fp32_steps=4,
+        tiers=((2, 12), (2, None)), tier_requests=4, tier_prompts=(2, 10),
+        tier_new=(2, 8)),
         llama=dict(variant="nano", seq_len=64, vocab_size=128, seed=0))
     if with_multiproc:
         multiproc_phase(device)
     return kernels
 
 
-PHASES = ("yolo", "host_native", "detect_v5", "detect_v8", "engine_warmup",
-          "segment", "serving", "serving_http", "yolo_int8", "conv_kernels",
-          "resnet_int8", "llama_kernels", "llama_service", "llama_onoff",
-          "llama_fp32", "gpt2", "llama_swa", "attn_variants", "gen_http",
-          "speculative", "hf_llama", "hf_gpt2", "torch_export", "zoo_rest",
-          "compat", "parallel_cnn", "parallel_llm", "multiproc")
+# ---- tooling: profiling.py, the CLI's roofline / profile / export, the
+# torch.export artifact --------------------------------------------------
+# YOLOv5s-640-b8's FLOPs, the JAX package's own count (70 ops, 15.70
+# GFLOP an image): the port's Program must print the same
+YOLO_GFLOP_B8 = "125.62 GFLOP/batch8"
+# the profile's device time a forward against measure_device_time's
+PROFILE_TOL = 0.20
+# the reloaded artifact against Engine.run, over max(1, |ref|)
+EXPORT_TOL = 1e-4
+TOOLING_SLICES = 8
+
+# the fresh process that reloads an artifact (argv: artifact, input
+# .npz, output .npz): load_exported only, no builder, no IR; one call,
+# then the launch counters over a second, then the host time of 5 more
+ARTIFACT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+from simpleinfer_tpu_torch import load_exported
+from simpleinfer_tpu_torch.kernels import c3block as kc3, matmul as kmm
+t1 = time.perf_counter()
+fn = load_exported(sys.argv[1])
+t2 = time.perf_counter()
+with np.load(sys.argv[2]) as z:
+    feeds = {k: z[k] for k in z.files}
+out = fn(feeds)
+t3 = time.perf_counter()
+kmm.launches = kmm.launches_s8s8 = kc3.launches = 0
+out = fn(feeds)
+launches = {"matmul_int8w": kmm.launches, "matmul_s8s8": kmm.launches_s8s8,
+            "c3_block": kc3.launches}
+t4 = time.perf_counter()
+for _ in range(5):
+    fn(feeds)
+t5 = time.perf_counter()
+np.savez(sys.argv[3], **out)
+bad = [m for m in sys.modules if m.startswith(
+    ("simpleinfer_tpu_torch.zoo", "jax", "simpleinfer_tpu."))]
+assert not bad, bad
+print(json.dumps({"import_s": t1 - t0, "load_s": t2 - t1,
+                  "first_call_s": t3 - t2, "call_s": (t5 - t4) / 5,
+                  "launches": launches}))
+"""
+
+
+def artifact_roundtrip(engine, feeds: dict, outdir, name) -> dict:
+    """Engine.export_model of `engine` (its declared batch), the artifact
+    reloaded by ARTIFACT_CHILD in a fresh process on the same card, its
+    outputs against Engine.run on the same float32 feeds (over max(1,
+    |ref|)): export, reload and first-call seconds, the child's launch
+    counts of one call, the artifact's size."""
+    path = os.path.join(outdir, f"{name}.pt2")
+    want = engine.run(feeds)
+    t = time.perf_counter()
+    engine.export_model(path)
+    export_s = time.perf_counter() - t
+    np.savez(os.path.join(outdir, f"{name}_in.npz"), **feeds)
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, path,
+         os.path.join(outdir, f"{name}_in.npz"),
+         os.path.join(outdir, f"{name}_out.npz")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"artifact reload failed:\n{r.stderr[-3000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    worst = 0.0
+    with np.load(os.path.join(outdir, f"{name}_out.npz")) as got:
+        for k, w in want.items():
+            g = got[k]
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"artifact output {k}: {g.shape}")
+            worst = max(worst, float(np.abs(g - w).max())
+                        / max(1.0, float(np.abs(w).max())))
+    return {"export_s": export_s, "child_wall_s": time.perf_counter() - t,
+            **child, "max_abs_over_scale": worst, "tol": EXPORT_TOL,
+            "artifact_bytes": os.path.getsize(path)}
+
+
+def cli_commands(device, outdir, variant="s", batch=8, image=640):
+    """The CLI's roofline, profile and export once each, each in its own
+    subprocess, started together, on a YOLOv5s written by Graph.save
+    (unfused). Returns a function that waits for them and checks that
+    roofline printed YOLO_GFLOP_B8, profile a table of the card's
+    kernels with si:matmul among them, and export its artifact."""
+    from simpleinfer_tpu_torch.zoo import build_yolov5
+
+    g, _, _ = build_yolov5(variant, batch=batch, image_size=image)
+    param = os.path.join(outdir, "y.pnnx.param")
+    binf = os.path.join(outdir, "y.pnnx.bin")
+    g.save(param, binf)
+    dev = ["--device", str(device)]
+    cmds = {
+        "roofline": ["roofline", param, binf, "--batch", str(batch),
+                     "--top", "5"],
+        "profile": ["profile", param, binf, "--quant", "int8w", "--iters",
+                    "3", "--top", "8"],
+        "export": ["export", param, binf, "--quant", "int8w", "-o",
+                   os.path.join(outdir, "cli.pt2")]}
+    t = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "simpleinfer_tpu_torch", *a, *dev],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, a in cmds.items()}
+
+    def wait() -> dict:
+        outs = {}
+        try:
+            for k, p in procs.items():
+                so, se = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"CLI {k} failed:\n{se[-3000:]}")
+                outs[k] = so.strip().splitlines()
+        finally:
+            for p in procs.values():
+                p.kill()
+        if YOLO_GFLOP_B8 not in outs["roofline"][0]:
+            raise AssertionError(f"CLI roofline: {outs['roofline'][0]}")
+        if not any("si:matmul" in ln for ln in outs["profile"]):
+            raise AssertionError(f"CLI profile: {outs['profile']}")
+        if not outs["export"][-1].startswith("wrote "):
+            raise AssertionError(f"CLI export: {outs['export']}")
+        return {"seconds_together": time.perf_counter() - t,
+                "roofline": outs["roofline"][0], "profile": outs["profile"],
+                "export": outs["export"][-1]}
+    return wait
+
+
+def tooling_phase(device, kernels: dict, engine, shape_counts: dict,
+                  batch=8) -> dict:
+    """`tooling` on the yolo phase's YOLOv5s-640-b8 bf16 int8w engine:
+    the roofline (YOLO_GFLOP_B8, the speed-of-light against the measured
+    forward); the forward's time by CUDA events back to back
+    (forward_times: the host's pace) and by measure_device_time (events
+    behind a spin that holds the card while the host queues the
+    forwards: the card's own pace); device_profile of the forward (its
+    kernels, matmul_int8w's share and GFLOP/s, the total within
+    PROFILE_TOL of measure_device_time's); attribute_slices in
+    TOOLING_SLICES segments;
+    the CLI's three commands; the artifact reloaded in a fresh process
+    (artifact_roundtrip: within EXPORT_TOL of Engine.run, 22
+    matmul_int8w launches a call); chip_speed_factor."""
+    import tempfile
+
+    from simpleinfer_tpu_torch import profiling as prof
+
+    t0 = time.perf_counter()
+    eng, in_name, _out_name, _graph = engine
+    program = eng.program
+    table = prof.summarize_roofline(program, batch=batch, top=8)
+    sol_ms = sum(c.min_time_us() for c in prof.roofline_report(
+        program, batch)) / 1e3
+    if YOLO_GFLOP_B8 not in table.splitlines()[0]:
+        raise AssertionError(f"roofline: {table.splitlines()[0]}")
+    x = (np.random.default_rng(123).integers(
+        0, 256, (batch, 640, 640, 3)).astype(np.float32) / 255.0)
+    feeds = {in_name: x}
+    events = forward_times(eng, feeds)
+    device_ms = prof.measure_device_time(eng.forward, iters=10,
+                                       device=device) * 1e3
+    emit({"phase": "tooling_roofline", "model": "yolov5s", "batch": batch,
+          "flops_per_item": program.flops_per_item,
+          "gflop_per_batch": program.flops_per_item * batch / 1e9,
+          "spec": prof.H100.__dict__, "speed_of_light_ms": sol_ms,
+          "forward_ms_events_back_to_back": events["median_ms"],
+          "forward_ms_measure_device_time": device_ms,
+          "achieved_tflops": program.flops_per_item * batch
+          / device_ms / 1e9, "sol_share": sol_ms / device_ms,
+          "table": table.splitlines(), "card": CARD})
+    iters = 3
+    mm_flops = sum(2 * m * k * n * c for (m, k, n), c in
+                   shape_counts.items())
+    captured: dict = {}
+    rows = prof.device_profile(eng.forward, iters=iters, device=device,
+                               flops={"si:matmul": mm_flops * iters},
+                               info=captured)
+    prof_ms = sum(r["total_self_time"] for r in rows) / 1e3 / iters
+    mm = [r for r in rows if r["category"] == "si:matmul"]
+    mm_ms = sum(r["total_self_time"] for r in mm) / 1e3 / iters
+    mm_launches = sum(r["occurrences"] for r in mm) / iters
+    gap = abs(prof_ms - device_ms) / device_ms
+    emit({"phase": "tooling_device_profile", "iters": iters,
+          "device_ms_per_forward": prof_ms,
+          "forward_ms_measure_device_time": device_ms,
+          "vs_measure_device_time": gap, "tol": PROFILE_TOL,
+          "busy_share_back_to_back": prof_ms / events["median_ms"],
+          "matmul_int8w_ms_per_forward": mm_ms,
+          "matmul_int8w_share": mm_ms / prof_ms,
+          "matmul_int8w_launches_per_forward": mm_launches,
+          "captures": captured["captures"],
+          "hand_launches_by_capture": captured["launches"],
+          "matmul_int8w_gflop_s": mm_flops / (mm_ms * 1e6),
+          "table": prof.format_kernel_stats(rows, top=12,
+                                            iters=iters).splitlines(),
+          "card": CARD})
+    if gap > PROFILE_TOL or mm_launches != YOLOV5S_POINTWISE:
+        raise AssertionError(f"device profile {prof_ms} ms a forward, "
+                             f"measure_device_time {device_ms} ms; "
+                             f"{mm_launches} "
+                             f"matmul_int8w launches a forward")
+    segs = prof.attribute_slices(program, eng._device_weights, eng._staged,
+                                 n_slices=TOOLING_SLICES, iters=5,
+                                 verbose=False)
+    total = sum(s[2] for s in segs)
+    emit({"phase": "tooling_attribute_slices", "segments": [
+        {"ops": f"{s[1][0]}..{s[1][-1]}", "n_ops": len(s[1]),
+         "ms": s[2] * 1e3, "gflop": s[3] * batch / 1e9,
+         "share": s[2] / total} for s in segs],
+        "sum_ms": total * 1e3, "forward_ms_measure_device_time": device_ms,
+        "card": CARD})
+    outdir = tempfile.mkdtemp(prefix="si_tooling_")
+    try:
+        # the CLI's three processes run beside the export and its reload
+        # (the script's time): the reload's seconds are read under them
+        cli = cli_commands(device, outdir, batch=batch)
+        art = artifact_roundtrip(eng, feeds, outdir, "yolov5s")
+        emit({"phase": "tooling_cli", **cli()})
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    emit({"phase": "tooling_export", "model": "yolov5s", "batch": batch,
+          "quant": "int8w", "beside_the_cli": True, **art, "card": CARD})
+    if art["max_abs_over_scale"] > EXPORT_TOL or \
+            art["launches"]["matmul_int8w"] != YOLOV5S_POINTWISE:
+        raise AssertionError(f"artifact: {art}")
+    factor = prof.chip_speed_factor()
+    emit({"phase": "tooling_chip_speed", "factor": factor,
+          "ref_gemm_tflops": factor * prof._REF_HEALTHY_TFLOPS,
+          "healthy_tflops": prof._REF_HEALTHY_TFLOPS, "card": CARD})
+    if "matmul_int8w" in kernels:     # the yolo phase's entry
+        kernels["matmul_int8w"]["artifact_launches_per_forward"] = \
+            art["launches"]["matmul_int8w"]
+    emit({"phase": "tooling_done", "seconds": time.perf_counter() - t0})
+    return {"art": art, "factor": factor}
+
+
+def tooling_rehearsal(device, image=32, batch=1) -> dict:
+    """The tooling phase's export and reload, roofline and slices at a
+    tiny size on `device` (the CPU tests: no timing, no profile)."""
+    import tempfile
+
+    from simpleinfer_tpu_torch import profiling as prof
+
+    eng, in_name, _o, _g = yolo_engine(device, batch, image, "float32", True)
+    x = np.random.default_rng(1).standard_normal(
+        (batch, image, image, 3)).astype(np.float32)
+    eng.input(in_name, x)
+    segs = prof.attribute_slices(eng.program, eng._device_weights,
+                                 eng._staged, n_slices=TOOLING_SLICES,
+                                 iters=1, verbose=False)
+    outdir = tempfile.mkdtemp(prefix="si_tooling_")
+    try:
+        art = artifact_roundtrip(eng, {in_name: x}, outdir, "y")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return {"table": prof.summarize_roofline(eng.program, batch=batch),
+            "segments": segs, "art": art}
+
+
+PHASES = ("yolo", "tooling", "host_native", "detect_v5", "detect_v8",
+          "engine_warmup", "segment", "serving", "serving_http",
+          "yolo_int8", "conv_kernels", "resnet_int8", "llama_kernels",
+          "llama_service", "llama_onoff", "llama_fp32", "gpt2", "llama_swa",
+          "attn_variants", "gen_http", "speculative", "hf_llama", "hf_gpt2",
+          "torch_export", "zoo_rest", "compat", "parallel_cnn",
+          "parallel_llm", "multiproc")
 
 
 def main(argv=None) -> int:
@@ -7618,7 +7986,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (the default runs all; a subset prints no ok line)")
+                    + " (the default runs all; a subset prints no ok "
+                    "line)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(HERE, "simpleinfer_tpu_torch")):
@@ -7643,9 +8012,8 @@ def main(argv=None) -> int:
         emit({"phase": "elapsed", "after": name,
               "seconds": round(time.perf_counter() - t0, 1)})
 
-    if "yolo" in phases:
+    if {"yolo", "tooling"} & set(phases):
         on = yolo_engine(device, 8, 640, "bfloat16", True)
-        off = yolo_engine(device, 8, 640, "bfloat16", False)
         rng = np.random.default_rng(123)
         warm = rng.integers(0, 256, (8, 640, 640, 3), dtype=np.uint8)
         from simpleinfer_tpu_torch.kernels import matmul as kmm
@@ -7658,12 +8026,14 @@ def main(argv=None) -> int:
                 ) as rec:
             on[0].run({on[1]: warm})
         shape_counts = rec.count("matmul_int8w")
+    if "yolo" in phases:
+        off = yolo_engine(device, 8, 640, "bfloat16", False)
         emit({"phase": "main_path_shapes", "shapes": [
             [*k, c] for k, c in sorted(shape_counts.items())]})
         max_err = kernel_vs_plain(device, list(shape_counts))
         totals = time_kernels(device, shape_counts)
         main = main_path(device, engines=(on, off))
-        del on, off
+        del off
         fp32_card_vs_cpu(device)
         t = totals["matmul_int8w"]
         kernels["matmul_int8w"] = {
@@ -7679,8 +8049,14 @@ def main(argv=None) -> int:
             "matmul_dense": {k: totals["matmul"][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
         torch.cuda.empty_cache()
-
     mark("yolo")
+    if "tooling" in phases:
+        # on the yolo phase's engine: no other is built
+        tooling_phase(device, kernels, on, shape_counts)
+        mark("tooling")
+    if {"yolo", "tooling"} & set(phases):
+        del on
+        torch.cuda.empty_cache()
     if "host_native" in phases:
         host_native_phase()
     if {"detect_v5", "detect_v8"} & set(phases):
@@ -7728,8 +8104,8 @@ def main(argv=None) -> int:
         llama_kernel_checks(device)
         flash_gate_sweep(device)
     llama = None      # the llama "base" engine, kept for gen_http etc.
-    if {"llama_service", "llama_onoff", "gen_http", "speculative"} & \
-            set(phases):
+    if {"llama_service", "llama_onoff", "gen_http", "speculative",
+            "tooling"} & set(phases):
         from simpleinfer_tpu_torch.zoo import build_llama
 
         t_build = time.perf_counter()
@@ -7773,6 +8149,10 @@ def main(argv=None) -> int:
             kernels["matmul_int4w"]["prefill"] = {
                 u: p[u] for u in ("ms", "plain_ms", "library_ms", "bound_ms",
                                   "bound_by", "launches_per_wave")}
+        if "tooling" in phases:
+            # the tooling phase's decode-step profile, every row at 1024
+            decode_step_profile(eng, device, [1024] * SERVICE["slots"],
+                                phase="tooling_llama_decode_step")
         if "llama_onoff" in phases:
             off, _, _ = llama_engine(device, use_kernels=False, graph=graph)
             ref, _, _ = llama_engine(device, compute="float32", graph=graph)

@@ -38,7 +38,8 @@ model sharding in the Engine's walk, tensor-parallel decode behind
 GenerationService, and parallel/ (mesh, multihost, tp, multiproc).
 """
 from .config import EngineConfig, MeshConfig
-from .engine import Engine, EngineStateError, initialize_context
+from .engine import (Engine, EngineStateError, initialize_context,
+                     load_exported)
 from .executor import Program, build_program
 from .ir.graph import Graph
 from .tensor import DataType, Status, Tensor
@@ -55,4 +56,5 @@ __all__ = [
     "Tensor",
     "build_program",
     "initialize_context",
+    "load_exported",
 ]

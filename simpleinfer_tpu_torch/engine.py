@@ -10,12 +10,15 @@ The counterpart of simpleinfer_tpu/engine.py, with the same surface:
     Engine.forward()
     Engine.extract(name)
     Engine.run(**inputs)
-    Engine.synchronize()           (the block_until_ready counterpart)
+    Engine.synchronize()           (also as block_until_ready, the JAX
+                                    name)
     Engine.warmup(batch_sizes)     (one forward per batch size, ahead)
     Engine.temp_bytes(batch_size)  (a forward's peak memory above what
                                     was allocated before it; None on CPU)
     Engine.calibrate(batches)      (static int8: activation scales)
     Engine.save_calibration(path) / load_calibration(path)
+    Engine.export_model(path, batch) (one torch.export .pt2 file with
+                                    the weights inside; load_exported)
 
 Execution model: `load_model` lowers the pnnx graph once
 (executor.build_program) and places the weights on the engine's device
@@ -36,6 +39,7 @@ exactly mesh.num_devices ranks.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import time
 from typing import Optional
@@ -149,9 +153,15 @@ class Engine:
             self._walk = ShardedWalk(program, mesh, self._shardings)
         self._device_weights = self.place_weights(program.weights, program)
         self._program = program
-        logger.info("loaded model %s: %d ops on %s, %.0f ms", parampath,
-                    len(program.impls), self.device,
-                    (time.perf_counter() - t0) * 1e3)
+        if logger.isEnabledFor(logging.INFO):
+            # the FLOP count walks the op shapes (Program.op_output_shapes):
+            # only when the line is written
+            flops = program.flops_per_item
+            logger.info("loaded model %s: %d ops on %s, %s MFLOP/item, "
+                        "%.0f ms", parampath, len(program.impls),
+                        self.device, "unknown" if flops is None
+                        else f"{flops / 1e6:.1f}",
+                        (time.perf_counter() - t0) * 1e3)
         return self
 
     def release(self) -> None:
@@ -535,6 +545,58 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    block_until_ready = synchronize
+
+    def export_model(self, path: str, batch: Optional[int] = None) -> None:
+        """Write the forward as one self-contained torch.export artifact
+        (.pt2): the weights inside as the program's buffers (quantized
+        tensors as their int8 data, nibbles and f32 scales), the port's
+        kernels as their custom ops (torch.ops.simpleinfer.*), loadable
+        by `load_exported` in a process that never sees the pnnx sources
+        or this engine's config.
+
+        The artifact takes float32 inputs in the engine's io layout
+        (NHWC by default) at the declared shapes, `batch` overriding the
+        leading dim; it casts them to the compute dtype, and its outputs
+        come back in their logical shapes. The compute dtype, the io
+        layout and the device are recorded beside the graph: TF32 is
+        process state, not part of the graph, so load_exported runs an
+        fp32 artifact under fp32_parity, and a card artifact never runs
+        on the CPU."""
+        self._require_loaded()
+        if self._mesh is not None:
+            raise EngineStateError(
+                "export_model requires a single-device engine: a mesh "
+                "engine's weights are this rank's shards. Load the model "
+                "without a mesh for export; apply the mesh in the serving "
+                "engine instead.")
+        io_nchw = self.config.io_layout == "nchw"
+        feeds = {}
+        for s in self._program.inputs:
+            if not s.shape:
+                raise EngineStateError(
+                    f"export needs a declared shape for input {s.name!r}")
+            lead = batch if batch is not None else (
+                1 if s.shape[0] == -1 else s.shape[0])
+            shape = [lead, *s.shape[1:]]     # program specs are NHWC
+            if io_nchw and len(shape) == 4:
+                shape = [shape[0], shape[3], shape[1], shape[2]]
+            feeds[s.name] = torch.zeros(shape, dtype=torch.float32,
+                                        device=self.device)
+        module = _ExportedForward(self._program, self._device_weights,
+                                  self.config.compute_torch_dtype, io_nchw)
+        fp32 = self.config.compute_torch_dtype == torch.float32
+        with torch.no_grad(), fp32_parity(fp32):
+            ep = torch.export.export(module, (feeds,), strict=False)
+        ep.example_inputs = None      # not kept: the zeros of every input
+        meta = {"compute_dtype": self.config.compute_dtype,
+                "io_layout": self.config.io_layout,
+                "device": self.device.type}
+        torch.export.save(ep, path,
+                          extra_files={_EXPORT_META: json.dumps(meta)})
+        logger.info("exported %d-input torch.export artifact to %s",
+                    len(feeds), path)
+
     def extract(self, name: str, as_numpy: bool = True):
         """Fetch a named output of the last forward(). As numpy, bf16
         outputs come back as float32 (numpy has no bfloat16)."""
@@ -612,3 +674,99 @@ class Engine:
         if isinstance(w, Quantized4Tensor):
             raise ValueError("int4w weights carry no shard layout")
         return pmesh.shard_of(w, spec, self._mesh)
+
+
+# the artifact's record of what the graph does not hold (export_model)
+_EXPORT_META = "simpleinfer.json"
+
+
+class _ExportedForward(torch.nn.Module):
+    """The program's forward as a module for torch.export: every weight
+    tensor a buffer (a QuantizedTensor or Quantized4Tensor one buffer
+    per tensor, its axis / group / K kept here), the weight tree rebuilt
+    from them at each call; inputs cast to the compute dtype, rank-4
+    ones permuted from NCHW under io_layout="nchw", and outputs back."""
+
+    def __init__(self, program: Program, weights: dict, dtype, io_nchw):
+        super().__init__()
+        self.program, self.dtype, self.io_nchw = program, dtype, io_nchw
+        self.tree = {}
+
+        def buf(t):
+            name = f"w{len(self._buffers)}"
+            # an inference tensor cannot be a constant of every tracer
+            self.register_buffer(name, t.clone() if t.is_inference()
+                                 else t)
+            return name
+
+        for op, wd in weights.items():
+            self.tree[op] = {}
+            for k, w in wd.items():
+                if isinstance(w, QuantizedTensor):
+                    ref = ("q8", buf(w.data), buf(w.scale), w.axis)
+                elif isinstance(w, Quantized4Tensor):
+                    ref = ("q4", buf(w.packed), buf(w.scale), w.group, w.k)
+                elif isinstance(w, torch.Tensor):
+                    ref = ("t", buf(w))
+                else:
+                    ref = ("v", w)
+                self.tree[op][k] = ref
+
+    def _weights(self) -> dict:
+        def get(ref):
+            kind, *a = ref
+            if kind == "q8":
+                return QuantizedTensor(data=getattr(self, a[0]),
+                                       scale=getattr(self, a[1]), axis=a[2])
+            if kind == "q4":
+                return Quantized4Tensor(packed=getattr(self, a[0]),
+                                        scale=getattr(self, a[1]),
+                                        group=a[2], k=a[3])
+            return getattr(self, a[0]) if kind == "t" else a[0]
+
+        return {op: {k: get(r) for k, r in wd.items()}
+                for op, wd in self.tree.items()}
+
+    def forward(self, inputs: dict) -> dict:
+        token = {s.name for s in self.program.inputs if s.token}
+        staged = {}
+        for k, v in inputs.items():
+            v = v if k in token else v.to(self.dtype)
+            if self.io_nchw and v.ndim == 4:
+                v = v.permute(0, 2, 3, 1)
+            staged[k] = v.contiguous()
+        out = self.program.fn(self._weights(), staged)
+        if self.io_nchw:
+            out = {k: v.permute(0, 3, 1, 2) if v.ndim == 4 else v
+                   for k, v in out.items()}
+        return {k: v.contiguous() for k, v in out.items()}
+
+
+def load_exported(path: str):
+    """Load an artifact written by Engine.export_model.
+
+    Returns fn(inputs: dict[str, array]) -> dict[str, np.ndarray]: the
+    forward with its weights inside, on the device it was exported on
+    (resolve_device: a card artifact raises without a card), float32
+    inputs in the exporting engine's io layout, outputs as float32
+    numpy arrays. The loading process needs neither the pnnx sources
+    nor the exporting engine's config; importing this package registers
+    the kernels' custom ops, and each kernel library builds at its
+    first launch as in an engine."""
+    from .kernels import attention, c3block, matmul  # noqa: F401 (ops)
+
+    extra = {_EXPORT_META: ""}
+    ep = torch.export.load(path, extra_files=extra)
+    meta = json.loads(extra[_EXPORT_META])
+    device = resolve_device(meta["device"])
+    module = ep.module()
+    fp32 = meta["compute_dtype"] == "float32"
+
+    def call(inputs: dict) -> dict:
+        feeds = {k: torch.as_tensor(np.asarray(v, np.float32)).to(device)
+                 for k, v in inputs.items()}
+        with torch.no_grad(), fp32_parity(fp32):
+            out = module(feeds)
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    return call

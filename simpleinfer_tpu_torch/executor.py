@@ -22,6 +22,8 @@ here (parallel/mesh.py, parallel/tp.py).
 from __future__ import annotations
 
 import copy
+import logging
+import math
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -80,6 +82,45 @@ class Program:
     # op name -> how the op runs on height-sharded activations (the
     # `spatial` mesh axis; `spatial_rule`)
     spatial: dict = field(default_factory=dict)
+    # what op_output_shapes walks at its first read: the batch given to
+    # every input (a data-sharded rank's rows; None: each input's
+    # declared dims, a dynamic one taken as 1) and the items it holds
+    walk_batch: Optional[int] = None
+    walk_items: int = 1
+    _shapes: object = field(default=None, init=False, repr=False,
+                            compare=False)
+
+    @property
+    def op_output_shapes(self) -> Optional[dict]:
+        """op name -> the op's inferred output shapes (NHWC) at the
+        declared input shapes (_infer_op_shapes), walked at the first
+        read and kept: a load that never asks pays nothing. None when an
+        input's shape is undeclared or an op cannot run on fake
+        tensors."""
+        if self._shapes is None:
+            self._shapes = (_infer_op_shapes(self.plan, self.inputs,
+                                             self.walk_batch),)
+        return self._shapes[0]
+
+    @property
+    def flops_per_item(self) -> Optional[int]:
+        """Forward FLOPs of one batch item (roofline), the sum of
+        op_flops; None when op_output_shapes is, never a partial
+        count."""
+        if self.op_output_shapes is None:
+            return None
+        return sum(self.op_flops(impl) for impl in self.impls)
+
+    def op_flops(self, impl: OpImpl) -> int:
+        """impl's FLOPs for one batch item, from its inferred shapes;
+        raises when there are none (op_output_shapes is None)."""
+        shapes = self.op_output_shapes
+        if shapes is None:
+            raise ValueError(
+                "no FLOP count: the op shapes are unknown (an input's shape "
+                "is undeclared, or an op could not run on fake tensors; "
+                "see the warning at the first read)")
+        return _estimate_flops(impl, shapes[impl.name], self.walk_items)
 
     @property
     def input_names(self) -> list:
@@ -149,6 +190,64 @@ def _spec_for(operand: Operand) -> TensorSpec:
                       token=bool(operand.consumers) and all(
                           op.type == "nn.Embedding"
                           for op in operand.consumers))
+
+
+def _infer_op_shapes(plan: list, input_specs: list,
+                     batch: Optional[int] = None) -> Optional[dict]:
+    """Every op's output shapes, from a walk of the plan on fake tensors
+    (torch's FakeTensorMode: shapes and dtypes, no storage, no FLOPs
+    spent) at the declared input shapes, a dynamic dim taken as 1 and
+    the batch as `batch` where given (a data-sharded rank's rows): the
+    counterpart of the JAX package's jax.eval_shape walk. The kernel
+    wrappers see fake tensors and answer from their custom ops' fake
+    implementations (kernels/__init__.py), so nothing launches. Returns
+    None when an input's shape is undeclared, or when an op cannot run
+    on fake tensors (one that reads its input's values on the host; a
+    warning names it): no FLOP count is then better than a partial
+    one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if any(not s.shape for s in input_specs):
+        return None
+    shapes: dict = {}
+    with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
+        env = {}
+        for s in input_specs:
+            shape = [1 if d == -1 else int(d) for d in s.shape]
+            if batch is not None:
+                shape[0] = batch
+            env[s.name] = torch.empty(shape, dtype=torch.float32)
+        for impl, in_names, out_names in plan:
+            try:
+                # a copy: nothing the op might keep reaches its weights
+                out = impl.apply(dict(impl.weights),
+                                 *[env[n] for n in in_names])
+            except (RuntimeError, TypeError, ValueError,
+                    NotImplementedError) as e:
+                logging.getLogger("simpleinfer_tpu_torch").warning(
+                    "shape inference stopped at op %r (%s), so the program "
+                    "has no FLOP count: %s", impl.name, impl.type, e)
+                return None
+            outs = [out] if impl.n_outputs == 1 else list(out)
+            for n, o in zip(out_names, outs):
+                env[n] = o
+            shapes[impl.name] = [list(_data_of(o).shape) for o in outs]
+    return shapes
+
+
+def _estimate_flops(impl: OpImpl, out_shapes: list, items: int = 1) -> int:
+    """An op's FLOPs for one batch item, from its output shapes at
+    `items` batch items: flops_per_pixel times its first output's H*W
+    where that output is rank 4; flops_per_element times its first
+    output's elements an item (nn.Linear: every row, a token or a
+    pixel); else flops_per_item."""
+    if impl.flops_per_pixel and out_shapes:
+        s = out_shapes[0]
+        if len(s) == 4:
+            return impl.flops_per_pixel * int(s[1]) * int(s[2])
+    if impl.flops_per_element and out_shapes:
+        return impl.flops_per_element * math.prod(out_shapes[0]) // items
+    return impl.flops_per_item
 
 
 # ---- the spatial axis: how each op runs on height-sharded activations ---
@@ -295,6 +394,9 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
                      [r.name for r in op.outputs]))
 
     output_names = [r.name for r in output_operands]
+    input_specs = [_spec_for(r) for r in input_operands]
+    walk_batch = (batch // data if data > 1 and batch is not None
+                  and batch % data == 0 else None)
 
     def fn(weights, inputs):
         env = dict(inputs)
@@ -315,7 +417,7 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
         return {n: env[n] for n in output_names}
 
     return Program(
-        inputs=[_spec_for(r) for r in input_operands],
+        inputs=input_specs,
         outputs=[_spec_for(r) for r in output_operands],
         impls=impls,
         weights=weights,
@@ -323,6 +425,8 @@ def build_program(graph: Graph, cfg: Optional[EngineConfig] = None) -> Program:
         plan=plan,
         fp_weights=fp_weights,
         spatial=spatial,
+        walk_batch=walk_batch,
+        walk_items=walk_batch or batch or 1,
     )
 
 

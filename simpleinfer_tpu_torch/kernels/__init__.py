@@ -16,4 +16,23 @@ runs its plain PyTorch version for CPU tensors and launches its kernel
 
 The submodules are not re-exported by function name, so
 `kernels.matmul` stays the module (its `launches` counters live there).
+
+The six entry points `Engine.forward` can reach (`matmul`,
+`matmul_int8w`, `matmul_int4w`, `matmul_s8s8`, `flash_attention`,
+`c3_block`) are also custom ops in the `simpleinfer` namespace
+(`torch.ops.simpleinfer.*`): the CUDA implementation is the wrapper's
+launch, the CPU one its plain version, the fake one the output's shape
+and dtype. A wrapper goes through its op only while it is traced
+(`tracing`: torch.export, the executor's FakeTensorMode walk), so that
+an exported graph records the op instead of tracing into ctypes, and an
+eager call keeps the direct launch, without the dispatcher's cost.
 """
+from __future__ import annotations
+
+from torch._subclasses.fake_tensor import FakeTensor
+
+
+def tracing(x) -> bool:
+    """Whether the wrapper's input is being traced, not computed: a fake
+    tensor (torch.export's non-strict tracing, a FakeTensorMode walk)."""
+    return isinstance(x, FakeTensor)

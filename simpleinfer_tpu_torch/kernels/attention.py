@@ -24,17 +24,20 @@ gate's Lk (`FLASH_BAND_MIN_LK`, with no limit on the band's width) were
 measured on the H100; the non-causal Lk (4096) and the Lq (256) are
 still the JAX package's TPU values.
 
-`launches` counts kernel launches.
+`launches` counts kernel launches. `flash_attention` is also the
+custom op `torch.ops.simpleinfer.flash_attention`, called while it is
+traced (kernels/__init__.py).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import os
+from typing import Optional
 
 import torch
 
-from . import build
+from . import build, tracing
 
 launches = 0
 
@@ -158,10 +161,17 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (128 queries x 64 keys a tile, P rounded to bf16 for P·V, as the TPU
     body does) and take scale > 0; f32 inputs keep P in f32.
     """
-    global launches
     sliding_window = _check_args(q, k, causal, sliding_window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if tracing(q):
+        return torch.ops.simpleinfer.flash_attention(
+            q, k, v, causal, float(scale), sliding_window)
+    return _flash_attention(q, k, v, causal, scale, sliding_window)
+
+
+def _flash_attention(q, k, v, causal, scale, sliding_window):
+    global launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    sliding_window=sliding_window)
@@ -210,3 +220,18 @@ def flash_attention(q, k, v, *, causal: bool = False,
                            f"D={d})")
     launches += 1
     return out[0] if rank3 else out
+
+
+@torch.library.custom_op("simpleinfer::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float,
+                        sliding_window: Optional[int]) -> torch.Tensor:
+    return _flash_attention(q, k, v, causal, scale, sliding_window)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, scale, sliding_window):
+    if q.ndim == 3:
+        return q.new_empty(q.shape)
+    b, h, lq, d = q.shape       # [B, L, H, D] under the [B, H, L, D] view
+    return q.new_empty((b, lq, h, d)).permute(0, 2, 1, 3)

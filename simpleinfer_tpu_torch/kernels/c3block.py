@@ -22,7 +22,9 @@ for CUDA tensors it launches the kernel or raises. `launches` counts the
 calls that launched csrc/c3block.cu (one per block), `tc_launches` those
 of them that took the tensor-core route, and `weight_copies` the weight
 operands the wrapper had to convert or copy before a launch (none on a
-path whose weights were placed at x's dtype).
+path whose weights were placed at x's dtype). `c3_block` is also the
+custom op `torch.ops.simpleinfer.c3_block`, called while it is traced
+(kernels/__init__.py).
 
 The gates: `c3_supported` (channel widths and the JAX package's TPU
 VMEM fit) and `c3_taps_s8_profitable` (hid < 128) are the JAX
@@ -35,12 +37,13 @@ are the reference's numerics, not a speed gate.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, tracing
 from .matmul import _act_code, _DTYPE_CODES, resolve_activation
 
 # calls that launched csrc/c3block.cu since import (or since a reset),
@@ -200,6 +203,18 @@ def c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
     f32 or all bf16 (an engine places them at its compute dtype),
     btl_b_scale in f32; anything else is converted (counted in
     `weight_copies`). Returns [N, H, W, OC] in x.dtype."""
+    if tracing(x):
+        return torch.ops.simpleinfer.c3_block(
+            x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b, btl_a_w,
+            btl_a_b, btl_b_w, btl_b_b, btl_b_scale, activation, shortcut)
+    return _c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
+                     btl_a_w, btl_a_b, btl_b_w, btl_b_b, btl_b_scale,
+                     activation, shortcut)
+
+
+def _c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
+              btl_a_w, btl_a_b, btl_b_w, btl_b_b, btl_b_scale, activation,
+              shortcut):
     global launches, tc_launches, weight_copies
     if x.device.type == "cpu":
         return c3_block_reference(
@@ -284,3 +299,21 @@ def c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
     tc_launches += route.value == 1
     weight_copies += copies
     return out
+
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("simpleinfer::c3_block", mutates_args=())
+def _c3_block_op(x: _T, cv1_w: _T, cv1_b: _T, cv2_w: _T, cv2_b: _T,
+                 cv3_w1: _T, cv3_w2: _T, cv3_b: _T, btl_a_w: _T, btl_a_b: _T,
+                 btl_b_w: _T, btl_b_b: _T, btl_b_scale: Optional[_T],
+                 activation: Optional[str], shortcut: bool) -> _T:
+    return _c3_block(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, cv3_b,
+                     btl_a_w, btl_a_b, btl_b_w, btl_b_b, btl_b_scale,
+                     activation, shortcut)
+
+
+@_c3_block_op.register_fake
+def _(x, cv1_w, cv1_b, cv2_w, cv2_b, cv3_w1, cv3_w2, *rest):
+    return x.new_empty((*x.shape[:3], cv3_w1.shape[1]))

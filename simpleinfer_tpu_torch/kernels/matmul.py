@@ -34,6 +34,10 @@ those of csrc/matmul_s8s8.cu, so a run can show that its path went
 through each kernel; `transposes_s8s8` counts the row-major weights
 `matmul_s8s8` had to lay out K-major before its launch (none on a path
 whose engine placed its weights, Engine.place_weights).
+
+Each entry is also the custom op `torch.ops.simpleinfer.<name>`, which
+a wrapper calls only while it is traced (kernels/__init__.py); the
+int4 weight travels there as its packed nibbles, scales, group and K.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, tracing
 
 # kernel launches since import (or since a caller reset them to 0)
 launches = 0
@@ -259,6 +263,13 @@ def matmul(x, w, bias=None, activation: Optional[str] = None, *,
            out_dtype=None):
     """out = act(x[M,K] @ w[K,N] + bias[N]); f32 accumulation."""
     out_dtype = out_dtype or x.dtype
+    if tracing(x):
+        return torch.ops.simpleinfer.matmul(x, w, bias, activation,
+                                            out_dtype)
+    return _matmul(x, w, bias, activation, out_dtype)
+
+
+def _matmul(x, w, bias, activation, out_dtype):
     if x.device.type == "cpu":
         return matmul_ref(x, w, bias, activation, out_dtype)
     if w.dtype not in (torch.float32, torch.bfloat16):
@@ -272,6 +283,13 @@ def matmul_int8w(x, w_q, scale, bias=None, activation: Optional[str] = None,
     """out = act((x @ w_q) * scale + bias) with w_q int8 [K, N], scale
     f32 [N] — weight-only dequant fused into the epilogue."""
     out_dtype = out_dtype or x.dtype
+    if tracing(x):
+        return torch.ops.simpleinfer.matmul_int8w(x, w_q, scale, bias,
+                                                  activation, out_dtype)
+    return _matmul_int8w(x, w_q, scale, bias, activation, out_dtype)
+
+
+def _matmul_int8w(x, w_q, scale, bias, activation, out_dtype):
     if x.device.type == "cpu":
         return matmul_int8w_ref(x, w_q, scale, bias, activation, out_dtype)
     if w_q.dtype != torch.int8:
@@ -325,8 +343,16 @@ def matmul_int4w(x, wq4, bias=None, activation: Optional[str] = None, *,
     for M <= 16 K is split over `int4w_decode_splits` slices, one
     thread-block cluster, which sum their f32 partials in a fixed order
     through shared memory (reruns are bit-equal)."""
-    global launches_int4w
     out_dtype = out_dtype or x.dtype
+    if tracing(x):
+        return torch.ops.simpleinfer.matmul_int4w(
+            x, wq4.packed, wq4.scale, wq4.group, wq4.k, bias, activation,
+            out_dtype)
+    return _matmul_int4w(x, wq4, bias, activation, out_dtype)
+
+
+def _matmul_int4w(x, wq4, bias, activation, out_dtype):
+    global launches_int4w
     if x.device.type == "cpu":
         return matmul_int4w_ref(x, wq4, bias, activation, out_dtype)
     packed, scale = wq4.packed, wq4.scale
@@ -407,9 +433,16 @@ def matmul_s8s8(x_q, w_q, scale, bias=None, activation: Optional[str] = None,
     row-major w_q is copied so first (counted in `transposes_s8s8`). The
     TPU wrapper's block sizes are its VMEM tiles and have no counterpart
     here."""
-    global launches_s8s8, transposes_s8s8
     if not isinstance(scale, torch.Tensor):
         scale = torch.tensor(scale, dtype=torch.float32)
+    if tracing(x_q):
+        return torch.ops.simpleinfer.matmul_s8s8(x_q, w_q, scale, bias,
+                                                 activation, out_dtype)
+    return _matmul_s8s8(x_q, w_q, scale, bias, activation, out_dtype)
+
+
+def _matmul_s8s8(x_q, w_q, scale, bias, activation, out_dtype):
+    global launches_s8s8, transposes_s8s8
     if x_q.device.type == "cpu":
         return matmul_s8s8_ref(x_q, w_q, scale, bias, activation, out_dtype)
     if x_q.device.type != "cuda":
@@ -459,3 +492,54 @@ def matmul_s8s8(x_q, w_q, scale, bias=None, activation: Optional[str] = None,
                            f"{err} (M={m}, N={n}, K={k})")
     launches_s8s8 += 1
     return out
+
+
+# ---- the custom ops (torch.ops.simpleinfer.*), for traced calls --------
+# Each runs the wrapper's own body (the plain version for CPU tensors,
+# the launch for CUDA ones, which raises on failure); its fake
+# implementation gives the output's shape and dtype.
+_T, _OptT, _OptS = torch.Tensor, Optional[torch.Tensor], Optional[str]
+
+
+@torch.library.custom_op("simpleinfer::matmul", mutates_args=())
+def _matmul_op(x: _T, w: _T, bias: _OptT, activation: _OptS,
+               out_dtype: torch.dtype) -> _T:
+    return _matmul(x, w, bias, activation, out_dtype)
+
+
+@torch.library.custom_op("simpleinfer::matmul_int8w", mutates_args=())
+def _matmul_int8w_op(x: _T, w_q: _T, scale: _T, bias: _OptT,
+                     activation: _OptS, out_dtype: torch.dtype) -> _T:
+    return _matmul_int8w(x, w_q, scale, bias, activation, out_dtype)
+
+
+@torch.library.custom_op("simpleinfer::matmul_int4w", mutates_args=())
+def _matmul_int4w_op(x: _T, packed: _T, scale: _T, group: int, k: int,
+                     bias: _OptT, activation: _OptS,
+                     out_dtype: torch.dtype) -> _T:
+    from ..quant.tensor import Quantized4Tensor
+
+    return _matmul_int4w(x, Quantized4Tensor(packed=packed, scale=scale,
+                                             group=group, k=k),
+                         bias, activation, out_dtype)
+
+
+@torch.library.custom_op("simpleinfer::matmul_s8s8", mutates_args=())
+def _matmul_s8s8_op(x_q: _T, w_q: _T, scale: _T, bias: _OptT,
+                    activation: _OptS, out_dtype: torch.dtype) -> _T:
+    return _matmul_s8s8(x_q, w_q, scale, bias, activation, out_dtype)
+
+
+def _fake_mm(x, w, *rest):
+    out_dtype = rest[-1]
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)
+
+
+_matmul_op.register_fake(_fake_mm)
+_matmul_int8w_op.register_fake(_fake_mm)
+_matmul_s8s8_op.register_fake(_fake_mm)
+
+
+@_matmul_int4w_op.register_fake
+def _(x, packed, scale, group, k, bias, activation, out_dtype):
+    return x.new_empty((x.shape[0], packed.shape[1]), dtype=out_dtype)

@@ -424,11 +424,23 @@ def lower_multihead_attention(op, cfg):
 
     apply = make_apply(num_heads, 0, None)
 
+    # the JAX package's count, per token: the q, k, v and out projections
+    # and the two attention products over Lq keys
+    lq = None
+    if op.inputs and len(op.inputs[0].shape) >= 2:
+        s = op.inputs[0].shape
+        lq = s[1] if batch_first else s[0]
+    flops = 0
+    if lq and lq > 0:
+        flops = lq * (2 * embed_dim * (embed_dim + kdim + vdim + embed_dim)
+                      + 2 * 2 * lq * embed_dim)
+
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         n_outputs=n_declared,
         quantizable={"wq": 1, "wk": 1, "wv": 1, "wo": 1},
         shard_hints=dict(ATTN_SHARD_HINTS),
+        flops_per_item=flops,
         tp_apply=tp_apply,
         decode_info={"embed_dim": embed_dim, "num_heads": num_heads,
                      "batch_first": batch_first, "kdim": kdim,
@@ -582,10 +594,21 @@ def lower_rotary_attention(op, cfg):
 
     apply = make_apply(num_heads, num_kv, slopes, None)
 
+    # the JAX package's count, per token: the projections (GQA's k and v
+    # narrower) and the two attention products over L keys
+    lq = op.inputs[0].shape[1] if (op.inputs and
+                                   len(op.inputs[0].shape) == 3) else None
+    flops = 0
+    if lq and lq > 0:
+        flops = lq * (2 * embed_dim * d * (num_heads + 2 * num_kv
+                                           + num_heads)
+                      + 2 * 2 * lq * num_heads * d)
+
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"wq": 1, "wk": 1, "wv": 1, "wo": 1},
         shard_hints=dict(ATTN_SHARD_HINTS),
+        flops_per_item=flops,
         tp_apply=tp_apply,
         # qk-norm weights stay f32 (the rsqrt normalization is
         # precision-sensitive and the vectors are tiny)

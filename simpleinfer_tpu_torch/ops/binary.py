@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .registry import OpImpl, register_op, require_param
+from .registry import OpImpl, cached, register_op, require_param
 from ..ir.graph import PARAM_INT
 
 # ncnn BinaryOp op codes (expand_expression.cpp:190-200)
@@ -64,9 +64,8 @@ def lower_binary_op(op, cfg):
         consts: dict = {}
 
         def apply(weights, x, _fn=fn):
-            s = consts.get(x.dtype)
-            if s is None:
-                s = consts[x.dtype] = torch.tensor(scalar, dtype=x.dtype)
+            s = cached(consts, x.dtype,
+                       lambda: torch.tensor(scalar, dtype=x.dtype), x)
             return _fn(x, s)
     else:
         def apply(weights, a, b, _fn=fn):

@@ -181,6 +181,9 @@ def lower_fused_c3(op, cfg):
 
     return OpImpl(
         name=op.name, type=op.type, apply=apply, weights=weights,
+        # the five 1x1s and T 3x3s of the block, per output pixel
+        flops_per_pixel=2 * (2 * c_in * hid + n_btl * 10 * hid * hid
+                             + 2 * hid * oc),
         # dequant scales are precision-critical (and tiny)
         fp32_keys=("btl_b_wsc",),
     )

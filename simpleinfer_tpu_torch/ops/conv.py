@@ -388,6 +388,10 @@ def lower_conv2d(op, cfg):
         # the op's fixed `groups` cannot take, so it runs replicated
         shard_hints=({"weight": (None, None, None, "model"),
                       "bias": ("model",)} if groups == 1 else {}),
+        # FLOPs at batch 1: 2 * OH*OW * OC * (IC/g) * KH*KW; the
+        # executor multiplies the per-pixel term by OH*OW
+        flops_per_pixel=(2 * out_channels * (in_channels // groups)
+                         * kernel[0] * kernel[1]),
         fp32_keys=("act_scale", "out_scale"),  # quant scales stay f32
         act_quant=True,
         # per-channel act scales fold into HWIO axis 2 (input channels),

@@ -297,7 +297,9 @@ def lower_conv_transpose_2d(op, cfg):
     return OpImpl(name=op.name, type=op.type, apply=apply, weights=weights,
                   quantizable={"weight": 3},  # HWIO: oc on axis 3
                   shard_hints={"weight": (None, None, None, "model"),
-                               "bias": ("model",)})
+                               "bias": ("model",)},
+                  flops_per_pixel=(2 * in_channels * out_channels
+                                   * kernel[0] * kernel[1]))
 
 
 # ------------------------------------------------------------- constants

@@ -116,6 +116,10 @@ def lower_linear(op, cfg):
         name=op.name, type=op.type, apply=apply, weights=weights,
         quantizable={"weight": 1},  # [in, out]: out channels on axis 1
         shard_hints={"weight": (None, "model"), "bias": ("model",)},
+        # 2*in*out a row, whatever the leading dims (executor.
+        # _estimate_flops); the JAX package's flops_per_item counts one
+        # row a batch item
+        flops_per_element=2 * in_features,
         fp32_keys=("act_scale",),
         act_quant=True,
         act_fold=_linear_act_fold(op),

@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..ir.graph import Operator
+from ..kernels import tracing
 
 
 @dataclass
@@ -35,6 +36,16 @@ class OpImpl:
     # weight_shardings. A column-sharded op computes the output channels
     # of its weight shard (the walk all-gathers them, executor.py)
     shard_hints: dict = field(default_factory=dict)
+    # estimated FLOPs per forward at batch 1 (roofline accounting, the
+    # JAX package's counts): flops_per_item is a complete count per
+    # batch item (attention), flops_per_pixel is multiplied by the op's
+    # output H*W once shapes are inferred (conv), flops_per_element by
+    # its output's elements a batch item (nn.Linear: 2*in a product, one
+    # row a token or a pixel; the JAX package counts one row an item,
+    # ROADMAP.md §3)
+    flops_per_item: int = 0
+    flops_per_pixel: int = 0
+    flops_per_element: int = 0
     # head-sharded attention: tp_apply(model_size, model_index, reduce)
     # -> an apply over this rank's heads (the column shards of wq / wk /
     # wv, the row shard of wo) whose partial output projection
@@ -67,6 +78,19 @@ class OpImpl:
     s8_weight: bool = False
     # head geometry of attention ops, read by zoo/generate.CachedDecoder
     decode_info: Optional[dict] = None
+
+
+def cached(cache: dict, key, make: Callable, x):
+    """cache[key], made by make() at its first use: a lowering's
+    constant made once per device or dtype. While x is traced (a fake
+    tensor: shape inference, torch.export) the value is made afresh and
+    not kept, or a fake constant would reach the later real calls."""
+    if tracing(x):
+        return make()
+    v = cache.get(key)
+    if v is None:
+        v = cache[key] = make()
+    return v
 
 
 class UnsupportedOpError(Exception):

@@ -21,7 +21,8 @@ import torch
 
 from ..ir.graph import PARAM_INT
 from .conv import conv2d_nhwc
-from .registry import OpImpl, register_op, require_attr, require_param
+from .registry import (OpImpl, cached, register_op, require_attr,
+                       require_param)
 
 _ANCHOR_ATTR_INDEX = (4, 2, 0)
 _GRID_ATTR_INDEX = (6, 3, 1)
@@ -58,14 +59,13 @@ def lower_yolo_detect_v8(op, cfg):
     no = 4 * reg_max + nc
     centres: dict = {}   # (H, W, device) -> anchor-cell centres [H*W, 2]
 
-    def centres_of(h, w, device):
-        key = (h, w, device)
-        if key not in centres:
+    def centres_of(h, w, x):
+        def make():
             xv, yv = np.meshgrid(np.arange(w), np.arange(h))
-            centres[key] = torch.from_numpy(
+            return torch.from_numpy(
                 np.stack([xv, yv], -1).reshape(h * w, 2)
-                .astype(np.float32) + 0.5).to(device)
-        return centres[key]
+                .astype(np.float32) + 0.5).to(x.device)
+        return cached(centres, (h, w, x.device), make, x)
 
     def apply(weights, *features):
         bins = torch.arange(reg_max, dtype=torch.float32,
@@ -84,7 +84,7 @@ def lower_yolo_detect_v8(op, cfg):
             d = (d * bins).sum(-1)                   # [N, HW, 4] ltrb
             lt, rb = d[..., :2], d[..., 2:]
             s = float(strides[i])
-            xy = (centres_of(h, w_, x.device) + (rb - lt) * 0.5) * s
+            xy = (centres_of(h, w_, x) + (rb - lt) * 0.5) * s
             wh = (lt + rb) * s
             outs.append(torch.cat([xy, wh, torch.sigmoid(cls)], -1))
         return torch.cat(outs, dim=1)
@@ -171,10 +171,8 @@ def lower_yolo_detect(op, cfg):
             n, h, w_, c = y.shape
             logits.append(y.reshape(n, h * w_, c))
         yf = torch.sigmoid(torch.cat(logits, dim=1).float())
-        consts = device_consts.get(yf.device)
-        if consts is None:
-            consts = device_consts[yf.device] = tuple(
-                t.to(yf.device) for t in host_consts)
+        consts = cached(device_consts, yf.device, lambda: tuple(
+            t.to(yf.device) for t in host_consts), yf)
         stride_rows, xy_mask, wh_mask = consts
         y2 = yf * 2.0
         xy = (y2 + weights["grid"]) * stride_rows

@@ -44,7 +44,10 @@ rank, the primary: each decoder call it makes (admissions, slots,
 positions, cancellations are all in the calls' arguments) is broadcast
 to the other ranks first (`_PlanCast`), whose follower loop replays it
 on their heads, so every collective of the walk meets its peers.
-Clients submit on the primary; stopping it stops the followers.
+Clients submit on the primary; stopping it stops the followers. The
+tiers of a TieredGenerationService share one plan stream: each message
+carries its tier, the primary's tiers send under their shared host
+lock, and one follower loop a rank runs each call on its tier's decoder.
 """
 from __future__ import annotations
 
@@ -189,7 +192,12 @@ class _PlanCast:
     `log`, when a list, takes every call of the plan on every rank as
     (call number, method, arguments, keyword arguments, result), the
     arguments in their broadcast form; `replay` runs such a log again
-    from its first call."""
+    from its first call.
+
+    The tiers of a TieredGenerationService share one stream: every
+    message goes out as (tier, message), and `peers` (the tiers' casts,
+    in tier order; [self] alone) are the decoders a follower's loop
+    runs each call on."""
 
     CALLS = ("init_cache", "prefill_install", "decode_block",
              "merge_tokens")
@@ -203,6 +211,8 @@ class _PlanCast:
     def __init__(self, dec: CachedDecoder, mesh):
         self._dec, self._mesh = dec, mesh
         self.primary = axis_index(mesh, AXIS_MODEL) == 0
+        self.tier = 0
+        self.peers = [self]
         self._n = 0
         self._by_id: dict = {}          # id(obj) -> (key, obj)
         self._by_key: dict = {}         # key -> obj
@@ -222,18 +232,21 @@ class _PlanCast:
         return getattr(self._dec, name)
 
     def send(self, msg) -> None:
-        broadcast_object(msg, self._mesh, AXIS_MODEL, 0)
+        broadcast_object((self.tier, msg), self._mesh, AXIS_MODEL, 0)
         self.last_send = time.monotonic()
 
-    def follow(self) -> None:
-        """Replay the primary's calls until it sends the end of a phase
-        (its warmup, or its scheduler loop)."""
+    def follow(self, ends: int = 1) -> None:
+        """Replay the primary's calls, each on its tier's decoder, until
+        `ends` ends of a phase came (a tier's warmup, or its scheduler
+        loop: one a tier)."""
         while True:
-            msg = broadcast_object(None, self._mesh, AXIS_MODEL, 0)
+            tier, msg = broadcast_object(None, self._mesh, AXIS_MODEL, 0)
             if msg[0] == "end":
-                return
-            if msg[0] == "call":
-                self._run(msg)
+                ends -= 1
+                if ends == 0:
+                    return
+            elif msg[0] == "call":
+                self.peers[tier]._run(msg)
 
     def _run(self, msg):
         _, name, args, kwargs = msg
@@ -643,11 +656,11 @@ class GenerationService:
                               else 60 if drain else 5)
             self._thread = None
 
-    def _follow(self) -> None:
+    def _follow(self, ends: int = 1) -> None:
         dev = self._cast._dec._device
         if dev.type == "cuda" and dev.index is not None:
             torch.cuda.set_device(dev)
-        self._cast.follow()
+        self._cast.follow(ends)
 
     # ---- scheduler loop --------------------------------------------------
     def _fetch(self, toks) -> np.ndarray:
@@ -687,14 +700,16 @@ class GenerationService:
         if self._cast is None:
             return
         try:
-            self._cast.send(("end",))
+            with self._host:         # the tiers' sends share one stream
+                self._cast.send(("end",))
         except Exception:  # noqa: BLE001 (a boundary: the loop is over)
             logging.getLogger(__name__).exception(
                 "could not stop the tensor-parallel followers")
 
     def _loop_inner(self) -> None:
         n = self._slots
-        caches = self._dec.init_cache(n)
+        with self._host:             # a decoder call: the tiers' stream
+            caches = self._dec.init_cache(n)
         active: list[_GenRequest | None] = [None] * n
         self._active = active
         bufs = np.zeros((n, self._window), np.int64)
@@ -812,7 +827,8 @@ class GenerationService:
                 can_admit = bool(self._queue) and any(
                     r is None for r in active)
             if idle_tick:
-                self._cast.send(("tick",))
+                with self._host:     # the tiers' sends share one stream
+                    self._cast.send(("tick",))
                 continue
             # the pass runs under the host lock, the wait above outside it
             with self._host:
@@ -954,15 +970,17 @@ class TieredGenerationService:
     tiers: (slots, window) pairs, windows strictly ascending; the last
     window may be None (the model's seq_len). kwargs go to every
     GenerationService.
+
+    On a tensor-parallel engine the tiers' plans share one stream
+    (_PlanCast): the primary's schedulers send their decoder calls
+    tagged with their tier, under the shared host lock, so the calls
+    reach the stream in the order they run; a follower runs one loop
+    that replays each call on its tier's decoder, and refuses clients.
     """
 
     def __init__(self, engine, tiers=((8, 512), (8, None)), **kwargs):
         if not tiers:
             raise ValueError("need at least one (slots, window) tier")
-        if getattr(engine, "mesh", None) is not None:
-            raise ValueError("a tensor-parallel engine serves through one "
-                             "GenerationService (its followers replay one "
-                             "scheduler)")
         self.services = [GenerationService(engine, slots=int(slots),
                                            window=window, **kwargs)
                          for slots, window in tiers]
@@ -974,6 +992,17 @@ class TieredGenerationService:
         host = _FairLock()
         for svc in self.services:
             svc._host = host
+        casts = [svc._cast for svc in self.services]
+        if casts[0] is not None:
+            for i, cast in enumerate(casts):
+                cast.tier, cast.peers = i, casts
+        self._follow_thread: threading.Thread | None = None
+
+    @property
+    def follower(self) -> bool:
+        """True on a tensor-parallel rank that replays the primary's
+        tiers (no schedulers, no clients)."""
+        return self.services[0].follower
 
     # ---- lifecycle (every tier) -----------------------------------------
     def warmup(self) -> "TieredGenerationService":
@@ -982,11 +1011,24 @@ class TieredGenerationService:
         return self
 
     def start(self) -> "TieredGenerationService":
+        if self.follower:
+            # one loop for the tiers' one stream, until every tier ended
+            svc = self.services[0]
+            self._follow_thread = threading.Thread(
+                target=svc._follow, kwargs={"ends": len(self.services)},
+                daemon=True, name="si-genservice-tiers")
+            self._follow_thread.start()
+            return self
         for svc in self.services:
             svc.start()
         return self
 
     def stop(self, drain: bool = True) -> None:
+        """Stop every tier's scheduler; on a follower, wait until the
+        primary's tiers have all stopped."""
+        if self._follow_thread is not None:
+            self._follow_thread.join()
+            self._follow_thread = None
         for svc in self.services:
             svc.stop(drain=drain)
 

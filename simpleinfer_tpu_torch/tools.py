@@ -8,6 +8,10 @@ simpleinfer_tpu/tools.py.
 - `calibrate` offline static-int8 calibration -> scales npz
 - `serve`     HTTP inference server over a continuous-batching service
               (`--generate`: KV-cache generation of a causal LM)
+- `roofline`  per-op FLOPs, bytes and speed-of-light table (profiling.py)
+- `profile`   the forward's CUDA kernels by device self time
+              (torch.profiler)
+- `export`    a self-contained torch.export artifact (load_exported)
 
 Every command that runs a model takes `--device` (default `cuda`): it
 runs on the card unless asked for the CPU (`--device cpu`), and asking
@@ -154,6 +158,81 @@ def cmd_calibrate(args) -> int:
     eng.save_calibration(args.out)
     print(f"calibrated {len(scales)} ops from {len(args.samples)} "
           f"sample file(s) -> {args.out}")
+    return 0
+
+
+def cmd_roofline(args) -> int:
+    from .config import EngineConfig
+    from .engine import resolve_device
+    from .executor import build_program
+    from .ir.graph import Graph
+    from .profiling import summarize_roofline
+
+    resolve_device(args.device)
+    g = Graph.load(args.param, args.bin)
+    program = build_program(g, EngineConfig(device=args.device))
+    try:
+        print(summarize_roofline(program, batch=args.batch,
+                                 dtype=args.dtype, top=args.top))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Measured per-kernel device profile (the runtime complement of
+    `roofline`'s static table): loads the model, runs one forward
+    outside the capture, traces N forwards with torch.profiler, prints
+    the kernels by self time, with the model's GFLOP/s over the whole
+    device time."""
+    import numpy as np
+
+    from . import Engine, EngineConfig
+    from .profiling import device_profile, format_kernel_stats
+
+    cfg = EngineConfig(compute_dtype=args.dtype, quant=args.quant,
+                       device=args.device)
+    eng = Engine(cfg).load_model(args.param, args.bin)
+    spec = eng.program.inputs[0]
+    shape = [args.batch if d == -1 else d for d in (spec.shape or [])]
+    if not shape:
+        raise SystemExit("model declares no input shape; cannot profile")
+    if cfg.io_layout == "nchw" and len(shape) == 4:
+        shape = [shape[0], shape[3], shape[1], shape[2]]
+    x = (np.random.default_rng(0).standard_normal(shape)
+         .astype(np.float32) / 4.0)
+    name = spec.name
+    if cfg.quant == "int8":
+        eng.calibrate([{name: x}])
+    eng.input(name, x)
+    flops = eng.program.flops_per_item
+    rows = device_profile(eng.forward, iters=args.iters, logdir=args.logdir,
+                          device=eng.device)
+    print(format_kernel_stats(rows, top=args.top, iters=args.iters))
+    busy_us = sum(r["total_self_time"] for r in rows)
+    if flops is None:
+        print("\nmodel: FLOPs unknown (the op shapes could not be "
+              "inferred)")
+    elif busy_us > 0:
+        total = flops * shape[0] * args.iters
+        print(f"\nmodel: {total / args.iters / 1e9:.2f} GFLOP a forward, "
+              f"{total / (busy_us * 1e3):.0f} GFLOP/s over the "
+              f"{'device' if eng.device.type == 'cuda' else 'host'} "
+              f"self time")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Write a model as a self-contained torch.export artifact."""
+    from . import Engine, EngineConfig
+
+    cfg = EngineConfig(compute_dtype=args.dtype, quant=args.quant,
+                       device=args.device)
+    eng = Engine(cfg).load_model(args.param, args.bin)
+    if cfg.quant == "int8" and args.calibration:
+        eng.load_calibration(args.calibration)
+    eng.export_model(args.out, batch=args.batch)
+    print(f"wrote {args.out}")
     return 0
 
 
@@ -460,6 +539,52 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     p.set_defaults(fn=cmd_calibrate)
+
+    p = sub.add_parser("profile",
+                       help="measured per-kernel device profile "
+                            "(torch.profiler)")
+    p.add_argument("param")
+    p.add_argument("bin", nargs="?")
+    p.add_argument("--batch", type=int, default=1,
+                   help="substituted for ?-dims in the declared shape")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--quant", choices=["int8w", "int8", "int4w"])
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--top", type=int, default=30)
+    p.add_argument("--logdir", help="directory for the Chrome trace")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("export",
+                       help="write a self-contained torch.export artifact "
+                            "(weights inside; load with "
+                            "simpleinfer_tpu_torch.load_exported)")
+    p.add_argument("param")
+    p.add_argument("bin", nargs="?")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--quant", choices=["int8w", "int8", "int4w"])
+    p.add_argument("--calibration",
+                   help="scales npz (from the calibrate command) for "
+                        "--quant int8")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("roofline", help="per-op roofline cost table")
+    p.add_argument("param")
+    p.add_argument("bin", nargs="?")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--top", type=int, default=20)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the model would run on (default "
+                        "cuda; raises without a card)")
+    p.set_defaults(fn=cmd_roofline)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1149,3 +1149,142 @@ def test_chip_smoke_imports_rehearsal_on_card(cuda, monkeypatch):
     for r in (*res["export"].values(), *res["zoo_rest"].values()):
         assert r["matmul_int8w_launches"] == r["matmul_int8w_calls"] > 0
     assert res["compat"]["bit_equal"]
+
+
+# ---- the tooling slice: the kernels as custom ops, export, profiling ----
+@pytest.mark.cuda
+def test_custom_ops_launch_the_kernels_on_card(cuda):
+    """torch.ops.simpleinfer.* on CUDA tensors run the kernels (each
+    counted once), equal to the wrappers' direct launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 96, device=cuda, generator=g).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (96, 80), device=cuda, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(80, device=cuda, generator=g) / 100
+    before = tmm.launches
+    a = torch.ops.simpleinfer.matmul_int8w(x, wq, scale, None, "silu",
+                                           torch.bfloat16)
+    assert tmm.launches == before + 1
+    assert torch.equal(a, tmm.matmul_int8w(x, wq, scale, None, "silu"))
+    q = torch.randn(2, 4, 256, 64, device=cuda,
+                    generator=g).to(torch.bfloat16)
+    before = kattn.launches
+    o = torch.ops.simpleinfer.flash_attention(q, q, q, True, 0.125, None)
+    assert kattn.launches == before + 1
+    assert torch.equal(o, kattn.flash_attention(q, q, q, causal=True,
+                                                scale=0.125))
+
+
+@pytest.mark.cuda
+def test_export_artifact_on_card(cuda, tmp_path):
+    """A bf16 int8w yolov5n exported on the card: its graph holds
+    simpleinfer::matmul_int8w, the reloaded artifact launches the kernel
+    (the counter) and equals Engine.run."""
+    from simpleinfer_tpu_torch import load_exported
+
+    g, i, o = build_yolov5("n", batch=2, image_size=64)
+    eng = Engine(EngineConfig(quant="int8w")).load_model(None, graph=g)
+    x = np.random.default_rng(3).random((2, 64, 64, 3), np.float32)
+    want = eng.run({i: x})[o]
+    path = str(tmp_path / "y.pt2")
+    eng.export_model(path)
+    ep = torch.export.load(path)
+    assert "simpleinfer.matmul_int8w.default" in {
+        str(n.target) for n in ep.graph.nodes}
+    fn = load_exported(path)
+    before = tmm.launches
+    got = fn({i: x})[o]
+    assert tmm.launches > before
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_static_int8_c3_artifact_on_card(cuda, tmp_path, monkeypatch):
+    """A calibrated static-int8 yolov5n with c3_fusion exported on the
+    card (every block on c3_block: its gate at 0): the reloaded artifact
+    launches matmul_s8s8 and c3_block (the counters) and equals
+    Engine.run."""
+    from simpleinfer_tpu_torch import load_exported
+
+    monkeypatch.setattr(kc3, "C3_MIN_WORK", 0)
+    g, i, o = build_yolov5("n", batch=2, image_size=64)
+    eng = Engine(EngineConfig(quant="int8", c3_fusion=True)).load_model(
+        None, graph=g)
+    x = np.random.default_rng(9).random((2, 64, 64, 3), np.float32)
+    eng.calibrate([{i: x}])
+    want = eng.run({i: x})[o]
+    path = str(tmp_path / "s8.pt2")
+    eng.export_model(path)
+    fn = load_exported(path)
+    s8, c3 = tmm.launches_s8s8, kc3.launches
+    got = fn({i: x})[o]
+    assert tmm.launches_s8s8 > s8 and kc3.launches > c3
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_profile_records_a_library_loaded_after_a_session(cuda, tmp_path,
+                                                         monkeypatch):
+    """In this process: a profiler session ends, then a kernel library
+    is loaded afresh (a copy of matmul.cu's, with its own static CUDA
+    runtime) and profiled: every launch is recorded. With CUPTI torn
+    down after each session (TEARDOWN_CUPTI=1, Kineto's default) the
+    next session lost such a library's launches, and device_profile
+    raised in the long card-test process (PERF.md §7)."""
+    import ctypes
+    import shutil
+
+    from simpleinfer_tpu_torch import profiling
+    from simpleinfer_tpu_torch.kernels import build
+
+    a = torch.randn(64, 64, device=cuda)
+    profiling.device_profile(torch.matmul, a, a, iters=1)
+    tmm.load_library()                      # built if it is not
+    copy = tmp_path / "libmatmul_copy.so"
+    shutil.copy(build.library_path(tmm.SOURCE), copy)
+    fresh = ctypes.CDLL(str(copy))
+    tmm._bind(fresh)
+    monkeypatch.setitem(build._libs, tmm.SOURCE, fresh)
+    x = torch.randn(256, 512, device=cuda).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (512, 256), device=cuda, dtype=torch.int8)
+    s = torch.rand(256, device=cuda)
+    rows = profiling.device_profile(tmm.matmul_int8w, x, wq, s, iters=3)
+    assert sum(r["occurrences"] for r in rows
+               if r["category"] == "si:matmul") == 3, rows
+
+
+# device_profile in a process of its own, as chip_smoke.py and the CLI
+# run it
+_PROFILE_CHILD = """
+import torch
+from simpleinfer_tpu_torch import profiling
+from simpleinfer_tpu_torch.kernels import matmul as tmm
+x = torch.randn(256, 512, device="cuda").to(torch.bfloat16)
+wq = torch.randint(-127, 128, (512, 256), device="cuda", dtype=torch.int8)
+s = torch.rand(256, device="cuda")
+rows = profiling.device_profile(tmm.matmul_int8w, x, wq, s, iters=3,
+                                flops={"si:matmul": 3 * 2 * 256 ** 2 * 512})
+cats = {r["category"] for r in rows}
+assert "si:matmul" in cats and "cpu" not in cats, cats
+assert all(r["model_flop_rate"] for r in rows
+           if r["category"] == "si:matmul")
+assert profiling.measure_device_time(tmm.matmul_int8w, x, wq, s) > 0
+assert profiling.chip_speed_factor(iters=5) > 0
+print("OK")
+"""
+
+
+@pytest.mark.cuda
+def test_profiling_reads_the_card(cuda):
+    """device_profile's rows are CUDA kernels (si:matmul among them, with
+    its GFLOP/s); measure_device_time and chip_speed_factor read CUDA
+    events."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _PROFILE_CHILD], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), \
+        r.stderr[-3000:]

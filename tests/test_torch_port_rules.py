@@ -67,7 +67,8 @@ def test_forbidden_tells_the_packages_apart():
 
 def test_runs_without_jax():
     """With jax made unimportable, the port imports and runs a tiny CPU
-    forward, and the JAX package is never loaded."""
+    forward and its roofline table (profiling.py), and the JAX package
+    is never loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -79,6 +80,8 @@ def test_runs_without_jax():
         "                        use_kernels=True)).load_model(None, graph=g)\n"
         "out = e.run({i: np.zeros((1, 32, 32, 3), np.float32)})[o]\n"
         "assert out.shape == (1, 63, 85), out.shape\n"
+        "from simpleinfer_tpu_torch import profiling\n"
+        "assert 'GFLOP' in profiling.summarize_roofline(e.program)\n"
         "assert not any(m == 'simpleinfer_tpu' or\n"
         "               m.startswith('simpleinfer_tpu.') for m in sys.modules)\n"
         "print('OK')\n")

@@ -198,21 +198,53 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(models):
                  ["detect", *models["yolo"], models["images"][0],
                   "--size", "64"],
                  ["classify", *models["resnet"], models["images"][0]],
-                 ["segment", *models["unet"], models["images"][0]]):
+                 ["segment", *models["unet"], models["images"][0]],
+                 ["roofline", *models["yolo"]],
+                 ["profile", *models["yolo"]],
+                 ["export", *models["yolo"], "-o", "x.pt2"]):
         with pytest.raises(RuntimeError, match="cuda"):
             tools.main(argv)
 
 
-def test_parser_leaves_out_the_unported_commands(models, capsys):
-    """profile, roofline and export are not ported (ROADMAP.md §1 item
-    6)."""
-    for argv in (["roofline", *models["yolo"]],
-                 ["profile", *models["yolo"]],
-                 ["export", *models["yolo"], "-o", "x"]):
-        with pytest.raises(SystemExit) as ei:
-            tools.main(argv)
-        assert ei.value.code == 2
-    capsys.readouterr()
+def test_roofline_cli_matches_jax(models):
+    """`roofline --device cpu` prints the JAX CLI's op count and GFLOP a
+    batch (the speed-of-light differs: the port's spec is the H100's)."""
+    args = ["roofline", *models["yolo"], "--batch", "8", "--top", "5"]
+    got = _run(tools.main, args + ["--device", "cpu"]).splitlines()
+    want = _run(jmain, args).splitlines()
+    assert got[0].split(",")[:2] == want[0].split(",")[:2]
+    assert "GFLOP/batch8" in got[0] and "h100" in got[0]
+    assert len(got) == len(want) == 7
+
+
+def test_profile_cli_on_the_cpu(models, tmp_path):
+    """`profile --device cpu --quant int8` calibrates on its batch and
+    prints the ops by self time (CPU ops: no card) with the model's
+    GFLOP a forward, and writes its Chrome trace."""
+    out = _run(tools.main, ["profile", *models["yolo"], "--device", "cpu",
+                            "--quant", "int8", "--iters", "2", "--top", "5",
+                            "--logdir", str(tmp_path / "tr")])
+    assert "ms/iter (2 iters)" in out and "cpu" in out
+    assert "GFLOP a forward" in out
+    assert os.path.exists(tmp_path / "tr" / "trace.json")
+
+
+def test_export_cli_on_the_cpu(models, tmp_path):
+    """`export --device cpu` writes an artifact that load_exported runs
+    like the engine the command built."""
+    from simpleinfer_tpu_torch import load_exported
+
+    path = str(tmp_path / "y.pt2")
+    out = _run(tools.main, ["export", *models["yolo"], "--device", "cpu",
+                            "--dtype", "float32", "--batch", "2", "-o",
+                            path])
+    assert out.strip() == f"wrote {path}"
+    eng = Engine(EngineConfig(device="cpu", compute_dtype="float32")
+                 ).load_model(*models["yolo"])
+    x = RNG.standard_normal((2, 64, 64, 3)).astype(np.float32) / 4
+    i, o = eng.input_names[0], eng.output_names[0]
+    np.testing.assert_allclose(load_exported(path)({i: x})[o],
+                               eng.run({i: x})[o], atol=1e-5, rtol=1e-5)
 
 
 def test_serve_subprocess_smoke(models):

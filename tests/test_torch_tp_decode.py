@@ -162,3 +162,23 @@ def test_llama_tp_generation_service(ranks, solo, mode):
             out, dec.generate(np.asarray([p]), steps=6)[0])
     for r in ranks[1:]:
         assert r[f"served_{mode}"] == [] and r["follower_submit"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_llama_tp_tiered_generation_service(ranks, solo, mode):
+    """TieredGenerationService on the TP engine: both tiers serve, each
+    reply equals the single-device decode of its prompt; the followers
+    replay every call of each tier's plan from the one stream and
+    refuse clients."""
+    eng = solo[0]
+    dec = CachedDecoder(eng)
+    got = ranks[0][f"tiered_{mode}"]
+    assert len(got) == len(T.SERVE_PROMPTS)
+    for p, out in zip(T.SERVE_PROMPTS, got):
+        np.testing.assert_array_equal(
+            out, dec.generate(np.asarray([p]), steps=6)[0])
+    calls = ranks[0][f"tier_calls_{mode}"]
+    assert (calls > 0).all()          # both tiers ran decoder calls
+    for r in ranks[1:]:
+        assert r[f"tiered_{mode}"] == [] and r["tier_follower_submit"]
+        np.testing.assert_array_equal(r[f"tier_calls_{mode}"], calls)

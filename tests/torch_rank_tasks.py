@@ -272,6 +272,9 @@ def mesh_engine_cases() -> dict:
 # ---- tests/test_torch_tp_decode.py ------------------------------------------
 PROMPT = [[5, 1, 8], [2, 9, 3]]
 SERVE_PROMPTS = ([5, 1, 8], [2, 9, 3, 4], [7, 7])
+# the TP tiers: [7, 7] + 6 new tokens fits the 8-slot window, the other
+# two prompts go to the full one
+TP_TIERS = ((2, 8), (2, None))
 
 
 def tp_graph(zoo, which: str):
@@ -295,12 +298,15 @@ def tp_decode_cases() -> dict:
     logits of ring and gspmd engines (llama micro, GPT nano), the
     indivisible-heads fallback, the kv heads a rank's cache holds, a
     data-axis decoder's refusal, sampled decode agreeing across ranks,
-    and GenerationService on the TP engine in both modes."""
+    and GenerationService and TieredGenerationService (TP_TIERS) on the
+    TP engine in both modes, with the calls each tier's plan ran on
+    every rank."""
     import torch.distributed as dist
 
     from simpleinfer_tpu_torch import Engine, EngineConfig, MeshConfig
     from simpleinfer_tpu_torch import zoo
-    from simpleinfer_tpu_torch.serving.llm import GenerationService
+    from simpleinfer_tpu_torch.serving.llm import (GenerationService,
+                                                   TieredGenerationService)
     from simpleinfer_tpu_torch.zoo.generate import CachedDecoder
 
     with _clock() as clock:
@@ -335,6 +341,25 @@ def tp_decode_cases() -> dict:
                     out["follower_submit"] = np.asarray(True)
             svc.stop()
             out[f"served_{mode}"] = outs
+            tsvc = TieredGenerationService(eng, tiers=TP_TIERS,
+                                           decode_horizon=3).warmup()
+            for s in tsvc.services:
+                s._cast.log = []
+            tsvc.start()
+            outs = []
+            if not tsvc.follower:
+                futs = [tsvc.submit(p, max_new=6) for p in SERVE_PROMPTS]
+                outs = [f.result(timeout=60) for f in futs]
+            else:
+                try:
+                    tsvc.submit([7, 7], max_new=2)
+                    out["tier_follower_submit"] = np.asarray(False)
+                except RuntimeError:
+                    out["tier_follower_submit"] = np.asarray(True)
+            tsvc.stop()
+            out[f"tiered_{mode}"] = outs
+            out[f"tier_calls_{mode}"] = np.asarray(
+                [len(s._cast.log) for s in tsvc.services])
         gg, gi, go = tp_graph(zoo, "gpt")
         for mode in ("gspmd", "ring"):
             eng = Engine(EngineConfig(device="cpu", mesh=MeshConfig(model=TP),
