@@ -1,0 +1,2 @@
+"""General traffic generators, one per kind of traffic; a traffic file
+names its driver."""
